@@ -1,0 +1,69 @@
+"""Public wrappers of the GNN layer kernels.
+
+A CUDA tensor launches the hand-written kernel (or the kernel module
+raises); a CPU tensor takes the kernel's plain version.  Nothing falls back
+from the card to the CPU.
+
+``LAUNCHES`` counts, per kernel, the launches these wrappers made: each
+wrapper adds one right after its kernel launched, and nowhere else, so a run
+can show that its main path went through the kernels.
+
+The aggregate and combine passes stay two launches, never joined under a
+CUDA graph or ``torch.compile``: the pair is the HyGCN inter-phase analogue,
+and one program would remove exactly the traffic it models.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import edge_aggregate as ea
+from . import edge_aggregate_unfused as eu
+
+__all__ = ["LAUNCHES", "reset_launches", "gnn_aggregate_combine",
+           "gnn_aggregate", "gnn_combine"]
+
+LAUNCHES = {"edge_aggregate": 0, "edge_aggregate_unfused.aggregate": 0,
+            "edge_aggregate_unfused.combine": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def gnn_aggregate_combine(adjacency: torch.Tensor, x: torch.Tensor,
+                          w: torch.Tensor, *, block_n: int = 256,
+                          block_k: int = 256) -> torch.Tensor:
+    """Fused Y = (A @ X) @ W (kernel K1 on CUDA)."""
+    if x.device.type == "cuda":
+        out = ea.fused_aggregate_combine(adjacency, x, w, block_n=block_n,
+                                         block_k=block_k)
+        LAUNCHES["edge_aggregate"] += 1
+        return out
+    ea.fused_launch_tensors(adjacency, x, w, block_n=block_n, block_k=block_k)
+    return ea.fused_aggregate_combine_plain(adjacency, x, w)
+
+
+def gnn_aggregate(adjacency: torch.Tensor, x: torch.Tensor, *,
+                  block_n: int = 256, block_k: int = 256) -> torch.Tensor:
+    """Unfused pass 1: Y_agg = A @ X, materialised in memory (K2 on CUDA)."""
+    if x.device.type == "cuda":
+        out = eu.aggregate_pass(adjacency, x, block_n=block_n,
+                                block_k=block_k)
+        LAUNCHES["edge_aggregate_unfused.aggregate"] += 1
+        return out
+    eu.aggregate_launch_tensors(adjacency, x, block_n=block_n,
+                                block_k=block_k)
+    return eu.aggregate_pass_plain(adjacency, x)
+
+
+def gnn_combine(y_agg: torch.Tensor, w: torch.Tensor, *,
+                block_n: int = 256) -> torch.Tensor:
+    """Unfused pass 2: Y = Y_agg @ W, reading the spill back (K3 on CUDA)."""
+    if y_agg.device.type == "cuda":
+        out = eu.combine_pass(y_agg, w, block_n=block_n)
+        LAUNCHES["edge_aggregate_unfused.combine"] += 1
+        return out
+    eu.combine_launch_tensors(y_agg, w, block_n=block_n)
+    return eu.combine_pass_plain(y_agg, w)
