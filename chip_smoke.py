@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's GNN layer on one NVIDIA GPU and check it.
+"""Drive the PyTorch + CUDA port on one NVIDIA GPU and check it.
 
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and ``nvcc``; without a card it exits 1 and prints no
@@ -11,15 +11,32 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    on the card, f32 and bf16, at the reference's four kernel-test shapes and
    at the two full-width GCN-Cora layers (seeded Cora-sized graph, GCN
    weights in the reference layout), against their plain PyTorch versions;
-4. main path: the launch counters are zeroed, then the 2-layer GCN-Cora
-   forward runs fused and unfused through ``repro_torch.kernels.ops``, and
-   the conformance harness holds the kernels' byte schedules to their
-   closed forms at all twelve operating points and runs them against the
-   fp32 oracle; the counters are read right after, and every kernel must
-   have launched;
-5. times at each Cora layer (CUDA events, median, warm L2): each kernel
+4. the GNN layer path: the launch counters are zeroed, then the 2-layer
+   GCN-Cora forward runs fused and unfused through ``repro_torch.kernels.
+   ops``, and the conformance harness holds the kernels' byte schedules to
+   their closed forms at all twelve operating points and runs them against
+   the fp32 oracle; the counters are read right after, and every layer
+   kernel must have launched;
+5. times at each Cora layer (CUDA events around one call queued behind a
+   device-side sleep, median of 20, warm L2): each kernel
    beside its bound, its plain version and one PyTorch library call that
-   computes the same function (timed here only; the port never calls it).
+   computes the same function (timed here only; the port never calls it);
+6. K4 (the trace segment reduce) against its plain version, bit for bit:
+   every trace dataset at the reference test battery's parameters and
+   capacities, an int64-index case, a 2^53-scale multiplicity case, and the
+   10^7-edge graph of phase 7 at all 16 capacities;
+7. the exact-trace path: the counters are zeroed, then
+   ``examples/scenarios/trace_smoke.json`` runs through the scenario front
+   door (its three pins must hold), and ``TiledGraphModel`` sweeps 16 tile
+   capacities of a 10^7-edge power-law graph (V = 10^6) for ``engn``,
+   ``hygcn``, ``awb_gcn`` and a GCN-Cora-width ``engn`` stack, plus the
+   10^6-edge graph's sweep; the counters are read right after.  Every
+   schedule and every term must equal the NumPy engine's bit for bit, and
+   the 10^6-edge schedules the per-capacity ``np.unique`` oracle's;
+8. times of K4 per capacity of the 10^7-edge sweep (CUDA events, median of
+   20) beside its byte bound, its plain version and ``index_add_``, and the
+   host-clock times of the factorization and of the whole sweep under each
+   engine.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -33,6 +50,9 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+import torch
+
 #: f32 against the fp32 plain versions (sums in another order); bf16 allows
 #: one bf16 rounding of the output (and of the spilled aggregate).
 TOLERANCE = {"f32": 1e-5, "bf16": 3e-2}
@@ -42,6 +62,34 @@ TEST_SHAPES = ((256, 32, 8, 128, 128), (512, 64, 16, 128, 256),
 #: Published H100 SXM peaks at 700 W: HBM bytes/s, fp32 (non-tensor) op/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+#: K4's integer operations per pair: two divisions, three compares, the
+#: flag or, and two adds.  They are set against the fp32 non-tensor peak:
+#: the table has no integer rate outside the tensor cores, and the bound is
+#: bytes by a factor of about 40 either way.
+K4_OPS_PER_PAIR = 8
+#: The reference trace battery's datasets and parameters
+#: (tests/test_trace_engine.py), without the sharded build.
+TRACE_DATASETS = {
+    "power_law": {"n_nodes": 1200, "n_edges": 9000, "seed": 1, "alpha": 1.5},
+    "power_law_stream": {"n_nodes": 1200, "n_edges": 9000, "seed": 1,
+                         "alpha": 1.5},
+    "cora": {},
+    "molecule": {"batch": 16, "n_nodes": 12, "n_edges": 30},
+    "ring_of_tiles": {"n_nodes": 512, "n_tiles": 8},
+}
+#: The largest single-host case of benchmarks/trace_scale.py, and the
+#: 10^6-edge case its per-capacity reference still runs on.
+BIG_TRACE = {"n_nodes": 1_000_000, "n_edges": 10_000_000, "seed": 0,
+             "alpha": 1.6}
+MID_TRACE = {"n_nodes": 100_000, "n_edges": 1_000_000, "seed": 0,
+             "alpha": 1.6}
+SWEEP_POINTS = 16
+TRACE_SMOKE = (Path(__file__).resolve().parent / "examples" / "scenarios"
+               / "trace_smoke.json")
+TRACE_SMOKE_PINS = (5631360.0, 3763936.0, 898720.0)
+TRACE_DATAFLOWS = ("engn", "hygcn", "awb_gcn")
+LAYER_KERNELS = ("edge_aggregate", "edge_aggregate_unfused.aggregate",
+                 "edge_aggregate_unfused.combine")
 KERNELS = {
     "edge_aggregate": {
         "source": "src/repro_torch/csrc/edge_aggregate.cu",
@@ -52,6 +100,9 @@ KERNELS = {
     "edge_aggregate_unfused.combine": {
         "source": "src/repro_torch/csrc/edge_aggregate_unfused.cu",
         "replaces": "src/repro/kernels/edge_aggregate_unfused.py:52"},
+    "segment_reduce.schedule_counts": {
+        "source": "src/repro_torch/csrc/segment_reduce.cu",
+        "replaces": "src/repro/kernels/segment_reduce.py:102"},
 }
 
 
@@ -64,6 +115,12 @@ def abs_err(out, expect) -> float:
     return float((out.float() - expect.float()).abs().max())
 
 
+#: Device-side sleep queued before each timed call, in clock cycles (about
+#: 2.5 ms): the host enqueues the call while the card sleeps, so the events
+#: time the card's work and not the host's launch overhead.
+SLEEP_CYCLES = 5_000_000
+
+
 def time_ms(torch, fn, reps: int = 20) -> float:
     """Median of ``reps`` CUDA-event timings of one call, after warm-up."""
     for _ in range(3):
@@ -73,6 +130,7 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -81,9 +139,239 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(samples)
 
 
-def main() -> int:
-    import torch
+def pow2_caps(n_nodes: int, points: int) -> list[int]:
+    """benchmarks/trace_scale.py's sweep: n_nodes/2, n_nodes/4, ...,
+    ``points`` distinct capacities."""
+    caps: list[int] = []
+    i = 1
+    while len(caps) < points:
+        cap = max(1, n_nodes >> i)
+        if caps and cap == caps[-1]:
+            break
+        caps.append(cap)
+        i += 1
+    return caps
 
+
+def battery_caps(n_nodes: int) -> list[int]:
+    """The reference trace battery's capacities (tests/test_trace_engine.py)."""
+    return sorted({max(1, n_nodes >> i) for i in range(1, 11, 2)} | {n_nodes})
+
+
+def pair_tensors(trace, dev) -> tuple:
+    """A trace's factorization as K4's operands on ``dev``."""
+    u_snd, u_rcv, u_new_src, mp = trace._pair_factorization()
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (u_snd, u_rcv, u_new_src, np.diff(mp)))
+
+
+def hot_pair_case(total: int) -> tuple:
+    """tests/test_trace_engine.py's 2^53 case: 96 vertices, int64 pairs, one
+    pair carrying nearly all of ``total`` edges."""
+    V = 96
+    rng = np.random.default_rng(11)
+    keys = np.unique(rng.integers(0, V * V, size=4 * V))
+    u_snd, u_rcv = keys // V, keys % V
+    mult = np.ones(u_snd.size, dtype=np.int64)
+    mult[u_snd.size // 3] = total - (u_snd.size - 1)
+    new_src = np.concatenate([[True], u_snd[1:] != u_snd[:-1]])
+    return V, (u_snd, u_rcv, new_src, mult)
+
+
+def trace_models(trace, caps, device) -> dict:
+    """The sweep of phase 7: three dataflows at N = 30, T = 5 and EnGN at
+    the GCN-Cora widths, over the capacity axis of one trace."""
+    from repro_torch.core.compose import MultiLayerModel, TiledGraphModel
+
+    tv = np.asarray(caps, dtype=np.float64)
+    models = {name: TiledGraphModel(name, tile_vertices=tv, trace=trace,
+                                    device=device)
+              for name in TRACE_DATAFLOWS}
+    models["engn_gcn_cora"] = TiledGraphModel(
+        MultiLayerModel("engn", (1433.0, 16.0, 7.0)), tile_vertices=tv,
+        trace=trace, device=device)
+    return models
+
+
+def same_schedules(got, expect, label: str) -> None:
+    for g, e in zip(got, expect, strict=True):
+        for key, value in e.counts_dict().items():
+            if not np.array_equal(g.counts_dict()[key], value):
+                raise AssertionError(f"{label}: cap={e.capacity} {key} "
+                                     "differs")
+
+
+def trace_phases(dev, card: str, launches: dict, max_abs: dict,
+                 totals: dict) -> None:
+    """Phases 6-8: K4 against its plain version, the exact-trace path, and
+    K4's times.  Fills K4's entries of ``launches``, ``max_abs`` and
+    ``totals``."""
+    from repro_torch.api import evaluate_scenarios, load_scenarios
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.core.compose import FullGraphParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+
+    k4 = "segment_reduce.schedule_counts"
+    # Set-up: the two large graphs (generation, CSR row pointer, and the
+    # host factorization every capacity shares).
+    t0 = time.perf_counter()
+    big = trace_mod.resolve_trace_dataset("power_law_stream", BIG_TRACE)
+    mid = trace_mod.resolve_trace_dataset("power_law_stream", MID_TRACE)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big._pair_factorization()
+    fact_s = time.perf_counter() - t0
+    mid._pair_factorization()
+    U = big._pair_factorization()[0].size
+    caps = pow2_caps(big.n_nodes, SWEEP_POINTS)
+    print(f"# trace set-up: power_law_stream V={big.n_nodes} "
+          f"E={big.n_edges} U={U} generated in {gen_s:.3f} s (with the "
+          f"10^6-edge graph), factorized on the host in {fact_s:.3f} s; "
+          f"capacities {caps}")
+
+    # 6. K4 vs its plain version on the card, bit for bit.
+    cases = []
+    for name, params in TRACE_DATASETS.items():
+        tr = trace_mod.resolve_trace_dataset(name, params)
+        t = pair_tensors(tr, dev)
+        cases += [(f"{name}@{cap}", t, *tr._geometry(cap))
+                  for cap in battery_caps(tr.n_nodes)]
+    V = 3_000_000_000  # ids past int32: the int64-index instantiation
+    wide = tuple(torch.tensor(a, device=dev) for a in (
+        [0, 5, 2_999_999_999, 2_999_999_999],
+        [2_999_999_998, 7, 1, 2_000_000_000],
+        [True, True, True, False], [3, 1, 2**40, 1]))
+    cases += [(f"int64-ids@{cap}", wide, -(-V // cap),
+               -(-V // -(-V // cap))) for cap in (V // 2, V // 1000, 12345)]
+    for total in (2**53 - 1, 2**53 + 4097):
+        hv, arrays = hot_pair_case(total)
+        hot = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        cases += [(f"2^53-mult({total})@{cap}", hot, -(-hv // cap),
+                   -(-hv // -(-hv // cap))) for cap in battery_caps(hv)]
+    big_t = pair_tensors(big, dev)
+    cases += [(f"power_law_stream-1e7@{cap}", big_t, *big._geometry(cap))
+              for cap in caps]
+    for label, tensors, n_tiles, K in cases:
+        got = sr.schedule_counts(*tensors, K, n_tiles)
+        expect = sr.schedule_counts_plain(*tensors, K, n_tiles)
+        err = max(int((g - e).abs().max()) for g, e in zip(got, expect))
+        if not all(torch.equal(g, e) for g, e in zip(got, expect)):
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"{label}: max abs err {err}")
+        max_abs[k4] = max(max_abs[k4], float(err))
+    torch.cuda.synchronize()
+    print(f"# check {k4}: {len(cases)} cases bit-identical to the plain "
+          f"version (tolerance 0), max abs err {max_abs[k4]}")
+
+    # 7. The exact-trace path through the entry points a user calls.
+    full = FullGraphParams(V=float(big.n_nodes), E=float(big.n_edges),
+                           N=30.0, T=5.0)
+    mid_caps = pow2_caps(mid.n_nodes, SWEEP_POINTS)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    smoke = evaluate_scenarios(load_scenarios(str(TRACE_SMOKE)), device=dev)
+    outs = {k: m.evaluate(full)
+            for k, m in trace_models(big, caps, dev).items()}
+    mid_scheds = mid.schedules(mid_caps, device=dev)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches[k4] = ops.LAUNCHES[k4]
+    print(f"# trace path launches: {json.dumps({k4: launches[k4]})} in "
+          f"{path_s:.3f} s (host clock)")
+    if launches[k4] < 1:
+        raise AssertionError(f"{k4} never launched on the trace path")
+
+    got_pins = tuple(r.total_bits for r in smoke.results)
+    if smoke.expect_failures() or got_pins != TRACE_SMOKE_PINS:
+        raise AssertionError(f"trace_smoke pins: {got_pins} "
+                             f"{smoke.expect_failures()}")
+    print(f"# trace_smoke: total_bits {got_pins} == pins")
+    for name, out in outs.items():
+        total = np.asarray(out.total_bits())
+        if total.shape != (len(caps),) or not np.all(np.isfinite(total)):
+            raise AssertionError(f"{name}: totals {total}")
+    # The NumPy engine on a fresh trace of the same edges: its schedules
+    # fill that trace's (engine-blind) LRU, so the models read them and
+    # launch nothing.
+    fresh = trace_mod.GraphTrace(big.senders, big.receivers, big.n_nodes)
+    same_schedules(big.schedules(caps), fresh.schedules(caps,
+                                                        engine="numpy"),
+                   "torch vs numpy engine at 10^7 edges")
+    before = ops.LAUNCHES[k4]
+    for name, model in trace_models(fresh, caps, "cpu").items():
+        expect, got = model.evaluate(full), outs[name]
+        if got.names() != expect.names():
+            raise AssertionError(f"{name}: terms {got.names()}")
+        for t in got.terms:
+            e = expect[t.name]
+            if not (np.array_equal(t.data_bits, e.data_bits)
+                    and np.array_equal(t.iterations, e.iterations)):
+                raise AssertionError(f"{name}: term {t.name} differs from "
+                                     "the NumPy engine's")
+    if ops.LAUNCHES[k4] != before:
+        raise AssertionError("the NumPy-engine comparison launched K4")
+    same_schedules(mid_scheds, [mid.schedule_reference(c) for c in mid_caps],
+                   "torch engine vs schedule_reference at 10^6 edges")
+    print(f"# trace sweep: {len(caps)} capacities x {len(outs)} models, "
+          "every schedule field and term bit-identical to the NumPy "
+          f"engine; 10^6-edge schedules ({len(mid_caps)} capacities) "
+          "bit-identical to schedule_reference")
+    for name, out in outs.items():
+        print(f"#   {name}: total_bits at cap {caps[0]} "
+              f"{float(out.total_bits()[0])!r}, at cap {caps[-1]} "
+              f"{float(out.total_bits()[-1])!r}")
+
+    # 8. K4's times per capacity, and the host-clock sweep by engine.
+    tot = totals[k4]
+    s_idx = big_t[1].element_size()
+    for cap in caps:
+        n_tiles, K = big._geometry(cap)
+        tile = (big_t[1] // K).long()
+        remote = (big_t[0] // K).long() != tile
+        flags = sr.boundary_flags(big_t[2], tile) & remote
+        vals = torch.stack([flags.long(), torch.where(
+            remote, big_t[3], torch.zeros_like(big_t[3]))], 1).contiguous()
+        nbytes = U * (2 * s_idx + 1 + 8) + 16 * n_tiles
+        bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+        ops_ms = 1e3 * K4_OPS_PER_PAIR * U / PEAK_F32_OPS_PER_S
+        row = {
+            "ms": time_ms(torch, lambda: sr.schedule_counts(
+                *big_t, K, n_tiles)),
+            "plain_ms": time_ms(torch, lambda: sr.schedule_counts_plain(
+                *big_t, K, n_tiles)),
+            "library_ms": time_ms(torch, lambda: torch.zeros(
+                (n_tiles, 2), dtype=torch.int64, device=dev).index_add_(
+                    0, tile, vals)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+        for k, v in row.items():
+            tot[k] += v
+        print(f"# time {k4} cap={cap} (n_tiles={n_tiles}, K={K}, U={U}, "
+              f"int{8 * s_idx} ids): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library (index_add_) "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({nbytes} B) | {card}")
+    t0 = time.perf_counter()
+    fresh._device_factorization(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    sweep = {"numpy": [], "torch": []}
+    for _ in range(3):
+        for engine in sweep:
+            fresh.clear_schedules()
+            t0 = time.perf_counter()
+            fresh.schedules(caps, engine=engine, device=dev)
+            sweep[engine].append(time.perf_counter() - t0)
+    print(f"# time trace sweep of {len(caps)} capacities (host clock, "
+          f"median of 3): numpy engine "
+          f"{statistics.median(sweep['numpy']):.4f} s, torch engine "
+          f"{statistics.median(sweep['torch']):.4f} s (factorization already on "
+          f"the card; its upload took {upload_s:.4f} s); host factorization "
+          f"{fact_s:.4f} s; trace path {path_s:.3f} s | {card}")
+
+
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
               file=sys.stderr)
@@ -187,11 +475,12 @@ def main() -> int:
     numerics = max(conformance.verify_numerics(pt, device=dev)
                    for pt in conformance.operating_points())
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    print(f"# main path launches: {json.dumps(launches, sort_keys=True)}")
+    launches = {k: ops.LAUNCHES[k] for k in LAYER_KERNELS}
+    print(f"# GNN layer path launches: {json.dumps(launches, sort_keys=True)}")
     for kname, count in launches.items():
         if count < 1:
-            raise AssertionError(f"{kname} never launched on the main path")
+            raise AssertionError(f"{kname} never launched on the GNN layer "
+                                 "path")
 
     expect = ea.fused_aggregate_combine_plain(a, h1, w2)
     for label, got in (("fused", fused), ("unfused", unfused)):
@@ -268,6 +557,8 @@ def main() -> int:
                   f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
                   f"ms ({nbytes} B, {nops} op) | {card}")
 
+    trace_phases(dev, card, launches, max_abs, totals)
+
     kernels = []
     for kname, meta in KERNELS.items():
         tot = totals[kname]
@@ -280,8 +571,9 @@ def main() -> int:
                          else "operations"),
             "library_ms": tot["library_ms"],
         })
-    print(f"# wall time {time.perf_counter() - t_start:.1f} s; times are sums "
-          "over the two GCN-Cora layers, f32")
+    print(f"# wall time {time.perf_counter() - t_start:.1f} s; K1-K3 times "
+          "are sums over the two GCN-Cora layers, f32; K4's over the 16 "
+          "capacities of the 10^7-edge sweep")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,18 @@ It stands beside the JAX package ``repro``, which is its reference, and
 imports none of it: what it needs of ``repro``'s NumPy layer it keeps as
 its own copy.  Layout mirrors ``repro``:
 
-* :mod:`repro_torch.kernels` — the GNN layer kernels (fused K1, unfused
-  K2 + K3) in CUDA C++ for ``sm_90a``, their geometry, plain versions and
-  the ``ops`` wrappers;
-* :mod:`repro_torch.core` — the closed forms the kernels are held to
-  (``spmm_tiled_cta``, ``spmm_unfused_cta``) and the conformance harness;
+* :mod:`repro_torch.kernels` — the hand-written CUDA C++ kernels for
+  ``sm_90a``: the GNN layer (fused K1, unfused K2 + K3) and the trace
+  segment reduce K4, their geometry, plain versions and ``ops`` wrappers;
+* :mod:`repro_torch.core` — the closed forms (``engn``, ``hygcn``,
+  ``awb_gcn`` and the kernels' ``spmm_tiled_cta`` / ``spmm_unfused_cta``),
+  the composition layer, the exact-trace scheduler and the conformance
+  harness;
+* :mod:`repro_torch.api` — the scenario front door
+  (``python -m repro_torch.api``) for tile, full and trace scenarios;
 * :mod:`repro_torch.data` / :mod:`repro_torch.params` — seeded Cora-sized
-  inputs and the GCN weights carried across from the JAX layout.
+  inputs, the trace datasets' graph generators, and the GCN weights
+  carried across from the JAX layout.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,1 +1,2 @@
-"""Closed forms of the port's kernels and the conformance harness."""
+"""Closed forms, the composition layer, the exact-trace scheduler and the
+conformance harness of the port."""

@@ -396,7 +396,7 @@ def run_conformance(points: Sequence[OperatingPoint] | None = None, *,
     records: list[ConformanceRecord] = []
     for pt in points:
         measured = {}
-        for name in registry.names():
+        for name in registry.runnable_names():
             spec = registry.get(name)
             measured[name] = measure_analogue(spec.runnable_analogue(), pt,
                                               dev)

@@ -1,7 +1,7 @@
-"""Declarative dataflow layer (a copy of the reference's ``MovementSpec`` and
-``DataflowSpec``): an accelerator as an ordered tuple of movement levels,
-each a closed form ``(graph, hw) -> (data_bits, iterations)``, evaluated by
-one shared engine.
+"""Declarative dataflow layer (a copy of the reference's ``MovementSpec``,
+``DataflowSpec`` and ``SpecModel``): an accelerator as an ordered tuple of
+movement levels, each a closed form ``(graph, hw) -> (data_bits,
+iterations)``, evaluated by one shared engine.
 """
 
 from __future__ import annotations
@@ -11,9 +11,9 @@ from typing import Callable, Tuple
 
 import numpy as np
 
-from .terms import ModelOutput, MovementTerm
+from .terms import AcceleratorModel, ModelOutput, MovementTerm
 
-__all__ = ["MovementSpec", "DataflowSpec", "MOVEMENT_ROLES"]
+__all__ = ["MovementSpec", "DataflowSpec", "SpecModel", "MOVEMENT_ROLES"]
 
 #: What a movement level's traffic carries.
 MOVEMENT_ROLES = (
@@ -49,6 +49,13 @@ class MovementSpec:
     def term(self, graph, hw) -> MovementTerm:
         bits, iterations = self.form(graph, hw)
         return MovementTerm(self.name, self.hierarchy, bits, iterations)
+
+    def interior_at(self, layer: int, n_layers: int) -> bool:
+        """Whether this movement carries an inter-layer activation: a
+        ``vertex_out`` before the last layer or a ``vertex_in`` after the
+        first, the traffic a ``"resident"`` policy keeps on-array."""
+        return ((self.role == "vertex_out" and layer < n_layers - 1)
+                or (self.role == "vertex_in" and layer > 0))
 
 
 @dataclass(frozen=True)
@@ -91,3 +98,20 @@ class DataflowSpec:
             raise ValueError(f"dataflow {self.name!r} declares no runnable "
                              "kernel analogue (runnable=None)")
         return self.runnable()
+
+
+class SpecModel(AcceleratorModel):
+    """Class-API adapter: an :class:`AcceleratorModel` backed by a spec
+    (the composition layer wraps a bare spec in one)."""
+
+    spec: DataflowSpec
+
+    def __init__(self, spec: DataflowSpec | None = None) -> None:
+        if spec is not None:
+            self.spec = spec
+        if not isinstance(getattr(self, "spec", None), DataflowSpec):
+            raise TypeError(f"{type(self).__name__} has no DataflowSpec bound")
+        self.name = self.spec.name
+
+    def evaluate(self, graph, hw=None) -> ModelOutput:
+        return self.spec.evaluate(graph, hw)

@@ -14,8 +14,9 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
-__all__ = ["ceil", "minimum", "MovementTerm", "ModelOutput", "L2_CLASSES",
-           "L1_CLASSES", "CACHE_CLASSES"]
+__all__ = ["ceil", "minimum", "MovementTerm", "ModelOutput",
+           "AcceleratorModel", "tabulate", "L2_CLASSES", "L1_CLASSES",
+           "CACHE_CLASSES"]
 
 L2_CLASSES = ("L2-L1", "L1-L2")
 CACHE_CLASSES = ("L2*-L1", "L1-L2*")
@@ -89,5 +90,68 @@ class ModelOutput:
         terms = self.select(hierarchies)
         return sum((t.data_bits for t in terms), start=_f64(0.0))
 
+    def total_iterations(self, hierarchies: Sequence[str] | None = None
+                         ) -> np.ndarray:
+        terms = self.select(hierarchies)
+        return sum((t.iterations for t in terms), start=_f64(0.0))
+
+    def scaled(self, factor) -> "ModelOutput":
+        """Every term's bits and iterations multiplied by ``factor`` (the
+        composition layer repeats a per-tile evaluation over a schedule)."""
+        f = _f64(factor)
+        return ModelOutput(
+            accelerator=self.accelerator,
+            terms=tuple(MovementTerm(t.name, t.hierarchy,
+                                     t.data_bits * f, t.iterations * f)
+                        for t in self.terms),
+            meta=self.meta,
+        )
+
+    def breakdown(self) -> dict[str, np.ndarray]:
+        return {t.name: t.data_bits for t in self.terms}
+
+    def iteration_breakdown(self) -> dict[str, np.ndarray]:
+        return {t.name: t.iterations for t in self.terms}
+
     def offchip_bits(self) -> np.ndarray:
         return self.total_bits(L2_CLASSES)
+
+    def cache_bits(self) -> np.ndarray:
+        return self.total_bits(CACHE_CLASSES)
+
+    def onchip_bits(self) -> np.ndarray:
+        return self.total_bits(L1_CLASSES)
+
+
+class AcceleratorModel:
+    """Base class: an analytical data-movement model of one accelerator,
+    ``evaluate(graph, hw) -> ModelOutput``; closed forms broadcast."""
+
+    name: str = "abstract"
+
+    def evaluate(self, graph, hw) -> ModelOutput:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def total_bits(self, graph, hw, hierarchies=None) -> np.ndarray:
+        return self.evaluate(graph, hw).total_bits(hierarchies)
+
+    def total_iterations(self, graph, hw, hierarchies=None) -> np.ndarray:
+        return self.evaluate(graph, hw).total_iterations(hierarchies)
+
+
+def tabulate(output: ModelOutput, *, scalar_fmt: str = "{:>14.4g}") -> str:
+    """Render a ModelOutput of scalar terms as the paper's table layout."""
+    rows = [f"{'movement level':<18}{'data movement [bits]':>22}"
+            f"{'iterations':>14}  hierarchy"]
+    for t in output.terms:
+        bits = np.asarray(t.data_bits)
+        iters = np.asarray(t.iterations)
+        if bits.ndim == 0:
+            rows.append(
+                f"{t.name:<18}{scalar_fmt.format(float(bits)):>22}"
+                f"{scalar_fmt.format(float(iters)):>14}  {t.hierarchy}"
+            )
+        else:
+            rows.append(f"{t.name:<18}{'<array sweep>':>22}"
+                        f"{'<array sweep>':>14}  {t.hierarchy}")
+    return "\n".join(rows)

@@ -1,4 +1,5 @@
-"""Seeded Cora-sized inputs for the GNN layer kernels.
+"""Seeded Cora-sized inputs for the GNN layer kernels (the trace datasets'
+graph generators are in :mod:`repro_torch.data.synthetic`).
 
 The reference's GCN-Cora model (``configs/gcn_cora.py``) runs on the Cora
 citation graph: 2708 vertices, 10556 directed edges (5278 undirected

@@ -7,8 +7,9 @@ as the slowest file), for ``sm_90a``.  The libraries go to
 the hash covers every source, header and flag, so an edited source builds
 afresh.  A missing ``nvcc`` or a failed build raises: there is no fallback.
 
-Every C entry point takes pointers and the stream as ``void*`` and ints as
-``int``, and returns ``cudaGetLastError()`` after its launch;
+Every C entry point takes pointers and the stream as ``void*``, ints as
+``int`` and element counts as ``int64_t``, and returns ``cudaGetLastError()``
+after its launch;
 :func:`check` raises when that is not 0.
 """
 
@@ -32,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+_I64 = ctypes.c_int64
 #: C signature of every entry point, by library.
 SIGNATURES = {
     "edge_aggregate": {
@@ -43,6 +45,11 @@ SIGNATURES = {
         "aggregate_pass": [_VOID] * 3 + [_INT] * 6 + [_VOID],
         # y, w, out, n, f, t, bn, fc, dtype, stream
         "combine_pass": [_VOID] * 3 + [_INT] * 6 + [_VOID],
+    },
+    "segment_reduce": {
+        # u_snd, u_rcv, new_src, mult, halo, cut, n, k, n_tiles, idx_bytes,
+        # stream
+        "schedule_counts": [_VOID] * 6 + [_I64] * 2 + [_INT] * 2 + [_VOID],
     },
 }
 

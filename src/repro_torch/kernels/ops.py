@@ -1,4 +1,4 @@
-"""Public wrappers of the GNN layer kernels.
+"""Public wrappers of the port's kernels (GNN layer K1-K3, trace K4).
 
 A CUDA tensor launches the hand-written kernel (or the kernel module
 raises); a CPU tensor takes the kernel's plain version.  Nothing falls back
@@ -19,12 +19,14 @@ import torch
 
 from . import edge_aggregate as ea
 from . import edge_aggregate_unfused as eu
+from . import segment_reduce as sr
 
 __all__ = ["LAUNCHES", "reset_launches", "gnn_aggregate_combine",
-           "gnn_aggregate", "gnn_combine"]
+           "gnn_aggregate", "gnn_combine", "schedule_counts"]
 
 LAUNCHES = {"edge_aggregate": 0, "edge_aggregate_unfused.aggregate": 0,
-            "edge_aggregate_unfused.combine": 0}
+            "edge_aggregate_unfused.combine": 0,
+            "segment_reduce.schedule_counts": 0}
 
 
 def reset_launches() -> None:
@@ -67,3 +69,18 @@ def gnn_combine(y_agg: torch.Tensor, w: torch.Tensor, *,
         return out
     eu.combine_launch_tensors(y_agg, w, block_n=block_n)
     return eu.combine_pass_plain(y_agg, w)
+
+
+def schedule_counts(u_snd: torch.Tensor, u_rcv: torch.Tensor,
+                    u_new_src: torch.Tensor, mult: torch.Tensor, K: int,
+                    n_tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile ``(halo, cut)`` int64 counts of stride K (K4 on CUDA).
+
+    An empty pair list returns zeros and launches nothing.
+    """
+    if u_rcv.device.type == "cuda":
+        out = sr.schedule_counts(u_snd, u_rcv, u_new_src, mult, K, n_tiles)
+        if u_rcv.shape[0]:
+            LAUNCHES["segment_reduce.schedule_counts"] += 1
+        return out
+    return sr.schedule_counts_plain(u_snd, u_rcv, u_new_src, mult, K, n_tiles)

@@ -181,7 +181,7 @@ def test_cora_points_chunk_the_features():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("pt", POINTS, ids=PT_IDS)
 def test_schedule_and_boundary_conform(pt):
-    for name in registry.names():
+    for name in registry.runnable_names():
         records = conf.conformance_records(registry.get(name), pt,
                                            device="cpu")
         assert {r.source for r in records} == {"block_schedule",
@@ -247,11 +247,15 @@ def test_verify_numerics_and_cli_on_cpu(tmp_path, capsys):
 
 
 def test_port_registry_is_its_own_namespace():
-    assert registry.names() == ["spmm_tiled_cta", "spmm_unfused_cta"]
-    assert all(registry.get(n).has_runnable for n in registry.names())
+    assert registry.names() == ["engn", "hygcn", "awb_gcn",
+                                "spmm_tiled_cta", "spmm_unfused_cta"]
+    assert registry.runnable_names() == ["spmm_tiled_cta", "spmm_unfused_cta"]
     with pytest.raises(KeyError, match="unknown port dataflow"):
         registry.get("spmm_tiled")
-    assert not set(registry.names()) & set(ref_registry.names())
+    # The closed forms the port shares with the reference are its own copies.
+    shared = set(registry.names()) & set(ref_registry.names())
+    assert shared == {"engn", "hygcn", "awb_gcn"}
+    assert all(registry.get(n) is not ref_registry.get(n) for n in shared)
 
 
 def test_operating_points_are_the_reference_ten_plus_cora():
