@@ -36,7 +36,27 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
 8. times of K4 per capacity of the 10^7-edge sweep (CUDA events, median of
    20) beside its byte bound, its plain version and ``index_add_``, and the
    host-clock times of the factorization and of the whole sweep under each
-   engine.
+   engine;
+9. K5 (flash attention) against its plain version, f32 and bf16: the
+   reference test grid, GQA at rep 3 (SmolLM's) and rep 4, softcap 50
+   (gemma2's), head dims 16-256, s < 128, and the serving path's own shape
+   (B = 8, S = 1920, H = 9, Hk = 3, D = 64), all through the counted
+   wrapper; bf16 cases are also held element by element to one bf16 step;
+10. the serving path: SmolLM-135M at full width and depth (30 layers,
+   d 576), bf16, seeded weights.  The counters are zeroed, then one prefill
+   of 8 prompts of 1920 seeded tokens (``max_seq`` 2048, the published
+   context) and 128 greedy decode steps run through ``make_prefill_step``
+   and ``make_serve_step``; the counters are read right after, and K5 must
+   have launched exactly 30 times.  In f32 at B = 2, S = 256 the prefill on
+   the card matches the same prefill on the CPU (plain versions, the same
+   weights moved over by ``.cpu()``) and 256 decode steps from an empty
+   cache, and 4 further decode steps from each cache agree, all to 1e-4;
+11. K5's time at the serving shape (CUDA events, median of 20) beside its
+   bound, its plain version and ``scaled_dot_product_attention`` (timed
+   here only; the port never calls it), and its share of one prefill; the
+   device time of one prefill and of 8 decode steps by kind (K5, cuBLAS
+   products, other kernels) under ``torch.profiler``, against the
+   unprofiled host time, which gives the device's idle share.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -103,7 +123,41 @@ KERNELS = {
     "segment_reduce.schedule_counts": {
         "source": "src/repro_torch/csrc/segment_reduce.cu",
         "replaces": "src/repro/kernels/segment_reduce.py:102"},
+    "flash_attention": {
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30"},
 }
+#: K5 against its plain version: the reference's tolerances
+#: (tests/test_kernels.py), relative to the largest output.
+ATTN_TOLERANCE = {"f32": 2e-5, "bf16": 3e-2}
+#: One bf16 step relative to the value: 7 stored significand bits.
+BF16_STEP = 2.0 ** -7
+#: K5's cases (b, s, h, hk, d, block, causal, window, softcap): the
+#: reference test grid (tests/test_kernels.py:84-99, block_q = block_k
+#: here), GQA at rep 3 and rep 4, softcap 50, gemma2's head dim 256, s < 128,
+#: an odd head dim with a ragged last q block, and a non-causal window.
+ATTN_CASES = (
+    (2, 128, 2, 2, 64, 64, True, None, None),
+    (2, 256, 2, 2, 64, 128, True, None, None),
+    (2, 256, 2, 2, 32, 64, True, 64, None),
+    (2, 512, 2, 2, 128, 128, True, 128, None),
+    (2, 128, 9, 3, 64, 64, True, None, None),
+    (2, 128, 8, 2, 32, 64, True, None, None),
+    (1, 128, 2, 2, 32, 64, True, None, 50.0),
+    (1, 512, 8, 4, 256, 128, True, 200, 50.0),
+    (2, 48, 3, 1, 16, 48, True, None, None),
+    (2, 96, 4, 2, 48, 96, True, 40, None),
+    (2, 128, 4, 2, 32, 64, False, 40, None),
+)
+#: The serving path: SmolLM-135M, 8 prompts of 1920 tokens, the published
+#: 2048-token context, 128 greedy decode steps; the f32 checks at B = 2,
+#: S = 256 with 4 further steps.
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ, SERVE_STEPS = 8, 1920, 2048, 128
+CHECK_BATCH, CHECK_PROMPT, CHECK_MORE = 2, 256, 4
+PROFILED_STEPS = 8
+SERVE_TOLERANCE = 1e-4
+#: Published H100 SXM bf16 dense tensor-core peak at 700 W.
+PEAK_BF16_OPS_PER_S = 989e12
 
 
 def rel_err(out, expect) -> float:
@@ -113,6 +167,17 @@ def rel_err(out, expect) -> float:
 
 def abs_err(out, expect) -> float:
     return float((out.float() - expect.float()).abs().max())
+
+
+def beyond_bf16_step(out, expect) -> int:
+    """Elements of a bf16 ``out`` farther from ``expect`` than one bf16 step
+    of the value plus the f32 tolerance of the largest output: two fp32
+    results that agree to the f32 tolerance, each rounded once to bf16,
+    are never farther apart."""
+    ref_abs = expect.float().abs()
+    allowed = (BF16_STEP * ref_abs
+               + ATTN_TOLERANCE["f32"] * float(ref_abs.max()))
+    return int(((out.float() - expect.float()).abs() > allowed).sum())
 
 
 #: Device-side sleep queued before each timed call, in clock cycles (about
@@ -371,6 +436,238 @@ def trace_phases(dev, card: str, launches: dict, max_abs: dict,
           f"{fact_s:.4f} s; trace path {path_s:.3f} s | {card}")
 
 
+def percentile(samples, q: float) -> float:
+    """The q-th percentile (nearest rank) of a list of samples."""
+    ordered = sorted(samples)
+    return ordered[min(len(ordered) - 1, max(0, round(q / 100 * len(ordered))
+                                             - 1))]
+
+
+def device_time_by_kind(fn) -> dict:
+    """Device time in ms of the kernels ``fn`` runs, by kind, from
+    ``torch.profiler``: K5, cuBLAS matrix products, everything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {"K5": 0.0, "cuBLAS products": 0.0, "other kernels": 0.0}
+    for event in prof.events():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = event.name.lower()
+        kind = ("K5" if "flash_kernel" in name else "cuBLAS products"
+                if any(w in name for w in ("nvjet", "gemm", "xmma", "cutlass"))
+                else "other kernels")
+        kinds[kind] += event.device_time / 1e3
+    return kinds
+
+
+def serving_phases(dev, card: str, launches: dict, max_abs: dict,
+                   totals: dict) -> None:
+    """Phases 9-11: K5 against its plain version, the SmolLM-135M serving
+    path, and K5's times.  Fills K5's entries of ``launches``, ``max_abs``
+    and ``totals``."""
+    import torch.nn.functional as F
+
+    from repro_torch import backend, params
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+
+    k5 = "flash_attention"
+    backend.full_fp32()
+    # 9. K5 vs its plain version on the card, through the counted wrapper
+    # (the counts are zeroed before phase 10).  bf16 cases are also held
+    # element by element: kernel and plain version round fp32 results that
+    # agree to the f32 tolerance once to bf16, so each element lies within
+    # one bf16 step (2^-7 relative) of the plain one, plus the f32 tolerance
+    # of the largest output.
+    gen = torch.Generator().manual_seed(0)
+    main_shape = (SERVE_BATCH, SERVE_PROMPT, 9, 3, 64, 128, True, None,
+                  None)
+    cases = [(c, key) for c in ATTN_CASES + (main_shape,)
+             for key in ATTN_TOLERANCE]
+    for (b, s, h, hk, d, block, causal, window, cap), key in cases:
+        dtype = torch.float32 if key == "f32" else torch.bfloat16
+        q, k, v = (torch.randn(b, s, n, d, generator=gen).to(dev, dtype)
+                   for n in (h, hk, hk))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=cap, block_q=block, block_k=block)
+        expect = fa.flash_attention_plain(q, k, v, causal=causal,
+                                          window=window, softcap=cap)
+        torch.cuda.synchronize()
+        err = rel_err(got, expect)
+        label = (f"b={b} s={s} h={h} hk={hk} d={d} block={block} "
+                 f"causal={causal} window={window} softcap={cap} {key}")
+        outside = beyond_bf16_step(got, expect) if key == "bf16" else 0
+        print(f"# check {k5} {label}: max rel err {err:.3e} (tolerance "
+              f"{ATTN_TOLERANCE[key]:.0e}), max abs err "
+              f"{abs_err(got, expect):.3e}, rms of plain output "
+              f"{float(expect.float().pow(2).mean().sqrt()):.3e}"
+              + (f", {outside} elements beyond one bf16 step"
+                 if key == "bf16" else ""))
+        if not err < ATTN_TOLERANCE[key] or outside:
+            raise AssertionError(f"K5 disagrees with its plain version at "
+                                 f"{label}: {err}, {outside} elements "
+                                 "beyond one bf16 step")
+        if (b, s, h, hk, d) == main_shape[:5] and key == "bf16":
+            max_abs[k5] = abs_err(got, expect)
+        del q, k, v, got, expect
+
+    # 10. The serving path at full width and depth, bf16.
+    cfg = smollm_135m.make_config()
+    t0 = time.perf_counter()
+    weights = params.transformer_params(cfg, seed=0)
+    model = params.load_transformer(weights, cfg, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    prefill = tr.make_prefill_step(cfg, max_seq=SERVE_MAX_SEQ)
+    serve = tr.make_serve_step(cfg, SERVE_MAX_SEQ)
+    print(f"# serving set-up: {cfg.name} {cfg.n_layers} layers d "
+          f"{cfg.d_model}, {cfg.param_count()} parameters, {cfg.dtype}; "
+          f"seeded weights made and loaded in {load_s:.3f} s; one warm-up "
+          "prefill")
+    prefill(model, prompts)  # cuBLAS handles and plans; not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    logits, cache = prefill(model, prompts)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_ms = start.elapsed_time(end)
+    per_prefill = ops.LAUNCHES[k5]
+    token = logits.argmax(-1, keepdim=True)
+    generated, step_s = [token], []
+    for step in range(SERVE_STEPS):
+        t0 = time.perf_counter()
+        step_logits, cache = serve(model, cache, token,
+                                   SERVE_PROMPT + step)
+        token = step_logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        generated.append(token)
+    launches[k5] = ops.LAUNCHES[k5]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# serving path launches: {json.dumps({k5: launches[k5]})} "
+          f"({per_prefill} in the prefill)")
+    if per_prefill != cfg.n_layers or launches[k5] != cfg.n_layers:
+        raise AssertionError(f"K5 launched {per_prefill} times in the "
+                             f"prefill and {launches[k5]} in all; expected "
+                             f"{cfg.n_layers}, one per layer")
+    out = torch.cat(generated, dim=1)
+    for name, t in (("prefill logits", logits),
+                    ("last decode logits", step_logits)):
+        if t.shape != (SERVE_BATCH, cfg.vocab) or not bool(
+                torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: shape {tuple(t.shape)} or not "
+                                 "finite")
+    if out.shape != (SERVE_BATCH, SERVE_STEPS + 1) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"generated tokens {tuple(out.shape)}")
+    n_prompt = SERVE_BATCH * SERVE_PROMPT
+    print(f"# serving: prefill of {SERVE_BATCH} x {SERVE_PROMPT} tokens "
+          f"{prefill_s * 1e3:.3f} ms host clock, {prefill_ms:.3f} ms CUDA "
+          f"events, {n_prompt / prefill_s:.0f} prefill tokens/s; "
+          f"{SERVE_STEPS} decode steps: p50 "
+          f"{percentile(step_s, 50) * 1e3:.3f} ms, p99 "
+          f"{percentile(step_s, 99) * 1e3:.3f} ms per step ({SERVE_BATCH} "
+          "tokens), "
+          f"{out.numel()} tokens generated "
+          f"({SERVE_BATCH} x {SERVE_STEPS + 1}); peak device memory "
+          f"{peak / 2**20:.1f} MiB | {card}")
+    # Where the device time goes: one more prefill and 8 decode steps under
+    # torch.profiler, outside the counted run.
+    pre_kinds = device_time_by_kind(lambda: prefill(model, prompts))
+    _, cache = prefill(model, prompts)
+    token = generated[0]
+
+    def decode_steps():
+        nonlocal cache, token
+        for step in range(PROFILED_STEPS):
+            lg, cache = serve(model, cache, token, SERVE_PROMPT + step)
+            token = lg.argmax(-1, keepdim=True)
+
+    dec_kinds = device_time_by_kind(decode_steps)
+    step_ms = 1e3 * percentile(step_s, 50)
+    for label, kinds, host_ms, n in (
+            ("prefill", pre_kinds, prefill_ms, 1),
+            ("decode step", dec_kinds, step_ms, PROFILED_STEPS)):
+        busy = sum(kinds.values()) / n
+        parts = ", ".join(f"{k} {v / n:.3f} ms" for k, v in kinds.items())
+        print(f"# where the time goes, {label} (torch.profiler device time"
+              f"{'' if n == 1 else f', mean of {n} steps'}): {parts}; "
+              f"device busy {busy:.3f} ms of {host_ms:.3f} ms "
+              f"({100 * busy / host_ms:.1f}%, the rest idle) | {card}")
+    del model, cache, logits, step_logits
+
+    # The f32 checks: card vs CPU, prefill vs decode.
+    cfg32 = smollm_135m.make_config(dtype="float32")
+    model32 = params.load_transformer(weights, cfg32, device=dev)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (CHECK_BATCH, CHECK_PROMPT + CHECK_MORE)))
+    max_seq = CHECK_PROMPT + CHECK_MORE
+    prefill32 = tr.make_prefill_step(cfg32, max_seq=max_seq)
+    serve32 = tr.make_serve_step(cfg32, max_seq)
+    gpu_tokens = tokens.to(dev)
+    lg_p, cache_p = prefill32(model32, gpu_tokens[:, :CHECK_PROMPT])
+    cache_d = tr.init_cache(cfg32, CHECK_BATCH, max_seq, device=dev)
+    for i in range(CHECK_PROMPT):
+        lg_d, cache_d = serve32(model32, cache_d, gpu_tokens[:, i:i + 1], i)
+    errs = {"prefill vs decode": rel_err(lg_p, lg_d)}
+    lg_card = lg_p.cpu()
+    for i in range(CHECK_PROMPT, max_seq):
+        lg_p, cache_p = serve32(model32, cache_p, gpu_tokens[:, i:i + 1], i)
+        lg_d, cache_d = serve32(model32, cache_d, gpu_tokens[:, i:i + 1], i)
+        errs[f"continued decode at pos {i}"] = rel_err(lg_p, lg_d)
+    del cache_p, cache_d
+    model32.cpu()
+    lg_cpu, _ = prefill32(model32, tokens[:, :CHECK_PROMPT])
+    errs["card (K5) vs CPU (plain) prefill"] = rel_err(lg_card, lg_cpu)
+    for name, err in errs.items():
+        print(f"# serving f32 B={CHECK_BATCH} S={CHECK_PROMPT}: {name} max "
+              f"rel err {err:.3e} (tolerance {SERVE_TOLERANCE:.0e})")
+        if not err < SERVE_TOLERANCE:
+            raise AssertionError(f"serving f32 {name}: {err}")
+    del model32
+
+    # 11. K5's time at the serving shape.
+    b, s, h, hk, d = main_shape[:5]
+    q, k, v = (torch.randn(b, s, n, d, generator=gen).to(dev, torch.bfloat16)
+               for n in (h, hk, hk))
+    nbytes = 2 * b * s * d * (2 * h + 2 * hk)
+    nops = 2 * d * s * (s + 1) * b * h
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * nops / PEAK_BF16_OPS_PER_S
+    row = {"ms": time_ms(torch, lambda: fa.flash_attention(q, k, v)),
+           "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+               q, k, v)),
+           "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               is_causal=True, enable_gqa=True)),
+           "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+           "ops_ms": ops_ms}
+    totals[k5] = row
+    print(f"# time {k5} B={b} S={s} H={h} Hk={hk} D={d} bf16: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+          f"(scaled_dot_product_attention) {row['library_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({nops} op at the bf16 tensor-"
+          f"core rate; {1e3 * nops / PEAK_F32_OPS_PER_S:.4f} ms at the fp32 "
+          f"rate; {nbytes} B take {bytes_ms:.4f} ms); {cfg.n_layers} layers "
+          f"of K5 are {100 * cfg.n_layers * row['ms'] / prefill_ms:.1f}% of "
+          f"one prefill ({prefill_ms:.3f} ms) | {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -558,6 +855,7 @@ def main() -> int:
                   f"ms ({nbytes} B, {nops} op) | {card}")
 
     trace_phases(dev, card, launches, max_abs, totals)
+    serving_phases(dev, card, launches, max_abs, totals)
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -573,7 +871,8 @@ def main() -> int:
         })
     print(f"# wall time {time.perf_counter() - t_start:.1f} s; K1-K3 times "
           "are sums over the two GCN-Cora layers, f32; K4's over the 16 "
-          "capacities of the 10^7-edge sweep")
+          "capacities of the 10^7-edge sweep; K5's one layer of the "
+          "SmolLM-135M prefill, bf16")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

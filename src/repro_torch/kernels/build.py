@@ -8,9 +8,9 @@ the hash covers every source, header and flag, so an edited source builds
 afresh.  A missing ``nvcc`` or a failed build raises: there is no fallback.
 
 Every C entry point takes pointers and the stream as ``void*``, ints as
-``int`` and element counts as ``int64_t``, and returns ``cudaGetLastError()``
-after its launch;
-:func:`check` raises when that is not 0.
+``int``, element counts as ``int64_t`` and scalars as ``float``, and
+returns ``cudaGetLastError()`` after its launch; :func:`check` raises when
+that is not 0.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 _I64 = ctypes.c_int64
+_F32 = ctypes.c_float
 #: C signature of every entry point, by library.
 SIGNATURES = {
     "edge_aggregate": {
@@ -50,6 +51,12 @@ SIGNATURES = {
         # u_snd, u_rcv, new_src, mult, halo, cut, n, k, n_tiles, idx_bytes,
         # stream
         "schedule_counts": [_VOID] * 6 + [_I64] * 2 + [_INT] * 2 + [_VOID],
+    },
+    "flash_attention": {
+        # q, k, v, o, b, s, h, hk, d, causal, window, softcap, scale, dtype,
+        # stream
+        "flash_attention": [_VOID] * 4 + [_INT] * 7 + [_F32] * 2 + [_INT]
+        + [_VOID],
     },
 }
 

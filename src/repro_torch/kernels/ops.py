@@ -1,4 +1,5 @@
-"""Public wrappers of the port's kernels (GNN layer K1-K3, trace K4).
+"""Public wrappers of the port's kernels (GNN layer K1-K3, trace K4,
+attention K5).
 
 A CUDA tensor launches the hand-written kernel (or the kernel module
 raises); a CPU tensor takes the kernel's plain version.  Nothing falls back
@@ -15,18 +16,22 @@ and one program would remove exactly the traffic it models.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import edge_aggregate as ea
 from . import edge_aggregate_unfused as eu
+from . import flash_attention as fa
 from . import segment_reduce as sr
 
 __all__ = ["LAUNCHES", "reset_launches", "gnn_aggregate_combine",
-           "gnn_aggregate", "gnn_combine", "schedule_counts"]
+           "gnn_aggregate", "gnn_combine", "schedule_counts",
+           "flash_attention"]
 
 LAUNCHES = {"edge_aggregate": 0, "edge_aggregate_unfused.aggregate": 0,
             "edge_aggregate_unfused.combine": 0,
-            "segment_reduce.schedule_counts": 0}
+            "segment_reduce.schedule_counts": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -84,3 +89,23 @@ def schedule_counts(u_snd: torch.Tensor, u_rcv: torch.Tensor,
             LAUNCHES["segment_reduce.schedule_counts"] += 1
         return out
     return sr.schedule_counts_plain(u_snd, u_rcv, u_new_src, mult, K, n_tiles)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    block_q: int = fa.DEFAULT_BLOCK_Q,
+                    block_k: int = fa.DEFAULT_BLOCK_K) -> torch.Tensor:
+    """Attention in the model layout: q (B, S, H, D); k, v (B, S, Hk, D)
+    with Hk | H (GQA: query head h reads kv head h // (H // Hk)).  K5 on
+    CUDA.  Raises when an input requires grad: K5 has no backward."""
+    if q.device.type == "cuda":
+        out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, block_q=block_q,
+                                 block_k=block_k)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    fa.check_attention_operands(q, k, v, window=window, softcap=softcap,
+                                block_q=block_q, block_k=block_k)
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)

@@ -1,12 +1,15 @@
-"""Plain-PyTorch oracles of the GNN layer (the tolerance targets)."""
+"""Plain-PyTorch oracles of the kernels (the tolerance targets)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..backend import full_fp32
 
-__all__ = ["fused_aggregate_combine_ref", "edge_list_aggregate_ref"]
+__all__ = ["fused_aggregate_combine_ref", "edge_list_aggregate_ref",
+           "flash_attention_ref"]
 
 
 def fused_aggregate_combine_ref(adjacency: torch.Tensor, x: torch.Tensor,
@@ -25,3 +28,25 @@ def edge_list_aggregate_ref(x: torch.Tensor, senders: torch.Tensor,
     out = torch.zeros((n_nodes, x.shape[1]), dtype=msgs.dtype,
                       device=msgs.device)
     return out.index_add_(0, receivers, msgs)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """(B, S, H, D) attention oracle in fp32, k and v with the same heads:
+    scaled after the dot, softcapped, masked to -1e30, softmax."""
+    full_fp32()
+    b, s, h, d = q.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    scores = scores.masked_fill(~mask, -1e30)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1),
+                       v.float())
+    return out.to(q.dtype)

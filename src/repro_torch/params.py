@@ -1,21 +1,31 @@
-"""GCN weights carried across from the reference's parameter layout.
+"""Weights carried across from the reference's parameter layouts.
 
 The reference GCN keeps its parameters as ``{"w": [W_0, W_1, ...],
 "b": [b_0, b_1, ...]}`` with ``W_l`` of shape ``(d_l, d_{l+1})``.  Given as
 numpy arrays, :func:`gcn_combine_weights` turns them into the per-layer
 combine weights W of the block-dense layer ``Y = (A @ X) @ W``.
+
+The reference transformer keeps ``{"embed": (V, d), "final_norm": (d,),
+"blocks": [one dict per window-pattern entry of (G, ...) stacks]}`` (and
+``"unembed": (d, V)`` when embeddings are not tied).
+:func:`transformer_params` makes seeded numpy weights in that layout and
+:func:`load_transformer` turns it, or the reference's own ``init_params``
+output converted with ``np.asarray``, into the port's module.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .backend import resolve_device
+from .models.common import dense_init, embed_init
+from .models.transformer import LAYER_KEYS, Transformer, TransformerConfig
 
-__all__ = ["gcn_params", "gcn_combine_weights"]
+__all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
+           "load_transformer"]
 
 
 def gcn_params(dims: Sequence[int], seed: int = 0) -> dict:
@@ -48,3 +58,68 @@ def gcn_combine_weights(params_np: dict, *, device=None,
                              "kernels compute (A @ X) @ W without one")
     return [torch.tensor(w, dtype=dtype, device=dev).contiguous()
             for w in ws]
+
+
+def transformer_params(cfg: TransformerConfig, seed: int = 0) -> dict:
+    """Seeded float32 numpy parameters in the reference layout, with the
+    reference's initializers: LeCun-normal matrices, 0.02-normal
+    embeddings, zero norm scales (a gain of 1 + 0)."""
+    rng = np.random.default_rng(seed)
+    d, H, Hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                       cfg.d_ff)
+    G = cfg.n_groups
+
+    def block() -> dict:
+        return {
+            "ln1": np.zeros((G, d), np.float32),
+            "ln2": np.zeros((G, d), np.float32),
+            "wq": dense_init(rng, (G, d, H * dh), fan_in=d),
+            "wk": dense_init(rng, (G, d, Hk * dh), fan_in=d),
+            "wv": dense_init(rng, (G, d, Hk * dh), fan_in=d),
+            "wo": dense_init(rng, (G, H * dh, d), fan_in=H * dh),
+            "w_gate": dense_init(rng, (G, d, f), fan_in=d),
+            "w_up": dense_init(rng, (G, d, f), fan_in=d),
+            "w_down": dense_init(rng, (G, f, d), fan_in=f),
+        }
+
+    params = {"embed": embed_init(rng, (cfg.vocab, d)),
+              "final_norm": np.zeros((d,), np.float32),
+              "blocks": [block() for _ in cfg.window_pattern]}
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(rng, (d, cfg.vocab), fan_in=d)
+    return params
+
+
+def load_transformer(params_np: dict, cfg: TransformerConfig, *,
+                     device=None,
+                     dtype: Optional[torch.dtype] = None) -> Transformer:
+    """The port's module holding ``params_np`` (reference layout), in
+    ``dtype`` (the config's compute dtype by default) on ``device`` (CUDA
+    by default).  Layer ``g * P + i`` takes block ``i``'s slice ``g``;
+    every shape must match exactly."""
+    model = Transformer(cfg, device=resolve_device(device),
+                        dtype=dtype or cfg.compute_dtype)
+
+    def put(dst: torch.Tensor, src, what: str) -> None:
+        src = torch.from_numpy(np.array(src, dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{what}: shape {tuple(src.shape)}, expected "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+
+    P = len(cfg.window_pattern)
+    if len(params_np["blocks"]) != P:
+        raise ValueError(f"{len(params_np['blocks'])} blocks for a "
+                         f"{P}-entry window pattern")
+    with torch.no_grad():
+        put(model.embed, params_np["embed"], "embed")
+        put(model.final_norm, params_np["final_norm"], "final_norm")
+        if not cfg.tie_embeddings:
+            put(model.unembed, params_np["unembed"], "unembed")
+        for n, layer in enumerate(model.layers):
+            g, i = divmod(n, P)
+            for key in LAYER_KEYS:
+                put(getattr(layer, key),
+                    np.asarray(params_np["blocks"][i][key])[g],
+                    f"blocks[{i}][{key!r}][{g}]")
+    return model

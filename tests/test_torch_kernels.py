@@ -12,6 +12,9 @@ largest output magnitude, 1e-5 for f32 (fp32 sums in another order) and
 aggregate in the unfused pair).
 """
 
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +30,7 @@ from repro.models.gnn.graph import GraphBatch, sym_norm_coeffs
 from repro_torch import backend, data, params
 from repro_torch.kernels import edge_aggregate as ea
 from repro_torch.kernels import edge_aggregate_unfused as eu
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 #: The reference's fused-kernel shapes (n, f, t, block_n, block_k).
 SHAPES = [
@@ -203,6 +206,25 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 # ---------------------------------------------------------------------------
 # Inputs and weights carried across.
 # ---------------------------------------------------------------------------
+_C_TYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("lib,fn", [(lib, fn) for lib, fns in
+                                    build.SIGNATURES.items() for fn in fns])
+def test_ctypes_signature_matches_the_cuda_entry_point(lib, fn):
+    """The argument types ctypes passes are those the ``extern "C"`` entry
+    point in ``csrc/<lib>.cu`` declares: a pointer as ``void*``, and each
+    scalar at its own width."""
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    decl = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+    assert decl, f"no entry point {fn} in {lib}.cu"
+    declared = [ctypes.c_void_p if "*" in arg
+                else _C_TYPES[arg.split()[-2]]
+                for arg in decl.group(1).split(",")]
+    assert declared == build.SIGNATURES[lib][fn]
+
+
 def test_cora_graph_size_and_normalisation_match_reference():
     g = data.cora_graph(seed=3)
     assert data.CORA_V == 2708 and data.CORA_E == 10556
