@@ -56,7 +56,31 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    here only; the port never calls it), and its share of one prefill; the
    device time of one prefill and of 8 decode steps by kind (K5, cuBLAS
    products, other kernels) under ``torch.profiler``, against the
-   unprofiled host time, which gives the device's idle share.
+   unprofiled host time, which gives the device's idle share;
+12. K6 (the embedding bag) against its plain version, bit for bit, f32 and
+   bf16, through the counted wrapper: the reference test grid, D not a
+   multiple of 8, bags of 37 and 64 ids, a 20,000,000-row table with ids
+   past 2^24 (int64 row offsets), ids as strided slices of a (B, 26, hot)
+   tensor written into strided output slots, and both serving batches at
+   hot 1; f32 also against ``embedding_bag_ref`` (take, then sum) at 1e-6;
+13. the DLRM serving path: DLRM-MLPerf at its published widths with the
+   five 40M-row tables cut to 20M rows (``DLRM_ROW_CAP``; 53.34 GB of f32
+   tables drawn on the card from a seed).  The counters are zeroed, then
+   200 ``serve_p99`` requests (B = 512) and 5 ``serve_bulk`` batches
+   (B = 262,144) of seeded Criteo batches go through ``dlrm.serve`` (copy
+   in, forward, logits back), and one ``retrieval_cand`` call scores 10^6
+   candidates; the counters are read right after, and K6 must have launched
+   exactly 26 times per forward.  The last ``serve_bulk`` logits equal the
+   same forward with the plain embedding bag bit for bit; at every table
+   capped at 65,536 rows the f32 logits on the card match the CPU's to 1e-4
+   (B = 512), and the retrieval scores match the CPU's to 1e-5;
+14. K6's time per table at both serving batches (CUDA events, median of 20)
+   beside its byte bound (the distinct rows the batch reads, its ids and
+   its output), its plain version and ``torch.nn.functional.embedding_bag``
+   (timed here only; the port never calls it); the device time of one
+   ``serve_bulk`` request and of 8 ``serve_p99`` requests by kind (K6,
+   cuBLAS products, copies, other kernels) under ``torch.profiler``,
+   against their unprofiled host time.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -126,6 +150,9 @@ KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30"},
+    "embedding_bag": {
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:22"},
 }
 #: K5 against its plain version: the reference's tolerances
 #: (tests/test_kernels.py), relative to the largest output.
@@ -158,6 +185,37 @@ PROFILED_STEPS = 8
 SERVE_TOLERANCE = 1e-4
 #: Published H100 SXM bf16 dense tensor-core peak at 700 W.
 PEAK_BF16_OPS_PER_S = 989e12
+#: K6's cases (v, d, b, hot): the reference test grid
+#: (tests/test_kernels.py:148-152), D = 100 (f32 vector loads, bf16 single
+#: loads) and D = 30 (single loads in both), bags of 37 (tails of the
+#: four-row and 32-id steps) and 64 ids.
+BAG_CASES = ((128, 64, 8, 1), (1000, 128, 32, 4), (4096, 256, 16, 8),
+             (1000, 100, 32, 4), (777, 30, 16, 3), (5000, 96, 24, 37),
+             (5000, 128, 64, 64))
+#: K6 in f32 against take-then-sum: the reference test's tolerance.
+BAG_REF_TOLERANCE = 1e-6
+#: The DLRM cut.  The published Criteo-1TB tables hold 204,184,588 rows,
+#: 104.54 GB in f32, more than the card's 80 GB; bf16 tables would change
+#: K6's numbers (it adds in the table's dtype).  So each of the five
+#: 40,000,000-row tables (features 0, 9, 19, 20, 21) is cut to 20,000,000
+#: rows, and the other 21 stay whole: 104,184,588 rows, 53.34 GB.  That is
+#: this card's half of each big table in a 2-way row-sharded deployment (the
+#: reference's param_pspecs layout), with the ids drawn from the slice.
+#: serve_bulk's unchunked activations need about 12 GB beside the tables
+#: (DLRM_ACTIVATION_BYTES), and 20M is the largest cap in steps of 5M that
+#: leaves at least 10 GB of the card free; 25M would need 66.1 + 12 GB.
+#: reduced: vocab_sizes (the five 40M-row tables, 40,000,000 -> 20,000,000).
+DLRM_ROW_CAP = 20_000_000
+DLRM_ACTIVATION_BYTES = 12e9
+SERVE_P99_REQUESTS, SERVE_BULK_BATCHES, PROFILED_REQUESTS = 200, 5, 8
+#: The f32 card-versus-CPU check: full widths, every table capped at
+#: 65,536 rows (0.34 GB, small enough to copy to the CPU), B = 512.  1e-4
+#: is the repo's model tolerance (TF32 products would fail it by about
+#: 10x); a gather at hot 1 is exact, so none of it is spent on K6.
+DLRM_CHECK_ROW_CAP, DLRM_CHECK_BATCH = 65_536, 512
+DLRM_TOLERANCE = 1e-4
+#: Retrieval scores, card vs CPU: one 128-long f32 dot per candidate.
+RETRIEVAL_TOLERANCE = 1e-5
 
 
 def rel_err(out, expect) -> float:
@@ -443,22 +501,25 @@ def percentile(samples, q: float) -> float:
                                              - 1))]
 
 
-def device_time_by_kind(fn) -> dict:
-    """Device time in ms of the kernels ``fn`` runs, by kind, from
-    ``torch.profiler``: K5, cuBLAS matrix products, everything else."""
+def device_time_by_kind(fn, kernel: str, fragment: str) -> dict:
+    """Device time in ms of the work ``fn`` runs, by kind, from
+    ``torch.profiler``: the port's ``kernel`` (names holding ``fragment``),
+    cuBLAS matrix products, copies and fills, every other kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds = {"K5": 0.0, "cuBLAS products": 0.0, "other kernels": 0.0}
+    kinds = {kernel: 0.0, "cuBLAS products": 0.0, "copies": 0.0,
+             "other kernels": 0.0}
     for event in prof.events():
         if event.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = event.name.lower()
-        kind = ("K5" if "flash_kernel" in name else "cuBLAS products"
+        kind = (kernel if fragment in name else "cuBLAS products"
                 if any(w in name for w in ("nvjet", "gemm", "xmma", "cutlass"))
+                else "copies" if "memcpy" in name or "memset" in name
                 else "other kernels")
         kinds[kind] += event.device_time / 1e3
     return kinds
@@ -588,7 +649,8 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
           f"{peak / 2**20:.1f} MiB | {card}")
     # Where the device time goes: one more prefill and 8 decode steps under
     # torch.profiler, outside the counted run.
-    pre_kinds = device_time_by_kind(lambda: prefill(model, prompts))
+    pre_kinds = device_time_by_kind(lambda: prefill(model, prompts), "K5",
+                                    "flash_kernel")
     _, cache = prefill(model, prompts)
     token = generated[0]
 
@@ -598,7 +660,7 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
             lg, cache = serve(model, cache, token, SERVE_PROMPT + step)
             token = lg.argmax(-1, keepdim=True)
 
-    dec_kinds = device_time_by_kind(decode_steps)
+    dec_kinds = device_time_by_kind(decode_steps, "K5", "flash_kernel")
     step_ms = 1e3 * percentile(step_s, 50)
     for label, kinds, host_ms, n in (
             ("prefill", pre_kinds, prefill_ms, 1),
@@ -666,6 +728,284 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
           f"rate; {nbytes} B take {bytes_ms:.4f} ms); {cfg.n_layers} layers "
           f"of K5 are {100 * cfg.n_layers * row['ms'] / prefill_ms:.1f}% of "
           f"one prefill ({prefill_ms:.3f} ms) | {card}")
+
+
+def bag_checks(dev, max_abs: dict) -> None:
+    """Phase 12: K6 against its plain version on the card, bit for bit,
+    through the counted wrapper (the counts are zeroed before phase 13).
+    Fills K6's entry of ``max_abs``."""
+    from repro_torch.configs import base
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops, ref
+
+    k6 = "embedding_bag"
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def ids(v, *shape):
+        return torch.randint(0, v, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def table(v, d):
+        return torch.randn(v, d, generator=gen, device=dev)
+
+    # (label, f32 table, ids, out slots of a (B, 27, D) buffer or None)
+    cases = [(f"v={v} d={d} b={b} hot={hot}", table(v, d), ids(v, b, hot),
+              None) for v, d, b, hot in BAG_CASES]
+    # A 20M-row table: rows past 2^24, and the last, so id * D passes 2^31.
+    big = ids(DLRM_ROW_CAP, 4096, 2)
+    big[0] = torch.tensor([2**24, DLRM_ROW_CAP - 1])
+    big[1] = torch.tensor([DLRM_ROW_CAP - 2, 2**24 + 1])
+    cases.append((f"v={DLRM_ROW_CAP} d=128 b=4096 hot=2 "
+                  f"({int((big >= 2**24).sum())} ids >= 2^24)",
+                  table(DLRM_ROW_CAP, 128), big, None))
+    # Strided ids (a table's slice of the sparse features) into strided
+    # output slots (its slot of the interaction features).
+    sparse = ids(1000, 64, 26, 3)
+    for t in (0, 13, 25):
+        cases.append((f"strided t={t} v=1000 d=128 b=64 hot=3",
+                      table(1000, 128), sparse[:, t, :], 1 + t))
+    for name in ("serve_p99", "serve_bulk"):
+        b = base.RECSYS_SHAPES[name].params["batch"]
+        cases.append((f"{name} v=1000000 d=128 b={b} hot=1",
+                      table(1_000_000, 128), ids(1_000_000, b, 1), None))
+    n = 0
+    for label, tab32, idx, slot in cases:
+        for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tab = tab32 if key == "f32" else tab32.to(dtype)
+            out = None
+            if slot is not None:
+                out = torch.zeros(idx.shape[0], 27, tab.shape[1], dtype=dtype,
+                                  device=dev)[:, slot]
+            got = ops.embedding_bag(tab, idx, out=out)
+            expect = eb.embedding_bag_plain(tab, idx)
+            torch.cuda.synchronize()
+            err = abs_err(got, expect)
+            ref_err = (rel_err(got, ref.embedding_bag_ref(tab, idx))
+                       if key == "f32" else 0.0)
+            if not torch.equal(got, expect) or not ref_err < BAG_REF_TOLERANCE:
+                raise AssertionError(f"K6 at {label} {key}: max abs err {err} "
+                                     f"vs the plain version, {ref_err} "
+                                     "relative vs take-then-sum")
+            max_abs[k6] = max(max_abs[k6], err)
+            n += 1
+            print(f"# check {k6} {label} {key}: bit-identical to the plain "
+                  "version" + (f", max rel err vs take-then-sum {ref_err:.3e} "
+                               f"(tolerance {BAG_REF_TOLERANCE:.0e})"
+                               if key == "f32" else ""))
+            del tab, got, expect, out
+    del cases
+    torch.cuda.empty_cache()
+    print(f"# check {k6}: {n} cases bit-identical to the plain version "
+          f"(tolerance 0), max abs err {max_abs[k6]}")
+
+
+def dlrm_phases(dev, card: str, launches: dict, max_abs: dict,
+                totals: dict) -> None:
+    """Phases 12-14: K6 against its plain version, the DLRM serving path,
+    and K6's times.  Fills K6's entries of ``launches``, ``max_abs`` and
+    ``totals``."""
+    import torch.nn.functional as F
+
+    from repro_torch import backend, params
+    from repro_torch.configs import base, dlrm_mlperf
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+    from repro_torch.models.common import mlp_apply
+
+    k6 = "embedding_bag"
+    backend.full_fp32()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products are on; DLRM serves in f32")
+    bag_checks(dev, max_abs)
+
+    # 13. The DLRM serving path.
+    cfg = dlrm_mlperf.make_config(vocab_sizes=tuple(
+        min(v, DLRM_ROW_CAP) for v in dlrm.CRITEO_1TB_VOCABS))
+    n_cand = base.RECSYS_SHAPES["retrieval_cand"].params["n_candidates"]
+    p99_b, bulk_b = (base.RECSYS_SHAPES[k].params["batch"]
+                     for k in ("serve_p99", "serve_bulk"))
+    weight_bytes = 4 * cfg.param_count()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    if free < weight_bytes + DLRM_ACTIVATION_BYTES:
+        raise MemoryError(f"{cfg.name}: {weight_bytes / 1e9:.2f} GB of "
+                          f"weights and {DLRM_ACTIVATION_BYTES / 1e9:.0f} GB "
+                          f"of activations, {free / 1e9:.2f} GB free")
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = dlrm.DLRM(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def criteo(step: int, batch: int) -> dict:
+        return synthetic.criteo_batch(0, step, batch=batch,
+                                      n_dense=cfg.n_dense,
+                                      vocab_sizes=cfg.vocab_sizes,
+                                      multi_hot=cfg.multi_hot)
+
+    t0 = time.perf_counter()
+    p99 = [criteo(i, p99_b) for i in range(SERVE_P99_REQUESTS)]
+    bulk = [criteo(SERVE_P99_REQUESTS + i, bulk_b)
+            for i in range(SERVE_BULK_BATCHES)]
+    query = {"dense": torch.from_numpy(
+        criteo(SERVE_P99_REQUESTS + SERVE_BULK_BATCHES, 1)["dense"]).to(dev)}
+    cand = torch.randn(n_cand, cfg.embed_dim, generator=gen, device=dev)
+    data_s = time.perf_counter() - t0
+    print(f"# DLRM set-up: {cfg.name}, widths as published, "
+          f"{sum(cfg.vocab_sizes)} table rows (40M-row tables cut to "
+          f"{DLRM_ROW_CAP}), {cfg.param_count()} parameters, "
+          f"{weight_bytes / 1e9:.2f} GB f32 drawn on the card in "
+          f"{init_s:.3f} s ({free / 1e9:.2f} of {total / 1e9:.2f} GB free "
+          f"before); seeded Criteo batches made on the host in {data_s:.3f} s;"
+          " one warm-up request at each batch")
+    dlrm.serve(model, p99[0])
+    dlrm.serve(model, bulk[0])
+    dlrm.score_candidates(model, query, cand)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    p99_s, bulk_s = [], []
+    for batch in p99:
+        t0 = time.perf_counter()
+        p99_out = dlrm.serve(model, batch)
+        p99_s.append(time.perf_counter() - t0)
+    for batch in bulk:
+        t0 = time.perf_counter()
+        bulk_out = dlrm.serve(model, batch)
+        bulk_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    scores = dlrm.score_candidates(model, query, cand)
+    torch.cuda.synchronize()
+    ret_s = time.perf_counter() - t0
+    launches[k6] = ops.LAUNCHES[k6]
+    peak = torch.cuda.max_memory_allocated()
+    forwards = SERVE_P99_REQUESTS + SERVE_BULK_BATCHES
+    print(f"# DLRM serving path launches: {json.dumps({k6: launches[k6]})} "
+          f"over {forwards} forwards")
+    if launches[k6] != cfg.n_sparse * forwards:
+        raise AssertionError(f"K6 launched {launches[k6]} times in "
+                             f"{forwards} forwards; expected "
+                             f"{cfg.n_sparse} per forward")
+    for name, out, n in (("serve_p99 logits", p99_out, p99_b),
+                         ("serve_bulk logits", bulk_out, bulk_b)):
+        if out.shape != (n,) or not np.all(np.isfinite(out)):
+            raise AssertionError(f"{name}: shape {out.shape} or not finite")
+    if scores.shape != (n_cand,) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"retrieval scores {tuple(scores.shape)}")
+    bulk_med = statistics.median(bulk_s)
+    print(f"# DLRM serving: {SERVE_P99_REQUESTS} serve_p99 requests (B = "
+          f"{p99_b}, host clock, copy in + forward + logits back): p50 "
+          f"{percentile(p99_s, 50) * 1e3:.3f} ms, p99 "
+          f"{percentile(p99_s, 99) * 1e3:.3f} ms; {SERVE_BULK_BATCHES} "
+          f"serve_bulk batches (B = {bulk_b}): median "
+          f"{bulk_med * 1e3:.3f} ms, {bulk_b / bulk_med:.0f} samples/s "
+          f"({bulk_b * SERVE_BULK_BATCHES / sum(bulk_s):.0f} over all "
+          f"{SERVE_BULK_BATCHES}); retrieval_cand ({n_cand} candidates) "
+          f"{ret_s * 1e3:.3f} ms; peak device memory {peak / 2**30:.2f} GiB "
+          f"({peak / 1e9:.2f} GB) | {card}")
+
+    # The checks: the plain embedding bag on the card, bit for bit; f32 on
+    # the card against the CPU; retrieval against the CPU.
+    last = bulk[-1]
+    with torch.inference_mode():
+        dense = torch.from_numpy(last["dense"]).to(dev)
+        sparse = torch.from_numpy(last["sparse"]).to(dev)
+        feats = torch.stack([model.bottom(dense)] + [
+            eb.embedding_bag_plain(tab, sparse[:, t, :])
+            for t, tab in enumerate(model.tables)], dim=1)
+        plain = model.top_logits(feats).cpu().numpy()
+        del dense, sparse, feats
+    if not np.array_equal(bulk_out, plain):
+        raise AssertionError("serve_bulk logits differ from the forward with "
+                             "the plain embedding bag: max abs err "
+                             f"{float(np.abs(bulk_out - plain).max())}")
+    print(f"# DLRM check: serve_bulk logits (B = {bulk_b}) bit-identical to "
+          "the forward with the plain embedding bag on the card")
+    bot_cpu = {k: [t.cpu() for t in v] for k, v in model.mlp("bot").items()}
+    with torch.inference_mode():
+        user = mlp_apply(bot_cpu, query["dense"].cpu(), final_act=True)
+        expect = cand.cpu() @ user[0]
+    ret_err = rel_err(scores.cpu(), expect)
+    small = dlrm_mlperf.make_config(vocab_sizes=tuple(
+        min(v, DLRM_CHECK_ROW_CAP) for v in dlrm.CRITEO_1TB_VOCABS))
+    weights = params.dlrm_params(small, seed=1)
+    batch = synthetic.criteo_batch(1, 0, batch=DLRM_CHECK_BATCH,
+                                   n_dense=small.n_dense,
+                                   vocab_sizes=small.vocab_sizes)
+    on_card = dlrm.serve(params.load_dlrm(weights, small, device=dev), batch)
+    on_cpu = dlrm.serve(params.load_dlrm(weights, small, device="cpu"), batch)
+    f32_err = rel_err(torch.from_numpy(on_card), torch.from_numpy(on_cpu))
+    for name, err, tol in (
+            (f"f32 logits, card (K6) vs CPU (plain), tables capped at "
+             f"{DLRM_CHECK_ROW_CAP} rows ({4 * small.param_count() / 1e9:.2f}"
+             f" GB), B = {DLRM_CHECK_BATCH}", f32_err, DLRM_TOLERANCE),
+            (f"retrieval scores ({n_cand}), card vs CPU", ret_err,
+             RETRIEVAL_TOLERANCE)):
+        print(f"# DLRM check: {name}: max rel err {err:.3e} (tolerance "
+              f"{tol:.0e})")
+        if not err < tol:
+            raise AssertionError(f"DLRM {name}: {err}")
+
+    # 14. K6 per table at both batches, the sums over one serve_bulk forward
+    # into the kernels line; then the profiler split.
+    d = cfg.embed_dim
+    tot = totals[k6]
+    for name, batch in (("serve_p99", p99[0]), ("serve_bulk", last)):
+        b = batch["sparse"].shape[0]
+        sparse = torch.from_numpy(batch["sparse"]).to(dev)
+        feats = torch.empty(b, cfg.n_sparse + 1, d, device=dev)
+        row = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bytes_ms", "ops_ms")}
+        for t, tab in enumerate(model.tables):
+            idx, slot = sparse[:, t, :], feats[:, t + 1]
+            flat = idx.contiguous()
+            hot = idx.shape[1]
+            uniq = np.unique(batch["sparse"][:, t, :]).size
+            nbytes = 4 * (uniq * d + b * d + b * hot)
+            cell = {
+                "ms": time_ms(torch, lambda: eb.embedding_bag(tab, idx,
+                                                              out=slot)),
+                "plain_ms": time_ms(torch, lambda: eb.embedding_bag_plain(
+                    tab, idx)),
+                "library_ms": time_ms(torch, lambda: F.embedding_bag(
+                    flat, tab, mode="sum")),
+                "bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+                "ops_ms": 1e3 * b * d * (hot - 1) / PEAK_F32_OPS_PER_S}
+            cell["bound_ms"] = max(cell["bytes_ms"], cell["ops_ms"])
+            for k, v in cell.items():
+                row[k] += v
+            print(f"# time {k6} {name} table {t} (V={tab.shape[0]}, "
+                  f"{uniq} distinct of {b * hot} ids): kernel "
+                  f"{cell['ms']:.4f} ms, plain {cell['plain_ms']:.4f} ms, "
+                  f"library (F.embedding_bag) {cell['library_ms']:.4f} ms, "
+                  f"bound {cell['bound_ms']:.4f} ms ({nbytes} B)")
+        print(f"# time {k6} {name} (B = {b}, f32), sum over the "
+              f"{cfg.n_sparse} tables: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms,"
+              f" bound {row['bound_ms']:.4f} ms | {card}")
+        if name == "serve_bulk":
+            tot.update(row)
+        del sparse, feats
+    bulk_kinds = device_time_by_kind(lambda: dlrm.serve(model, last), "K6",
+                                     "embedding_bag_kernel")
+    p99_kinds = device_time_by_kind(
+        lambda: [dlrm.serve(model, b) for b in p99[:PROFILED_REQUESTS]], "K6",
+        "embedding_bag_kernel")
+    for label, kinds, host_ms, n in (
+            (f"serve_bulk request (B = {bulk_b})", bulk_kinds,
+             1e3 * bulk_med, 1),
+            (f"serve_p99 request (B = {p99_b})", p99_kinds,
+             1e3 * percentile(p99_s, 50), PROFILED_REQUESTS)):
+        busy = sum(kinds.values()) / n
+        parts = ", ".join(f"{k} {v / n:.3f} ms" for k, v in kinds.items())
+        print(f"# where the time goes, {label} (torch.profiler device time"
+              f"{'' if n == 1 else f', mean of {n} requests'}): {parts}; "
+              f"device busy {busy:.3f} ms of {host_ms:.3f} ms host clock "
+              f"({100 * busy / host_ms:.1f}%, the rest idle) | {card}")
+    del model, cand, scores
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -856,6 +1196,7 @@ def main() -> int:
 
     trace_phases(dev, card, launches, max_abs, totals)
     serving_phases(dev, card, launches, max_abs, totals)
+    dlrm_phases(dev, card, launches, max_abs, totals)
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -872,7 +1213,8 @@ def main() -> int:
     print(f"# wall time {time.perf_counter() - t_start:.1f} s; K1-K3 times "
           "are sums over the two GCN-Cora layers, f32; K4's over the 16 "
           "capacities of the 10^7-edge sweep; K5's one layer of the "
-          "SmolLM-135M prefill, bf16")
+          "SmolLM-135M prefill, bf16; K6's the 26 tables of one serve_bulk "
+          "forward of DLRM-MLPerf, f32")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

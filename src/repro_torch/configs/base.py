@@ -1,11 +1,12 @@
-"""Input-shape cells of the LM family (the reference's ``configs/base.py``)."""
+"""Input-shape cells of the LM and recsys families (the reference's
+``configs/base.py``)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Mapping
 
-__all__ = ["ShapeSpec", "LM_SHAPES"]
+__all__ = ["ShapeSpec", "LM_SHAPES", "RECSYS_SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -13,7 +14,7 @@ class ShapeSpec:
     """One input-shape cell."""
 
     name: str
-    kind: str                      # train | prefill | decode
+    kind: str                      # train | prefill | decode | serve | retrieval
     params: Mapping[str, Any]
 
 
@@ -25,4 +26,12 @@ LM_SHAPES = {
                             {"seq": 32768, "batch": 128}),
     "long_500k": ShapeSpec("long_500k", "decode",
                            {"seq": 524288, "batch": 1}),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
+    "serve_p99": ShapeSpec("serve_p99", "serve", {"batch": 512}),
+    "serve_bulk": ShapeSpec("serve_bulk", "serve", {"batch": 262144}),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                {"batch": 1, "n_candidates": 1000000}),
 }

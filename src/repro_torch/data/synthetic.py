@@ -1,10 +1,11 @@
-"""Deterministic graph generators for the trace path (a copy of the
-reference's ``repro/data/synthetic.py``, graph part).
+"""Deterministic generators for the trace path and DLRM serving (a copy of
+the reference's ``repro/data/synthetic.py``: the graphs and
+``criteo_batch``).
 
 Every generator is a pure function of its seed and parameters.  The random
 streams are the reference's, call for call, so the port and the reference
-draw bit-identical edge lists from the same arguments (pinned in
-``tests/test_torch_trace.py``).
+draw bit-identical edge lists and Criteo batches from the same arguments
+(pinned in ``tests/test_torch_trace.py`` and ``tests/test_torch_dlrm.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import numpy as np
 
 __all__ = ["power_law_graph", "power_law_edge_stream", "power_law_edges",
            "power_law_stream_blocks", "ring_of_tiles_graph",
-           "molecule_batch", "GraphArrays", "POWER_LAW_STREAM_CHUNK"]
+           "molecule_batch", "criteo_batch", "GraphArrays",
+           "POWER_LAW_STREAM_CHUNK"]
 
 
 def _rng(seed: int, step: int) -> np.random.Generator:
@@ -234,6 +236,25 @@ def ring_of_tiles_graph(*, n_nodes: int, n_tiles: int,
     feat = np.ones((n_nodes, d_feat), np.float32)
     labels = np.zeros(n_nodes, np.int32)
     return GraphArrays(snd, rcv, feat, labels)
+
+
+def criteo_batch(seed: int, step: int, *, batch: int, n_dense: int,
+                 vocab_sizes: tuple[int, ...], multi_hot: int = 1,
+                 zipf: float = 1.2) -> dict[str, np.ndarray]:
+    """Criteo-like batch: log-normal dense features, Zipfian categorical ids
+    clamped at ``v - 1`` (hot rows dominate), int32 ids, and labels that
+    correlate with the first dense feature."""
+    r = _rng(seed, step)
+    dense = r.lognormal(0.0, 1.0, (batch, n_dense)).astype(np.float32)
+    dense = np.log1p(dense)
+    sparse = np.zeros((batch, len(vocab_sizes), multi_hot), np.int64)
+    for t, v in enumerate(vocab_sizes):
+        raw = r.zipf(zipf, size=(batch, multi_hot))
+        sparse[:, t, :] = np.minimum(raw - 1, v - 1)
+    p = 1.0 / (1.0 + np.exp(2.5 - dense[:, 0]))
+    labels = (r.random(batch) < p).astype(np.int32)
+    return {"dense": dense, "sparse": sparse.astype(np.int32),
+            "labels": labels}
 
 
 def molecule_batch(seed: int, step: int, *, batch: int, n_nodes: int,

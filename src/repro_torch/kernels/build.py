@@ -58,6 +58,12 @@ SIGNATURES = {
         "flash_attention": [_VOID] * 4 + [_INT] * 7 + [_F32] * 2 + [_INT]
         + [_VOID],
     },
+    "embedding_bag": {
+        # table, ids, out, v, d, b, hot, id_stride, out_stride, vec,
+        # bags_per_block, grid, dtype, stream
+        "embedding_bag": [_VOID] * 3 + [_I64] + [_INT] * 3 + [_I64] * 2
+        + [_INT] * 4 + [_VOID],
+    },
 }
 
 _LOCK = threading.Lock()

@@ -1,5 +1,5 @@
 """Public wrappers of the port's kernels (GNN layer K1-K3, trace K4,
-attention K5).
+attention K5, embedding bag K6).
 
 A CUDA tensor launches the hand-written kernel (or the kernel module
 raises); a CPU tensor takes the kernel's plain version.  Nothing falls back
@@ -22,16 +22,18 @@ import torch
 
 from . import edge_aggregate as ea
 from . import edge_aggregate_unfused as eu
+from . import embedding_bag as eb
 from . import flash_attention as fa
 from . import segment_reduce as sr
 
 __all__ = ["LAUNCHES", "reset_launches", "gnn_aggregate_combine",
            "gnn_aggregate", "gnn_combine", "schedule_counts",
-           "flash_attention"]
+           "flash_attention", "embedding_bag"]
 
 LAUNCHES = {"edge_aggregate": 0, "edge_aggregate_unfused.aggregate": 0,
             "edge_aggregate_unfused.combine": 0,
-            "segment_reduce.schedule_counts": 0, "flash_attention": 0}
+            "segment_reduce.schedule_counts": 0, "flash_attention": 0,
+            "embedding_bag": 0}
 
 
 def reset_launches() -> None:
@@ -109,3 +111,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 block_q=block_q, block_k=block_k)
     return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, D) sums of the rows of a (V, D) table that (B, hot) int32 ids
+    pick, in the table's dtype, into ``out`` if given (K6 on CUDA).  Raises
+    when the table requires grad: K6 has no backward."""
+    if table.device.type == "cuda":
+        out = eb.embedding_bag(table, indices, out=out)
+        LAUNCHES["embedding_bag"] += 1
+        return out
+    return eb.embedding_bag_plain(table, indices, out=out)

@@ -9,7 +9,7 @@ import torch
 from ..backend import full_fp32
 
 __all__ = ["fused_aggregate_combine_ref", "edge_list_aggregate_ref",
-           "flash_attention_ref"]
+           "flash_attention_ref", "embedding_bag_ref"]
 
 
 def fused_aggregate_combine_ref(adjacency: torch.Tensor, x: torch.Tensor,
@@ -50,3 +50,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1),
                        v.float())
     return out.to(q.dtype)
+
+
+def embedding_bag_ref(table: torch.Tensor,
+                      indices: torch.Tensor) -> torch.Tensor:
+    """(V, D) table, (B, hot) ids -> (B, D) summed bags: take, then sum
+    (in bf16 this rounds otherwise than the kernels' sequential sum)."""
+    return table[indices.long()].sum(dim=1)

@@ -11,6 +11,14 @@ The reference transformer keeps ``{"embed": (V, d), "final_norm": (d,),
 :func:`transformer_params` makes seeded numpy weights in that layout and
 :func:`load_transformer` turns it, or the reference's own ``init_params``
 output converted with ``np.asarray``, into the port's module.
+
+The reference DLRM keeps ``{"tables": [(V_t, d) per feature], "bot": {"w",
+"b"}, "top": {"w", "b"}}``.  :func:`dlrm_params` makes seeded numpy weights
+in that layout and :func:`load_dlrm` loads them, or the reference's
+``init_params`` output after ``np.asarray``, into the port's module.  (The
+full-size tables are drawn on the card instead, by ``DLRM(cfg,
+generator=...)``: 53 GB would not pass through host numpy in reasonable
+time.)
 """
 
 from __future__ import annotations
@@ -21,11 +29,12 @@ import numpy as np
 import torch
 
 from .backend import resolve_device
-from .models.common import dense_init, embed_init
+from .models.common import dense_init, embed_init, mlp_init
+from .models.dlrm import DLRM, DLRMConfig
 from .models.transformer import LAYER_KEYS, Transformer, TransformerConfig
 
 __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
-           "load_transformer"]
+           "load_transformer", "dlrm_params", "load_dlrm"]
 
 
 def gcn_params(dims: Sequence[int], seed: int = 0) -> dict:
@@ -90,6 +99,15 @@ def transformer_params(cfg: TransformerConfig, seed: int = 0) -> dict:
     return params
 
 
+def _put(dst: torch.Tensor, src, what: str) -> None:
+    """Copy numpy ``src`` into ``dst`` as float32; shapes must match."""
+    src = torch.from_numpy(np.array(src, dtype=np.float32))
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{what}: shape {tuple(src.shape)}, expected "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(src)
+
+
 def load_transformer(params_np: dict, cfg: TransformerConfig, *,
                      device=None,
                      dtype: Optional[torch.dtype] = None) -> Transformer:
@@ -99,27 +117,53 @@ def load_transformer(params_np: dict, cfg: TransformerConfig, *,
     every shape must match exactly."""
     model = Transformer(cfg, device=resolve_device(device),
                         dtype=dtype or cfg.compute_dtype)
-
-    def put(dst: torch.Tensor, src, what: str) -> None:
-        src = torch.from_numpy(np.array(src, dtype=np.float32))
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{what}: shape {tuple(src.shape)}, expected "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(src)
-
     P = len(cfg.window_pattern)
     if len(params_np["blocks"]) != P:
         raise ValueError(f"{len(params_np['blocks'])} blocks for a "
                          f"{P}-entry window pattern")
     with torch.no_grad():
-        put(model.embed, params_np["embed"], "embed")
-        put(model.final_norm, params_np["final_norm"], "final_norm")
+        _put(model.embed, params_np["embed"], "embed")
+        _put(model.final_norm, params_np["final_norm"], "final_norm")
         if not cfg.tie_embeddings:
-            put(model.unembed, params_np["unembed"], "unembed")
+            _put(model.unembed, params_np["unembed"], "unembed")
         for n, layer in enumerate(model.layers):
             g, i = divmod(n, P)
             for key in LAYER_KEYS:
-                put(getattr(layer, key),
+                _put(getattr(layer, key),
                     np.asarray(params_np["blocks"][i][key])[g],
                     f"blocks[{i}][{key!r}][{g}]")
+    return model
+
+
+def dlrm_params(cfg: DLRMConfig, seed: int = 0) -> dict:
+    """Seeded float32 numpy parameters in the reference layout, with the
+    reference's initializers: 0.02-normal tables, He-normal MLP weights,
+    zero biases."""
+    rng = np.random.default_rng(seed)
+    return {"tables": [embed_init(rng, (v, cfg.embed_dim))
+                       for v in cfg.vocab_sizes],
+            "bot": mlp_init(rng, (cfg.n_dense,) + cfg.bot_mlp),
+            "top": mlp_init(rng, (cfg.interaction_dim(),) + cfg.top_mlp)}
+
+
+def load_dlrm(params_np: dict, cfg: DLRMConfig, *, device=None) -> DLRM:
+    """The port's module holding ``params_np`` (reference layout) in f32 on
+    ``device`` (CUDA by default); every shape and count must match."""
+    model = DLRM(cfg, device=device)
+    if len(params_np["tables"]) != cfg.n_sparse:
+        raise ValueError(f"{len(params_np['tables'])} tables for "
+                         f"{cfg.n_sparse} sparse features")
+    with torch.no_grad():
+        for t, (dst, src) in enumerate(zip(model.tables,
+                                           params_np["tables"])):
+            _put(dst, src, f"tables[{t}]")
+        for name in ("bot", "top"):
+            mlp = model.mlp(name)
+            for key in ("w", "b"):
+                srcs = params_np[name][key]
+                if len(srcs) != len(mlp[key]):
+                    raise ValueError(f"{name}[{key!r}]: {len(srcs)} layers, "
+                                     f"expected {len(mlp[key])}")
+                for i, (dst, src) in enumerate(zip(mlp[key], srcs)):
+                    _put(dst, src, f"{name}[{key!r}][{i}]")
     return model
