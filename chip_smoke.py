@@ -6,7 +6,9 @@ It needs one CUDA card and ``nvcc``; without a card it exits 1 and prints no
 result.  Phases, any failure of which ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` compiles the kernels under ``src/repro_torch/csrc``;
+2. build: ``nvcc`` compiles the kernels under ``src/repro_torch/csrc``; the
+   registers and spills of each instance of the bf16 K5 kernel, by name
+   (it must not spill);
 3. kernels vs plain versions: K1 (fused), K2 (aggregate) and K3 (combine)
    on the card, f32 and bf16, at the reference's four kernel-test shapes and
    at the two full-width GCN-Cora layers (seeded Cora-sized graph, GCN
@@ -51,9 +53,12 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    the card matches the same prefill on the CPU (plain versions, the same
    weights moved over by ``.cpu()``) and 256 decode steps from an empty
    cache, and 4 further decode steps from each cache agree, all to 1e-4;
-11. K5's time at the serving shape (CUDA events, median of 20) beside its
-   bound, its plain version and ``scaled_dot_product_attention`` (timed
-   here only; the port never calls it), and its share of one prefill; the
+11. K5's time at the serving shape (CUDA events, median of 20), its
+   TFLOP/s and share of its bound, beside the bound, its plain version,
+   ``scaled_dot_product_attention`` (timed here only; the port never calls
+   it) and the f32 CUDA-core K5 on the same inputs widened to f32, and its
+   share of one prefill; K5 at gemma2-2b's attention shape (B 2, S 4096,
+   H 8, Hk 4, D 256, softcap 50), beside its bound and plain version; the
    device time of one prefill and of 8 decode steps by kind (K5, cuBLAS
    products, other kernels) under ``torch.profiler``, against the
    unprofiled host time, which gives the device's idle share;
@@ -89,6 +94,7 @@ The last three lines of standard output are the ``kernels`` JSON line, the
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import sys
 import time
@@ -148,7 +154,7 @@ KERNELS = {
         "source": "src/repro_torch/csrc/segment_reduce.cu",
         "replaces": "src/repro/kernels/segment_reduce.py:102"},
     "flash_attention": {
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_hopper.cuh",
         "replaces": "src/repro/kernels/flash_attention.py:30"},
     "embedding_bag": {
         "source": "src/repro_torch/csrc/embedding_bag.cu",
@@ -185,6 +191,10 @@ PROFILED_STEPS = 8
 SERVE_TOLERANCE = 1e-4
 #: Published H100 SXM bf16 dense tensor-core peak at 700 W.
 PEAK_BF16_OPS_PER_S = 989e12
+#: gemma2-2b's attention (src/repro/configs/gemma2_2b.py:16-19: 8 heads, 4
+#: kv heads, head dim 256, softcap 50) over a 4096-token causal prefill
+#: (its local window is 4096) at B = 2: (b, s, h, hk, d, softcap).
+GEMMA2_ATTENTION = (2, 4096, 8, 4, 256, 50.0)
 #: K6's cases (v, d, b, hot): the reference test grid
 #: (tests/test_kernels.py:148-152), D = 100 (f32 vector loads, bf16 single
 #: loads) and D = 30 (single loads in both), bags of 37 (tails of the
@@ -216,6 +226,32 @@ DLRM_CHECK_ROW_CAP, DLRM_CHECK_BATCH = 65_536, 512
 DLRM_TOLERANCE = 1e-4
 #: Retrieval scores, card vs CPU: one 128-long f32 dot per candidate.
 RETRIEVAL_TOLERANCE = 1e-5
+
+
+def k5_work(b: int, s: int, h: int, hk: int, d: int) -> tuple[int, int]:
+    """Bytes and operations of one causal bf16 K5 call: q, k, v read once
+    and o written once; the causal triangle's q·k and p·v."""
+    return 2 * b * s * d * (2 * h + 2 * hk), 2 * d * s * (s + 1) * b * h
+
+
+def k5_ptxas(log: str) -> list[str]:
+    """Registers and spills of each instance of the bf16 K5 kernel
+    (``flash_wgmma_kernel<DP, KT>``) from the ``-Xptxas -v`` log; the
+    registers are the count at launch, before ``setmaxnreg`` moves the
+    producer's to the consumers."""
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        found = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", line)
+        if "Compiling entry function" in line:
+            name = (f"flash_wgmma_kernel<{found[1]}, {found[2]}>" if found
+                    else None)
+        elif name and "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            rows.append(f"{name}: {int(line.split('Used')[1].split()[0])} "
+                        f"registers; {spill}")
+            name = None
+    return rows
 
 
 def rel_err(out, expect) -> float:
@@ -650,7 +686,7 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
     # Where the device time goes: one more prefill and 8 decode steps under
     # torch.profiler, outside the counted run.
     pre_kinds = device_time_by_kind(lambda: prefill(model, prompts), "K5",
-                                    "flash_kernel")
+                                    "flash_wgmma_kernel")
     _, cache = prefill(model, prompts)
     token = generated[0]
 
@@ -660,7 +696,7 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
             lg, cache = serve(model, cache, token, SERVE_PROMPT + step)
             token = lg.argmax(-1, keepdim=True)
 
-    dec_kinds = device_time_by_kind(decode_steps, "K5", "flash_kernel")
+    dec_kinds = device_time_by_kind(decode_steps, "K5", "flash_wgmma_kernel")
     step_ms = 1e3 * percentile(step_s, 50)
     for label, kinds, host_ms, n in (
             ("prefill", pre_kinds, prefill_ms, 1),
@@ -703,12 +739,13 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
             raise AssertionError(f"serving f32 {name}: {err}")
     del model32
 
-    # 11. K5's time at the serving shape.
+    # 11. K5's time at the serving shape, beside the f32 CUDA-core kernel on
+    # the same inputs widened to f32, and at gemma2-2b's attention shape.
     b, s, h, hk, d = main_shape[:5]
     q, k, v = (torch.randn(b, s, n, d, generator=gen).to(dev, torch.bfloat16)
                for n in (h, hk, hk))
-    nbytes = 2 * b * s * d * (2 * h + 2 * hk)
-    nops = 2 * d * s * (s + 1) * b * h
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    nbytes, nops = k5_work(b, s, h, hk, d)
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     ops_ms = 1e3 * nops / PEAK_BF16_OPS_PER_S
     row = {"ms": time_ms(torch, lambda: fa.flash_attention(q, k, v)),
@@ -719,15 +756,37 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
                is_causal=True, enable_gqa=True)),
            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
            "ops_ms": ops_ms}
+    f32_ms = time_ms(torch, lambda: fa.flash_attention(q32, k32, v32))
     totals[k5] = row
     print(f"# time {k5} B={b} S={s} H={h} Hk={hk} D={d} bf16: kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-          f"(scaled_dot_product_attention) {row['library_ms']:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms ({nops} op at the bf16 tensor-"
-          f"core rate; {1e3 * nops / PEAK_F32_OPS_PER_S:.4f} ms at the fp32 "
-          f"rate; {nbytes} B take {bytes_ms:.4f} ms); {cfg.n_layers} layers "
-          f"of K5 are {100 * cfg.n_layers * row['ms'] / prefill_ms:.1f}% of "
-          f"one prefill ({prefill_ms:.3f} ms) | {card}")
+          f"{row['ms']:.4f} ms ({nops / row['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound), plain "
+          f"{row['plain_ms']:.4f} ms, library (scaled_dot_product_attention) "
+          f"{row['library_ms']:.4f} ms (kernel / library "
+          f"{row['ms'] / row['library_ms']:.2f}x), bound {row['bound_ms']:.4f}"
+          f" ms ({nops} op at the bf16 tensor-core rate; {nbytes} B take "
+          f"{bytes_ms:.4f} ms); the f32 CUDA-core kernel on the same inputs "
+          f"in f32 {f32_ms:.4f} ms ({f32_ms / row['ms']:.1f}x the kernel; "
+          f"{1e3 * nops / PEAK_F32_OPS_PER_S:.4f} ms at the fp32 rate); "
+          f"{cfg.n_layers} layers of K5 are "
+          f"{100 * cfg.n_layers * row['ms'] / prefill_ms:.1f}% of one prefill"
+          f" ({prefill_ms:.3f} ms) | {card}")
+    del q, k, v, q32, k32, v32
+    b, s, h, hk, d, cap = GEMMA2_ATTENTION
+    q, k, v = (torch.randn(b, s, n, d, generator=gen).to(dev, torch.bfloat16)
+               for n in (h, hk, hk))
+    nbytes, nops = k5_work(b, s, h, hk, d)
+    bound = 1e3 * max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_OPS_PER_S)
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, softcap=cap))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, softcap=cap))
+    print(f"# time {k5} gemma2-2b attention B={b} S={s} H={h} Hk={hk} D={d} "
+          f"softcap {cap} causal bf16: kernel {ms:.4f} ms "
+          f"({nops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the "
+          f"bound), plain {plain_ms:.4f} ms, no library time "
+          f"(scaled_dot_product_attention takes no softcap), bound "
+          f"{bound:.4f} ms ({nops} op at the bf16 tensor-core rate; {nbytes}"
+          f" B) | {card}")
 
 
 def bag_checks(dev, max_abs: dict) -> None:
@@ -1045,6 +1104,10 @@ def main() -> int:
           f"{len(spills)} with spills")
     for line in spills:
         print(f"#   spill {line}")
+    for line in k5_ptxas(build.build_log()):
+        print(f"# ptxas {line}")
+        if " 0 bytes spill stores" not in line:
+            raise AssertionError(f"the bf16 K5 kernel spills: {line}")
 
     # Inputs of the main path: the seeded Cora-sized graph, padded.
     (cora1, cora2) = conformance.cora_operating_points()

@@ -5,34 +5,36 @@
 // innermost kv axis a TPU walks in order, carrying the running max m, sum l and
 // (BQ, D) accumulator in VMEM scratch across it).
 //
-// What bounds it on the H100: operations.  At the serving path's shape
-// (B = 8, S = 1920, H = 9, Hk = 3, D = 64, bf16) the causal triangle needs
-// 2*D*S*(S+1) operations per (batch, head), 3.40e10 per layer, against 47.2 MB
-// of q, k, v and o read or written once: about 720 operations per byte, above
-// the card's ~295 for bf16.  That is 34.4 us at the bf16 tensor-core rate, and
-// 0.51 ms at the fp32 CUDA-core rate this kernel computes at.
+// bf16 inputs, the serving path's, go to flash_attention_hopper.cuh: wgmma
+// for both products, K and V tiles by TMA into a ring, a producer warpgroup
+// and two consumer warpgroups.  This file keeps the f32 kernel below.
 //
-// What the design does about it: one CTA of 256 threads owns 64 query rows of
+// What bounds the f32 kernel on the H100: operations.  At the serving shape
+// (B = 8, S = 1920, H = 9, Hk = 3, D = 64) the causal triangle needs
+// 2*D*S*(S+1) operations per (batch, head), 3.40e10 per layer: 0.51 ms at the
+// fp32 CUDA-core rate it computes at.
+//
+// What its design does about it: one CTA of 256 threads owns 64 query rows of
 // one (batch, head) and walks the kv tiles itself (CTAs run in no order here,
 // so nothing carries over between them).  q, scaled by D^-1/2 before the dot,
-// the K and V tiles and the tile of weights p are staged in shared memory as
-// fp32, so every staged value feeds 4 rows or columns of FMAs.  Each thread
-// keeps a 4 x KT/16 score tile, a 4 x D/16 output accumulator and the running
-// max and sum of its 4 rows in registers; the 16 threads that share rows
-// combine their maxima and sums with half-warp shuffles.  kv tiles that lie
-// wholly above the diagonal or wholly outside the window are skipped, which
-// halves the causal work; their p would be 0.  CTAs of the last q blocks, which
-// walk the most tiles, are launched first.  GQA: query head h reads kv head
-// h / (H / Hk) in place, with no repeated copy.
+// the K and V tiles and the tile of weights p are staged in shared memory, so
+// every staged value feeds 4 rows or columns of FMAs.  Each thread keeps a
+// 4 x KT/16 score tile, a 4 x D/16 output accumulator and the running max and
+// sum of its 4 rows in registers; the 16 threads that share rows combine their
+// maxima and sums with half-warp shuffles.  kv tiles that lie wholly above the
+// diagonal or wholly outside the window are skipped, which halves the causal
+// work; their p would be 0.  CTAs of the last q blocks, which walk the most
+// tiles, are launched first.  GQA: query head h reads kv head h / (H / Hk) in
+// place, with no repeated copy.
 //
 // The numbers follow the TPU kernel: the softcap is applied before the mask; a
 // masked weight is set to 0 explicitly (not left to exp underflow), so a row
 // whose first tiles are all masked keeps m = -1e30 and corr = 1 until its first
 // unmasked tile; l is clamped at 1e-30 before the divide.  All arithmetic is
-// fp32 on the CUDA cores; bf16 operands are widened as they are staged and the
-// output is rounded to nearest.  wgmma, TMA and tensor cores are later work.
-#include <cuda_bf16.h>
+// fp32 FMA on the CUDA cores.  3xTF32 on the tensor cores is later work.
 #include <cuda_runtime.h>
+
+#include "flash_attention_hopper.cuh"
 
 namespace flash {
 
@@ -43,15 +45,6 @@ constexpr float kNeg = -1e30f;
 constexpr size_t kMaxSmemBytes = 232448;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Shared-memory row strides.  D + 4 keeps rows 16-byte aligned for the float4
 // reads and puts the 8 rows one quarter-warp reads on distinct banks.
@@ -77,26 +70,24 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 }
 
 // Loads rows [r0, r0 + rows) of one head of a (B, S, heads, D) tensor into
-// dst (row stride `stride`), widened to fp32 and times `mul`; rows at or past
-// s load as 0.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int b, int s, int heads,
+// dst (row stride `stride`), times `mul`; rows at or past s load as 0.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int b, int s, int heads,
                                            int head, int d, int r0, int rows, int stride,
                                            float mul, float* dst) {
   for (int e = threadIdx.x; e < rows * d; e += kThreads) {
     const int r = e / d, col = e % d;
     const int row = r0 + r;
     float val = 0.f;
-    if (row < s) val = to_f32(src[(((size_t)b * s + row) * heads + head) * d + col]) * mul;
+    if (row < s) val = src[(((size_t)b * s + row) * heads + head) * d + col] * mul;
     dst[r * stride + col] = val;
   }
 }
 
 // DV: accumulator columns per thread (D <= 16 * DV); KT: kv rows per tile.
-template <typename T, int DV, int KT>
+template <int DV, int KT>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int s, int h, int hk, int d, int causal, int window,
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int s, int h, int hk, int d, int causal, int window,
                  float softcap, float scale) {
   constexpr int CJ = KT / 16;  // score columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -228,38 +219,37 @@ __global__ void __launch_bounds__(kThreads)
     const int r = q0 + ty + 16 * i;
     if (r >= s) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((size_t)b * s + r) * h + head) * d;
+    float* orow = o + (((size_t)b * s + r) * h + head) * d;
 #pragma unroll
     for (int jj = 0; jj < DV; ++jj)
-      if (jj < nd) orow[tx + 16 * jj] = from_f32<T>(acc[i][jj] / l_safe);
+      if (jj < nd) orow[tx + 16 * jj] = acc[i][jj] / l_safe;
   }
 }
 
-template <typename T, int DV, int KT>
+template <int DV, int KT>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int s, int h, int hk,
            int d, int causal, int window, float softcap, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(d, KT);
   if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_kernel<T, DV, KT>;
+  auto kernel = flash_kernel<DV, KT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(b * h, (s + kBlockRows - 1) / kBlockRows);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s, h, hk, d, causal, window, softcap, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), s, h, hk, d, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 // The kv tile: 64 rows for D <= 128, 32 above, so the fp32 staging of a
 // D = 256 tile fits the CTA's shared memory.
-template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int b, int s, int h,
                int hk, int d, int causal, int window, float softcap, float scale,
                cudaStream_t stream) {
   const int nd = d / 16;
 #define FLASH_LAUNCH(DV, KT) \
-  launch<T, DV, KT>(q, k, v, o, b, s, h, hk, d, causal, window, softcap, scale, stream)
+  launch<DV, KT>(q, k, v, o, b, s, h, hk, d, causal, window, softcap, scale, stream)
   if (nd <= 1) return FLASH_LAUNCH(1, 64);
   if (nd <= 2) return FLASH_LAUNCH(2, 64);
   if (nd <= 4) return FLASH_LAUNCH(4, 64);
@@ -272,9 +262,11 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b, int 
 }  // namespace flash
 
 // q, o: (B, S, H, D); k, v: (B, S, Hk, D); all contiguous, one dtype
-// (0 f32, 1 bf16).  window <= 0 means none, softcap <= 0 means none.  This
-// file alone decides the geometry: the grid, the kv tile, the kv tiles each
-// CTA walks and the shared memory it takes.
+// (0 f32, 1 bf16), bf16 ones 16-byte aligned.  window <= 0 means none,
+// softcap <= 0 means none.  This file and its header alone decide the
+// geometry: the grid, the kv tile, the kv tiles each CTA walks and the shared
+// memory it takes.  Returns a cudaError_t, or for bf16 one of
+// flash_hopper's tensor-map codes (kNoEncodeEntry, kEncodeFailed + CUresult).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int b,
                                int s, int h, int hk, int d, int causal, int window,
                                float softcap, float scale, int dtype, void* stream) {
@@ -283,10 +275,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == flash::kF32)
-    return flash::dispatch_d<float>(q, k, v, o, b, s, h, hk, d, causal, window, softcap,
-                                    scale, st);
+    return flash::dispatch_d(q, k, v, o, b, s, h, hk, d, causal, window, softcap, scale, st);
   if (dtype == flash::kBF16)
-    return flash::dispatch_d<__nv_bfloat16>(q, k, v, o, b, s, h, hk, d, causal, window,
-                                            softcap, scale, st);
+    return flash_hopper::dispatch(q, k, v, o, b, s, h, hk, d, causal, window, softcap, scale,
+                                  st);
   return (int)cudaErrorInvalidValue;
 }

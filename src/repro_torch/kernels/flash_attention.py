@@ -3,11 +3,16 @@
 The reference's Pallas kernel walks a grid ``(B*H, S/BQ, S/BK)`` on a TPU
 with the kv axis innermost and in order, carrying the running max, sum and
 ``(BQ, D)`` accumulator in VMEM scratch across it, so the ``(BQ, BK)`` score
-tile never leaves the chip.  On the H100 (``csrc/flash_attention.cu``) one
-CTA owns 64 query rows of one (batch, head) and walks the kv tiles itself;
-kv tiles wholly above the diagonal or outside the window are skipped.  The
-CUDA file alone decides that geometry (grid, kv tile, tiles walked, shared
-memory); this module passes it only the shapes.
+tile never leaves the chip.  On the H100 one CTA owns a block of query rows
+of one (batch, head) and walks the kv tiles itself; kv tiles wholly above
+the diagonal or outside the window are skipped.  bf16 inputs (the serving
+path's) take ``csrc/flash_attention_hopper.cuh``: 192 query rows per CTA
+at D = 64 and 128 above, both products on the tensor cores (``wgmma``, p
+split into two bf16 terms for p·v), K and V tiles by TMA into a two-stage
+ring.  f32 inputs take the
+fp32 CUDA-core kernel of ``csrc/flash_attention.cu``, 64 rows per CTA.  The
+CUDA sources alone decide that geometry (grid, kv tile, tiles walked,
+shared memory); this module passes them only the shapes.
 
 The TPU kernel's ``block_q`` and ``block_k`` are sized for VMEM.  A CTA's
 tile here is bounded by registers and 227 KB of shared memory instead, so the
@@ -43,9 +48,10 @@ DEFAULT_BLOCK_K = 128
 
 
 def check_head_dim(d: int) -> None:
-    """The CUDA kernel's limit on the head dim: it reads q and k rows 4
-    floats at a time and gives each of 16 threads D / 16 output columns, so
-    D is a multiple of 16, up to 256 (gemma2's head)."""
+    """The CUDA kernels' limit on the head dim: the f32 kernel gives each of
+    16 threads D / 16 output columns and the bf16 kernel takes 16 columns of
+    q·k per ``wgmma`` step, so D is a multiple of 16, up to 256 (gemma2's
+    head)."""
     if d % 16 or not 16 <= d <= 256:
         raise ValueError(f"head dim {d}: the CUDA kernel takes multiples of "
                          "16 in [16, 256]")
@@ -92,8 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
-    """K5 on the card: attention of ``q`` over ``k``, ``v`` in fp32, output
-    in ``q.dtype``, shape ``(B, S, H, D)``.  Operands are made contiguous.
+    """K5 on the card: attention of ``q`` over ``k``, ``v`` with fp32 sums,
+    output in ``q.dtype``, shape ``(B, S, H, D)``.  Operands are made
+    contiguous and 16-byte aligned (the bf16 kernel's tensor maps need it).
 
     Launches on the current stream and does not synchronise.
     """
@@ -103,6 +110,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, h, d = q.shape
     check_head_dim(d)
     q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     lib = build.library("flash_attention")
     with torch.cuda.device(q.device):
