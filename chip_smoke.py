@@ -7,12 +7,14 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` compiles the kernels under ``src/repro_torch/csrc``; the
-   registers and spills of each instance of the bf16 K5 kernel, by name
-   (it must not spill);
+   registers and spills of each instance of the tensor-core kernels, by
+   name: bf16 K5 and K1 / K2 (none may spill);
 3. kernels vs plain versions: K1 (fused), K2 (aggregate) and K3 (combine)
-   on the card, f32 and bf16, at the reference's four kernel-test shapes and
-   at the two full-width GCN-Cora layers (seeded Cora-sized graph, GCN
-   weights in the reference layout), against their plain PyTorch versions;
+   on the card, f32 and bf16, at the reference's four kernel-test shapes,
+   at two shapes of the cluster schedules (one feature chunk split over 4
+   ranks by source blocks; 6 feature chunks) and at the two full-width
+   GCN-Cora layers (seeded Cora-sized graph, GCN weights in the reference
+   layout), against their plain PyTorch versions;
 4. the GNN layer path: the launch counters are zeroed, then the 2-layer
    GCN-Cora forward runs fused and unfused through ``repro_torch.kernels.
    ops``, and the conformance harness holds the kernels' byte schedules to
@@ -23,6 +25,11 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    device-side sleep, median of 20, warm L2): each kernel
    beside its bound, its plain version and one PyTorch library call that
    computes the same function (timed here only; the port never calls it);
+   K1 and K2 also beside their block-dense bound (the schedule's operations
+   at the rate of the arithmetic they use, or its traced bytes), K1 beside
+   the same-association ``matmul(matmul(A, X), W)``; bf16 K1 and K2 at
+   layer 1; and the fused-minus-unfused time (K2 + K3 - K1) against the
+   modelled spill;
 6. K4 (the trace segment reduce) against its plain version, bit for bit:
    every trace dataset at the reference test battery's parameters and
    capacities, an int64-index case, a 2^53-scale multiplicity case, and the
@@ -109,9 +116,17 @@ TOLERANCE = {"f32": 1e-5, "bf16": 3e-2}
 #: The reference's fused-kernel test shapes (n, f, t, block_n, block_k).
 TEST_SHAPES = ((256, 32, 8, 128, 128), (512, 64, 16, 128, 256),
                (512, 128, 32, 256, 256), (1024, 16, 7, 256, 512))
+#: Two shapes of the cluster schedules: one feature chunk whose 16 source
+#: blocks split over 4 ranks (32 destination blocks), and 6 feature chunks,
+#: not a power of two (in bf16 X's 1400-byte rows start off 16-byte
+#: boundaries).
+CLUSTER_SHAPES = ((2048, 24, 5, 64, 128), (1024, 700, 9, 64, 128))
 #: Published H100 SXM peaks at 700 W: HBM bytes/s, fp32 (non-tensor) op/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+#: Published H100 SXM TF32 dense tensor-core peak at 700 W; K1 and K2 take
+#: three TF32 products per f32 product (3xTF32).
+PEAK_TF32_OPS_PER_S = 495e12
 #: K4's integer operations per pair: two divisions, three compares, the
 #: flag or, and two adds.  They are set against the fp32 non-tensor peak:
 #: the table has no integer rate outside the tensor cores, and the bound is
@@ -234,24 +249,83 @@ def k5_work(b: int, s: int, h: int, hk: int, d: int) -> tuple[int, int]:
     return 2 * b * s * d * (2 * h + 2 * hk), 2 * d * s * (s + 1) * b * h
 
 
+def ptxas_rows(log: str, pattern: str, name) -> list[str]:
+    """Registers and spills of each kernel instance whose mangled name
+    matches ``pattern``, from the ``-Xptxas -v`` log, named by
+    ``name(match)``."""
+    rows, entry, spill = [], None, ""
+    for line in log.splitlines():
+        found = re.search(pattern, line)
+        if "Compiling entry function" in line:
+            entry = name(found) if found else None
+        elif entry and "spill stores" in line:
+            spill = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            rows.append(f"{entry}: {int(line.split('Used')[1].split()[0])} "
+                        f"registers; {spill}")
+            entry = None
+    return rows
+
+
 def k5_ptxas(log: str) -> list[str]:
-    """Registers and spills of each instance of the bf16 K5 kernel
-    (``flash_wgmma_kernel<DP, KT>``) from the ``-Xptxas -v`` log; the
+    """The bf16 K5 kernel's instances (``flash_wgmma_kernel<DP, KT>``); the
     registers are the count at launch, before ``setmaxnreg`` moves the
     producer's to the consumers."""
-    rows, name, spill = [], None, ""
-    for line in log.splitlines():
-        found = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)E", line)
-        if "Compiling entry function" in line:
-            name = (f"flash_wgmma_kernel<{found[1]}, {found[2]}>" if found
-                    else None)
-        elif name and "spill stores" in line:
-            spill = line.strip()
-        elif name and "Used" in line and "registers" in line:
-            rows.append(f"{name}: {int(line.split('Used')[1].split()[0])} "
-                        f"registers; {spill}")
-            name = None
-    return rows
+    return ptxas_rows(log, r"flash_wgmma_kernelILi(\d+)ELi(\d+)E",
+                      lambda m: f"flash_wgmma_kernel<{m[1]}, {m[2]}>")
+
+
+def aggregate_ptxas(log: str) -> list[str]:
+    """K1's (fused) and K2's instances (``aggregate_kernel<T, BN, Fused>``)."""
+    return ptxas_rows(
+        log, r"aggregate_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+        lambda m: (f"aggregate_kernel<{'f32' if m[1] == 'f' else 'bf16'}, "
+                   f"{m[2]}, {'K1' if m[3] == '1' else 'K2'}>"))
+
+
+def cluster_fit(build, ea, eu, kname: str, pt) -> str:
+    """K1's or K2's grid at an operating point (f32) and how many of its
+    clusters fit on the card at once (``cudaOccupancyMaxActiveClusters``)."""
+    fc = ea.feature_chunk(pt.Bn)
+    if kname == "edge_aggregate":
+        sched = ea.fused_grid_spec(pt.K, pt.N, pt.T, pt.Bn, pt.Bk)
+        fit = build.library("edge_aggregate").fused_active_clusters(
+            pt.K, pt.N, pt.T, pt.Bn, pt.Bk, fc, 0)
+    else:
+        sched = eu.aggregate_grid_spec(pt.K, pt.N, pt.Bn, pt.Bk)
+        fit = build.library("edge_aggregate_unfused").aggregate_active_clusters(
+            pt.K, pt.N, pt.Bn, pt.Bk, fc, 0)
+    if fit < 0:
+        raise RuntimeError(f"{kname}: cudaOccupancyMaxActiveClusters failed "
+                           f"with CUDA error {-fit}")
+    ranks, blocks = sched.grid
+    return (f"grid {ranks} x {blocks} in {ranks * blocks // sched.cluster} "
+            f"clusters of {sched.cluster}, {fit} fit on the card at once")
+
+
+def dense_bound(conformance, ea, eu, kname: str, pt, dtype: str) -> str:
+    """K1's or K2's block-dense bound at one operating point: the larger of
+    the schedule's operations at the rate of the arithmetic the kernel uses
+    (f32: three TF32 products at the TF32 rate, K1's combine at the fp32
+    rate; bf16: the bf16 rate) and its traced bytes at the HBM rate."""
+    K, F, T = pt.K, pt.N, pt.T
+    elem = 4 if dtype == "f32" else 2
+    fused = kname == "edge_aggregate"
+    acct = (ea.fused_block_streams(K, F, T, block_n=pt.Bn, block_k=pt.Bk,
+                                   elem_bytes=elem) if fused
+            else eu.aggregate_block_streams(K, F, block_n=pt.Bn,
+                                            block_k=pt.Bk, elem_bytes=elem))
+    traced = conformance.block_schedule(acct["schedule"], acct["streams"])
+    nbytes = sum(v["bytes"] for v in traced.values())
+    ops = 2 * K * K * F
+    ops_ms = 1e3 * (3 * ops / PEAK_TF32_OPS_PER_S if dtype == "f32"
+                    else ops / PEAK_BF16_OPS_PER_S)
+    if fused:
+        ops_ms += 1e3 * 2 * K * F * T / PEAK_F32_OPS_PER_S
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by = "operations" if ops_ms >= bytes_ms else "traced bytes"
+    return f"{max(ops_ms, bytes_ms):.4f} ms ({by}: {ops_ms:.4f} ms of " \
+           f"operations, {bytes_ms:.4f} ms of {nbytes:.0f} traced B)"
 
 
 def rel_err(out, expect) -> float:
@@ -1104,10 +1178,11 @@ def main() -> int:
           f"{len(spills)} with spills")
     for line in spills:
         print(f"#   spill {line}")
-    for line in k5_ptxas(build.build_log()):
+    for line in k5_ptxas(build.build_log()) + aggregate_ptxas(
+            build.build_log()):
         print(f"# ptxas {line}")
         if " 0 bytes spill stores" not in line:
-            raise AssertionError(f"the bf16 K5 kernel spills: {line}")
+            raise AssertionError(f"a tensor-core kernel spills: {line}")
 
     # Inputs of the main path: the seeded Cora-sized graph, padded.
     (cora1, cora2) = conformance.cora_operating_points()
@@ -1127,6 +1202,12 @@ def main() -> int:
         ta = (torch.rand(n, n, generator=gen) < 0.02) * torch.rand(
             n, n, generator=gen)
         cases.append((f"shape{n}x{f}x{t}", bn, bk,
+                      ta.to(dev), torch.randn(n, f, generator=gen).to(dev),
+                      torch.randn(f, t, generator=gen).to(dev)))
+    for n, f, t, bn, bk in CLUSTER_SHAPES:
+        ta = (torch.rand(n, n, generator=gen) < 0.02) * torch.rand(
+            n, n, generator=gen)
+        cases.append((f"cluster{n}x{f}x{t}", bn, bk,
                       ta.to(dev), torch.randn(n, f, generator=gen).to(dev),
                       torch.randn(f, t, generator=gen).to(dev)))
     for name, (pt, ca, cx, cw) in cora_inputs.items():
@@ -1172,8 +1253,9 @@ def main() -> int:
         ops.gnn_aggregate(a, h1u, block_n=cora2.Bn, block_k=cora2.Bk),
         w2, block_n=cora2.Bn)
     records = conformance.run_conformance(device=dev)
-    numerics = max(conformance.verify_numerics(pt, device=dev)
-                   for pt in conformance.operating_points())
+    numerics, worst = max(((conformance.verify_numerics(pt, device=dev), pt)
+                           for pt in conformance.operating_points()),
+                          key=lambda e: e[0])
     torch.cuda.synchronize()
     launches = {k: ops.LAUNCHES[k] for k in LAYER_KERNELS}
     print(f"# GNN layer path launches: {json.dumps(launches, sort_keys=True)}")
@@ -1198,7 +1280,8 @@ def main() -> int:
     summary = conformance.summarize_records(records)
     print(f"# conformance: {summary['n_ok']}/{summary['n_records']} records "
           f"within tolerance over {len(conformance.operating_points())} "
-          f"points; numerics max rel err {numerics:.3e} (tolerance "
+          f"points; numerics max rel err {numerics:.3e} at K={worst.K} "
+          f"N={worst.N} T={worst.T} Bn={worst.Bn} Bk={worst.Bk} (tolerance "
           f"{conformance.NUMERICS_REL_TOL:.0e})")
     if not summary["all_ok"]:
         raise AssertionError("conformance failures: " + "; ".join(
@@ -1206,10 +1289,11 @@ def main() -> int:
     if not numerics < conformance.NUMERICS_REL_TOL:
         raise AssertionError(f"conformance numerics {numerics}")
 
-    # 5. times at each Cora layer, f32.
+    # 5. times at each Cora layer, f32 (and bf16 K1, K2 at layer 1).
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                   "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
               for k in KERNELS}
+    layer_ms = {"fused": 0.0, "unfused": 0.0, "spill_ms": 0.0}
     for label, (pt, ca, cx, cw) in cora_inputs.items():
         K, F, T = pt.K, pt.N, pt.T
         y = eu.aggregate_pass_plain(ca, cx)
@@ -1251,11 +1335,45 @@ def main() -> int:
                    "bytes_ms": bytes_ms, "ops_ms": ops_ms}
             for k, v in row.items():
                 totals[kname][k] += v
+            extra = ""
+            if kname != "edge_aggregate_unfused.combine":
+                extra = ", block-dense bound " + dense_bound(
+                    conformance, ea, eu, kname, pt, "f32")
+            if kname == "edge_aggregate":
+                same = time_ms(torch, lambda: torch.matmul(
+                    torch.matmul(ca, cx), cw))
+                extra += f", library (A @ X) @ W {same:.4f} ms"
+            if kname != "edge_aggregate_unfused.combine":
+                extra += ", " + cluster_fit(build, ea, eu, kname, pt)
             print(f"# time {kname} {label} (K={K} N={F} T={T} Bn={pt.Bn} "
                   f"Bk={pt.Bk}, f32, nnz(A)={nnz}): kernel {row['ms']:.4f} ms"
                   f", plain {row['plain_ms']:.4f} ms, library "
                   f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-                  f"ms ({nbytes} B, {nops} op) | {card}")
+                  f"ms ({nbytes} B, {nops} op){extra} | {card}")
+            if kname == "edge_aggregate":
+                layer_ms["fused"] += row["ms"]
+            else:
+                layer_ms["unfused"] += row["ms"]
+        # The spill the unfused pair adds: writeinterphase + readinterphase.
+        layer_ms["spill_ms"] += 1e3 * 2 * K * F * 4 / PEAK_BYTES_PER_S
+        if label == "cora_layer1":
+            va, vx, vw = (v.to(torch.bfloat16).contiguous()
+                          for v in (ca, cx, cw))
+            for kname, kernel in (
+                    ("edge_aggregate", lambda: ea.fused_aggregate_combine(
+                        va, vx, vw, block_n=pt.Bn, block_k=pt.Bk)),
+                    ("edge_aggregate_unfused.aggregate",
+                     lambda: eu.aggregate_pass(va, vx, block_n=pt.Bn,
+                                               block_k=pt.Bk))):
+                print(f"# time {kname} {label} bf16: kernel "
+                      f"{time_ms(torch, kernel):.4f} ms, block-dense bound "
+                      f"{dense_bound(conformance, ea, eu, kname, pt, 'bf16')}"
+                      f" | {card}")
+    print(f"# fused minus unfused, both Cora layers, f32: K2 + K3 - K1 = "
+          f"{layer_ms['unfused'] - layer_ms['fused']:.4f} ms against a "
+          f"modelled spill of {layer_ms['spill_ms']:.4f} ms "
+          f"(writeinterphase + readinterphase at {PEAK_BYTES_PER_S:.3g} B/s)"
+          f" | {card}")
 
     trace_phases(dev, card, launches, max_abs, totals)
     serving_phases(dev, card, launches, max_abs, totals)

@@ -1,25 +1,11 @@
-// Device building blocks shared by the fused (edge_aggregate.cu) and the
-// unfused (edge_aggregate_unfused.cu) block-dense SpMM kernels.
+// Shared pieces of the GNN layer kernels K1-K3: the chunk geometry, the
+// geometry check of the C entry points, the dtype and block-height dispatch,
+// and K3's combine (edge_aggregate_unfused.cu).  K1's and K2's aggregation is
+// aggregate_hopper.cuh.
 //
-// CTA geometry (mirrored by repro_torch.kernels.edge_aggregate.fused_grid_spec,
-// which the conformance harness traces; keep the two in step):
-//   * one CTA of kThreads threads per destination block of BN rows;
-//   * the feature axis F is cut into chunks of FC = kAccElems / BN columns, so
-//     the (BN x FC) fp32 accumulator is exactly kAccPerThread registers per
-//     thread (an 8 x 4 tile of it);
-//   * for each chunk the CTA walks every source block of Bk columns in order,
-//     staging kStepK source columns of A and the matching X rows in shared
-//     memory per step.  Each CTA therefore reads its A row-block once per
-//     chunk, every X row once per chunk, and nothing carries over between CTAs.
-//
-// BN is a template parameter (16 ... 512), so the chunk width and every
-// staging index are compile-time.  While a step computes out of shared
-// memory, the next step's global loads are already in flight into
-// registers: with one or two CTAs per SM, nothing else hides their latency.
-//
-// Arithmetic is plain fp32 FMA on the CUDA cores: the tensor cores' fp32 path
-// is TF32, whose ~1e-3 relative error misses the reference's 1e-5.  bf16
-// operands are widened to fp32 as they are staged.
+// The feature axis F is cut into chunks of FC = kAccElems / Bn columns
+// (repro_torch.kernels.edge_aggregate.feature_chunk): a (Bn x FC) fp32 tile of
+// the aggregate is the unit every kernel here stages, spills or combines.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,13 +15,9 @@
 
 namespace block_spmm {
 
-constexpr int kThreads = 256;
-constexpr int kTileRows = 8;
-constexpr int kTileCols = 4;
-constexpr int kAccPerThread = kTileRows * kTileCols;
-constexpr int kAccElems = kThreads * kAccPerThread;  // BN * FC
-static_assert(kTileRows == 8 && kTileCols == 4, "aggregate_chunk reads 2 + 1 float4 per k");
-constexpr int kStepK = 16;
+constexpr int kThreads = 256;      // K3's CTA
+constexpr int kAccElems = 8192;    // BN * FC
+constexpr int kStepK = 16;         // Bk must be a multiple
 // Opt-in dynamic shared memory of one block on sm_90.
 constexpr size_t kMaxSmemBytes = 232448;
 
@@ -52,24 +34,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 template <int BN>
 struct Geometry {
-  static constexpr int kFC = kAccElems / BN;            // feature chunk width
-  static constexpr int kTCols = kFC / kTileCols;        // threads across a chunk
-  // Row stride of the transposed A tile.  Padding by 4 floats spreads a warp's
-  // stores (16 source columns of one row) over 8 banks instead of 1 and keeps
-  // rows 16-byte aligned for the float4 reads.
-  static constexpr int kAsStride = BN + 4;
-  // Row stride of the staged (BN x FC) accumulator: one pad column keeps the
+  static constexpr int kFC = kAccElems / BN;  // feature chunk width
+  // Row stride of the staged (BN x FC) aggregate: one pad column keeps the
   // combine's column walk off a single shared-memory bank.
   static constexpr int kAccStride = kFC + 1;
-  static constexpr int kAPerThread = BN * kStepK / kThreads;
-  static constexpr int kXPerThread = kStepK * kFC / kThreads;
-  static_assert(BN % 16 == 0 && kAccElems % BN == 0 && kFC % kTileCols == 0 &&
-                    kAPerThread >= 1 && kXPerThread >= 1,
-                "unsupported destination block height");
+  static_assert(BN % 16 == 0 && kAccElems % BN == 0, "unsupported destination block height");
 
-  static constexpr size_t aggregate_smem_floats() {
-    return (size_t)kStepK * kAsStride + (size_t)kStepK * kFC;
-  }
   static size_t combine_smem_floats(int t) {
     return (size_t)BN * kAccStride + (size_t)kFC * t + (size_t)BN * t;
   }
@@ -107,97 +77,6 @@ int dispatch_dtype(int dtype, F&& f) {
   if (dtype == kF32) return f(TypeTag<float>{});
   if (dtype == kBF16) return f(TypeTag<__nv_bfloat16>{});
   return (int)cudaErrorInvalidValue;
-}
-
-// One kStepK step of A[row0 : row0+BN, k0 : k0+kStepK] and
-// X[k0 : k0+kStepK, f0 : f0+FC], held in registers between the global load
-// and the shared-memory store.  Columns at or past f load as 0.
-template <typename T, int BN>
-struct StepTile {
-  using G = Geometry<BN>;
-  T a[G::kAPerThread];
-  T x[G::kXPerThread];
-
-  __device__ __forceinline__ void load(const T* __restrict__ ag, const T* __restrict__ xg,
-                                       int n, int f, int row0, int f0, int k0) {
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int i = 0; i < G::kAPerThread; ++i) {
-      const int e = tid + i * kThreads, r = e / kStepK, k = e % kStepK;
-      a[i] = ag[(size_t)(row0 + r) * n + k0 + k];
-    }
-#pragma unroll
-    for (int i = 0; i < G::kXPerThread; ++i) {
-      const int e = tid + i * kThreads, k = e / G::kFC, col = f0 + e % G::kFC;
-      x[i] = col < f ? xg[(size_t)(k0 + k) * f + col] : from_f32<T>(0.f);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* as_, float* xs) const {
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int i = 0; i < G::kAPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      as_[(e % kStepK) * G::kAsStride + e / kStepK] = to_f32(a[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < G::kXPerThread; ++i) xs[tid + i * kThreads] = to_f32(x[i]);
-  }
-};
-
-// acc[m][c] = sum_k A[row0 + tr*8 + m, k] * X[k, f0 + tc*4 + c] over all n
-// source columns.  The source blocks j = 0 .. n/Bk - 1 tile [0, n) in order,
-// so the CTA walks them as one run of kStepK-column steps.
-// as_: kStepK rows of kAsStride floats (A transposed); xs: kStepK x FC floats.
-template <typename T, int BN>
-__device__ void aggregate_chunk(const T* __restrict__ a, const T* __restrict__ x, int n, int f,
-                                int row0, int f0, float* as_, float* xs,
-                                float acc[kTileRows][kTileCols]) {
-  using G = Geometry<BN>;
-  const int tid = threadIdx.x;
-  const int tr = tid / G::kTCols, tc = tid % G::kTCols;
-#pragma unroll
-  for (int m = 0; m < kTileRows; ++m)
-#pragma unroll
-    for (int c = 0; c < kTileCols; ++c) acc[m][c] = 0.f;
-
-  StepTile<T, BN> tile;
-  tile.load(a, x, n, f, row0, f0, 0);
-  for (int k0 = 0; k0 < n; k0 += kStepK) {
-    tile.store(as_, xs);
-    __syncthreads();
-    // The next step's loads run while this step computes.
-    if (k0 + kStepK < n) tile.load(a, x, n, f, row0, f0, k0 + kStepK);
-    // 16-byte shared loads: a warp's 4-column slices of xs are then one
-    // conflict-free transaction (as scalars they hit each bank 4 times).
-#pragma unroll
-    for (int k = 0; k < kStepK; ++k) {
-      const float4* arow =
-          reinterpret_cast<const float4*>(as_ + k * G::kAsStride + tr * kTileRows);
-      const float4 a0 = arow[0], a1 = arow[1];
-      const float4 xv4 = reinterpret_cast<const float4*>(xs + k * G::kFC)[tc];
-      const float av[kTileRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float xv[kTileCols] = {xv4.x, xv4.y, xv4.z, xv4.w};
-#pragma unroll
-      for (int m = 0; m < kTileRows; ++m)
-#pragma unroll
-        for (int c = 0; c < kTileCols; ++c) acc[m][c] = fmaf(av[m], xv[c], acc[m][c]);
-    }
-    __syncthreads();
-  }
-}
-
-// Writes this thread's accumulator tile into the staged (BN x FC) block.
-template <int BN>
-__device__ __forceinline__ void stage_acc(const float acc[kTileRows][kTileCols], float* acc_s) {
-  using G = Geometry<BN>;
-  const int tid = threadIdx.x;
-  const int tr = tid / G::kTCols, tc = tid % G::kTCols;
-#pragma unroll
-  for (int m = 0; m < kTileRows; ++m)
-#pragma unroll
-    for (int c = 0; c < kTileCols; ++c)
-      acc_s[(tr * kTileRows + m) * G::kAccStride + tc * kTileCols + c] = acc[m][c];
 }
 
 // out_s[r][t] += sum_{c < fv} acc_s[r][c] * W[f0 + c][t], fv = min(FC, f - f0).

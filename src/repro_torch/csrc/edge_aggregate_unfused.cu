@@ -3,52 +3,27 @@
 // between them, and that round trip is the traffic the port's conformance
 // harness measures against writeinterphase + readinterphase.
 //
-// K2 aggregate_kernel, Y_agg = A @ X.  Replaces
+// K2, Y_agg = A @ X.  Replaces
 // src/repro/kernels/edge_aggregate_unfused.py::_aggregate_kernel (launched by
-// aggregate_pass).  It cuts F into the same chunks as the fused kernel K1 and
-// walks the source blocks the same way, so the two read exactly the same A
-// and X bytes and the fused-minus-unfused delta stays the two interphase
-// terms.  Each (Bn, FC) partial sum goes from registers to Y_agg, rounded to
-// the input type, as the TPU kernel rounds its spill.  Bound on the H100: as
-// for K1, the fp32 rate of the block-dense product at Cora width.
+// aggregate_pass).  It is K1's aggregation (aggregate_hopper.cuh: wgmma,
+// 3xTF32 for f32, a TMA ring) over the same feature chunks and source
+// blocks, so the two read exactly the same A and X bytes and the
+// fused-minus-unfused delta stays the two interphase terms.  Each (destination
+// block, chunk) is its own CTA (Cora layer 1: 88 x 6); with one chunk, a
+// cluster's ranks split the source blocks and the leader sums them from
+// distributed shared memory (layer 2: 44 x 2).  Each (Bn, chunk) tile goes to
+// Y_agg once, rounded to the input type, as the TPU kernel rounds its spill.
+// Bound on the H100: as for K1, the block-dense product's operations.
 //
 // K3 combine_kernel, Y = Y_agg @ W.  Replaces
 // src/repro/kernels/edge_aggregate_unfused.py::_combine_kernel (launched by
 // combine_pass) over the grid (N/Bn,).  Each CTA reads its (Bn, F) aggregate
 // rows and all of W once, chunk by chunk, and writes its (Bn, T) tile once.
 // Bound on the H100: the bytes of Y_agg (2*T operations per element read).
-//
-// fp32 FMA throughout, not TF32 (see block_spmm.cuh).
-#include "block_spmm.cuh"
+// fp32 FMA on the CUDA cores.
+#include "aggregate_hopper.cuh"
 
 using namespace block_spmm;
-
-template <typename T, int BN>
-__global__ void __launch_bounds__(kThreads)
-    aggregate_kernel(const T* __restrict__ a, const T* __restrict__ x, T* __restrict__ y, int n,
-                     int f) {
-  using G = Geometry<BN>;
-  extern __shared__ __align__(16) float smem[];
-  float* as_ = smem;
-  float* xs = as_ + kStepK * G::kAsStride;
-
-  const int row0 = blockIdx.x * BN;
-  const int tr = threadIdx.x / G::kTCols, tc = threadIdx.x % G::kTCols;
-  float acc[kTileRows][kTileCols];
-  for (int f0 = 0; f0 < f; f0 += G::kFC) {
-    aggregate_chunk<T, BN>(a, x, n, f, row0, f0, as_, xs, acc);
-    // The inter-phase spill: the aggregate leaves the SM.
-#pragma unroll
-    for (int m = 0; m < kTileRows; ++m) {
-      const size_t row = (size_t)(row0 + tr * kTileRows + m);
-#pragma unroll
-      for (int c = 0; c < kTileCols; ++c) {
-        const int col = f0 + tc * kTileCols + c;
-        if (col < f) y[row * f + col] = from_f32<T>(acc[m][c]);
-      }
-    }
-  }
-}
 
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
@@ -77,17 +52,19 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int aggregate_pass(const void* a, const void* x, void* y, int n, int f, int bn, int bk,
                               int fc, int dtype, void* stream) {
-  if (!geometry_ok(n, f, bn, bk, fc)) return (int)cudaErrorInvalidValue;
-  return dispatch_dtype(dtype, [&](auto type) {
-    using T = typename decltype(type)::type;
-    return dispatch_bn(bn, [&](auto bn_c) {
-      constexpr int BN = decltype(bn_c)::value;
-      return launch_kernel(aggregate_kernel<T, BN>, n / BN,
-                           Geometry<BN>::aggregate_smem_floats(),
-                           static_cast<cudaStream_t>(stream), static_cast<const T*>(a),
-                           static_cast<const T*>(x), static_cast<T*>(y), n, f);
-    });
-  });
+  return agg_hopper::dispatch<false>(a, x, nullptr, y, n, f, 0, bn, bk, fc, dtype, stream);
+}
+
+// Ranks (CTAs) per destination block of aggregate_pass, -1 for a geometry it
+// refuses; the wrapper holds it to aggregate_grid_spec's grid.
+extern "C" int aggregate_ranks(int n, int f, int bn, int bk, int fc) {
+  return agg_hopper::ranks(n, f, bn, bk, fc, false);
+}
+
+// Clusters of aggregate_pass's launch that fit on the card at once, or
+// minus a cudaError_t.
+extern "C" int aggregate_active_clusters(int n, int f, int bn, int bk, int fc, int dtype) {
+  return agg_hopper::dispatch_active_clusters<false>(n, f, 0, bn, bk, fc, dtype);
 }
 
 extern "C" int combine_pass(const void* y, const void* w, void* out, int n, int f, int t, int bn,

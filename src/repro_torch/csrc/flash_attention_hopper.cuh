@@ -57,19 +57,18 @@
 //   at D = 64, lost 12-24% at D = 128 and 256, and spilled there.
 #pragma once
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace flash_hopper {
+
+using namespace hopper;
 
 constexpr int kAtomCols = 64;  // bf16 columns of one 128-byte swizzled row
 constexpr int kRowBytes = 128;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr size_t kMaxSmemBytes = 232448;
 
 template <int DP, int KT>
 struct Geometry {
@@ -92,81 +91,6 @@ struct Geometry {
   static constexpr size_t kSmem = 1024 + kQBytes + 2 * (size_t)kStages * kTileBytes + 64;
   static_assert(kSmem <= kMaxSmemBytes, "the ring must fit shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Returns once the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map into shared memory, counted on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor with the 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma operands across the
-// asynchronous products' fence and wait, and from reusing the registers of an
-// A operand while a product still reads them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 // D (64 x 64, fp32) += A (64 x 16) . B (16 x 64), A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
@@ -459,7 +383,7 @@ __global__ void __launch_bounds__(Geometry<DP, KT>::kThreads, 1)
       mbar_init(&empty[i], kConsumers * 128);
     }
     mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -579,27 +503,6 @@ __global__ void __launch_bounds__(Geometry<DP, KT>::kThreads, 1)
     }
   }
 }
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, which the runtime has already
-// loaded, so it is looked up there (dlsym) rather than linked.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// Error codes beside cudaError_t's: libcuda's cuTensorMapEncodeTiled was not
-// found, or it refused a map (kEncodeFailed + its CUresult).
-constexpr int kNoEncodeEntry = 900;
-constexpr int kEncodeFailed = 1000;
 
 // The map of one (B, S, heads, D) bf16 tensor as (D, heads, S, B), with
 // boxes of 64 columns x `rows` rows of one head, 128-byte swizzled; columns

@@ -40,10 +40,18 @@ SIGNATURES = {
     "edge_aggregate": {
         # a, x, w, out, n, f, t, bn, bk, fc, dtype, stream
         "fused_aggregate_combine": [_VOID] * 4 + [_INT] * 7 + [_VOID],
+        # n, f, bn, bk, fc
+        "fused_ranks": [_INT] * 5,
+        # n, f, t, bn, bk, fc, dtype
+        "fused_active_clusters": [_INT] * 7,
     },
     "edge_aggregate_unfused": {
         # a, x, y, n, f, bn, bk, fc, dtype, stream
         "aggregate_pass": [_VOID] * 3 + [_INT] * 6 + [_VOID],
+        # n, f, bn, bk, fc
+        "aggregate_ranks": [_INT] * 5,
+        # n, f, bn, bk, fc, dtype
+        "aggregate_active_clusters": [_INT] * 6,
         # y, w, out, n, f, t, bn, fc, dtype, stream
         "combine_pass": [_VOID] * 3 + [_INT] * 6 + [_VOID],
     },

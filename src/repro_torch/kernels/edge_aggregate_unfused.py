@@ -4,10 +4,11 @@ The same block-dense SpMM as :mod:`.edge_aggregate`, but aggregation and
 combination are two kernels with the (n, f) aggregate in device memory
 between them (``csrc/edge_aggregate_unfused.cu``):
 
-* pass 1, :func:`aggregate_pass` (K2): Y_agg = A @ X over grid ``(n/Bn,)``,
-  with the fused kernel's feature chunks and source-block walk, so both read
-  the same A and X bytes; each chunk of the aggregate is spilled, rounded to
-  the input type;
+* pass 1, :func:`aggregate_pass` (K2): Y_agg = A @ X over grid
+  ``(ranks, n/Bn)``, one CTA per (destination block, feature chunk), or,
+  with one chunk, a cluster whose ranks split the source blocks as the
+  fused kernel's do, so both read the same A and X bytes; each chunk of the
+  aggregate is spilled once, rounded to the input type;
 * pass 2, :func:`combine_pass` (K3): Y = Y_agg @ W over grid ``(n/Bn,)``,
   reading the spill back.
 
@@ -26,9 +27,11 @@ import torch
 
 from . import build
 from .edge_aggregate import (DEFAULT_BLOCK_K, DEFAULT_BLOCK_N, DTYPE_CODES,
-                             MAX_SMEM_BYTES, STEP_K, CtaSchedule, Move,
-                             check_blocks, chunk_bounds, check_operands,
-                             feature_chunk, require_cuda)
+                             MAX_SMEM_BYTES, CtaSchedule, Move, rank_work,
+                             check_blocks, check_ranks, chunk_bounds,
+                             check_operands, feature_chunk,
+                             kernel_smem_bytes, require_aligned,
+                             require_cuda)
 from ..backend import full_fp32
 
 __all__ = ["aggregate_grid_spec", "combine_grid_spec",
@@ -40,26 +43,31 @@ __all__ = ["aggregate_grid_spec", "combine_grid_spec",
 
 def aggregate_grid_spec(n: int, f: int, block_n: int,
                         block_k: int) -> CtaSchedule:
-    """CTA ``i`` walks the feature chunks as the fused kernel does and spills
-    each (Bn, chunk) aggregate tile once."""
+    """Grid ``(ranks, n / Bn)``.  With several feature chunks CTA ``(c, i)``
+    walks every source block of chunk ``c`` and spills its (Bn, chunk) tile
+    once (no cluster); with one chunk the ranks of a cluster split the
+    source blocks, and the leader spills the summed tile once."""
     fc = feature_chunk(block_n)
     check_blocks(n, block_n, block_k)
-    chunks = chunk_bounds(f, fc)
-    smem = 4 * STEP_K * (block_n + 4 + fc)
+    ranks, split_sources, cluster, work = rank_work(n, f, block_n, block_k,
+                                                     False)
+    smem = kernel_smem_bytes(block_n, False, alias=True)
 
     def moves(i: int) -> Iterator[Move]:
-        rows = (i * block_n, (i + 1) * block_n)
+        b, r = divmod(i, ranks)
+        rows = (b * block_n, (b + 1) * block_n)
+        chunks, sources = work(r)
         for cols in chunks:
-            for j in range(n // block_k):
-                src = (j * block_k, (j + 1) * block_k)
+            for src in sources:
                 yield "a", rows, src
                 yield "x", src, cols
-            yield "y", rows, cols
+            if not split_sources or r == 0:
+                yield "y", rows, cols
 
-    return CtaSchedule(grid=(n // block_n,), block_n=block_n,
+    return CtaSchedule(grid=(ranks, n // block_n), block_n=block_n,
                        block_k=block_k, chunk=fc, smem_bytes=smem,
                        operands={"a": (n, n), "x": (n, f), "y": (n, f)},
-                       moves=moves)
+                       moves=moves, cluster=cluster)
 
 
 def combine_grid_spec(n: int, f: int, t: int, block_n: int) -> CtaSchedule:
@@ -165,6 +173,9 @@ def aggregate_pass(adjacency: torch.Tensor, x: torch.Tensor, *,
                                                 block_k=block_k)
     n, f = x.shape
     lib = build.library("edge_aggregate_unfused")
+    check_ranks(lib.aggregate_ranks(n, f, sched.block_n, sched.block_k,
+                                    sched.chunk), sched, "aggregate_pass")
+    require_aligned(a, x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         build.check(lib.aggregate_pass(

@@ -52,6 +52,13 @@ def _by_operand(moves):
     return out
 
 
+def _block_moves(sched, i):
+    """Every move of destination block ``i``: its ranks' moves, in rank
+    order (the first grid axis runs over a block's ranks)."""
+    ranks = sched.grid[0]
+    return [m for r in range(ranks) for m in sched.moves(i * ranks + r)]
+
+
 def _merge_cols(blocks):
     """{rows: merged (c0, c1)} of blocks that tile their columns in order."""
     merged = {}
@@ -77,9 +84,9 @@ def test_fused_geometry_covers_the_reference_blocks(n, f, t, bn, bk):
     grid, (a_g, x_g, w_g), out_g = jea.fused_grid_spec(n, f, t, bn, bk)
     sched = ea.fused_grid_spec(n, f, t, bn, bk)
     nfc = math.ceil(f / sched.chunk)
-    assert sched.grid == (grid[0],)
+    assert sched.grid[1:] == (grid[0],)
     for i in range(grid[0]):
-        moves = _by_operand(sched.moves(i))
+        moves = _by_operand(_block_moves(sched, i))
         ref_a = [_extent(a_g, i, j) for j in range(grid[1])]
         assert sorted(moves["a"]) == sorted(ref_a * nfc)
         assert _merge_cols(moves["x"]) == {
@@ -94,9 +101,9 @@ def test_unfused_geometry_covers_the_reference_blocks(n, f, t, bn, bk):
     grid, (a_g, x_g), y_g = jeu.aggregate_grid_spec(n, f, bn, bk)
     sched = eu.aggregate_grid_spec(n, f, bn, bk)
     nfc = math.ceil(f / sched.chunk)
-    assert sched.grid == (grid[0],) and sched.chunk == ea.feature_chunk(bn)
+    assert sched.grid[1:] == (grid[0],) and sched.chunk == ea.feature_chunk(bn)
     for i in range(grid[0]):
-        moves = _by_operand(sched.moves(i))
+        moves = _by_operand(_block_moves(sched, i))
         ref_a = [_extent(a_g, i, j) for j in range(grid[1])]
         assert sorted(moves["a"]) == sorted(ref_a * nfc)
         assert _merge_cols(moves["x"]) == {
@@ -114,6 +121,99 @@ def test_unfused_geometry_covers_the_reference_blocks(n, f, t, bn, bk):
             _extent(y_g, i)[0]: _extent(y_g, i)[1]}
         assert _merge_rows(moves["w"]) == {(0, t): _extent(w_g, i)[0]}
         assert moves["out"] == [_extent(out_g, i)]
+
+
+# ---------------------------------------------------------------------------
+# The cluster schedules against one CTA per destination block.
+# ---------------------------------------------------------------------------
+def _row_block_schedule(n, f, t, bn, bk, fused):
+    """One CTA per destination block walking every chunk and source block,
+    written out here: the schedule the clusters must match byte for byte."""
+    fc = ea.feature_chunk(bn)
+    chunks = [(c, min(f, c + fc)) for c in range(0, f, fc)]
+
+    def moves(i):
+        rows = (i * bn, (i + 1) * bn)
+        for cols in chunks:
+            for j in range(0, n, bk):
+                yield "a", rows, (j, j + bk)
+                yield "x", (j, j + bk), cols
+            yield ("w", cols, (0, t)) if fused else ("y", rows, cols)
+        if fused:
+            yield "out", rows, (0, t)
+
+    operands = ({"a": (n, n), "x": (n, f), "w": (f, t), "out": (n, t)}
+                if fused else {"a": (n, n), "x": (n, f), "y": (n, f)})
+    return ea.CtaSchedule(grid=(n // bn,), block_n=bn, block_k=bk, chunk=fc,
+                          smem_bytes=0, operands=operands, moves=moves)
+
+
+@pytest.mark.parametrize("pt", POINTS, ids=PT_IDS)
+@pytest.mark.parametrize("fused", [True, False], ids=["K1", "K2"])
+def test_cluster_schedule_traces_the_row_block_bytes(pt, fused):
+    K, N, T, bn, bk = pt.K, pt.N, pt.T, pt.Bn, pt.Bk
+    acct = (ea.fused_block_streams(K, N, T, block_n=bn, block_k=bk) if fused
+            else eu.aggregate_block_streams(K, N, block_n=bn, block_k=bk))
+    got = conf.block_schedule(acct["schedule"], acct["streams"])
+    expect = conf.block_schedule(_row_block_schedule(K, N, T, bn, bk, fused),
+                                 acct["streams"])
+    assert got == expect
+
+
+@pytest.mark.parametrize("n,f,t,bn,bk", GEOMETRIES, ids=GEO_IDS)
+@pytest.mark.parametrize("fused", [True, False], ids=["K1", "K2"])
+def test_cluster_schedule_covers_each_block_once(n, f, t, bn, bk, fused):
+    sched = (ea.fused_grid_spec(n, f, t, bn, bk) if fused
+             else eu.aggregate_grid_spec(n, f, bn, bk))
+    ranks, nrb = sched.grid
+    assert nrb == n // bn and 1 <= sched.cluster <= ea.MAX_CLUSTER
+    assert ranks % sched.cluster == 0
+    assert sched.cluster in ((ranks,) if fused or ranks == 1
+                             else (1, ranks))
+    chunks = ea.chunk_bounds(f, sched.chunk)
+    for i in range(nrb):
+        moves = _by_operand(_block_moves(sched, i))
+        rows = (i * bn, (i + 1) * bn)
+        pairs = sorted(zip(moves["a"], moves["x"]))
+        expect = sorted(((rows, (j, j + bk)), ((j, j + bk), cols))
+                        for cols in chunks for j in range(0, n, bk))
+        assert pairs == expect      # each (chunk, source block) exactly once
+        if fused:
+            assert sorted(moves["w"]) == [(c, (0, t)) for c in chunks]
+            assert moves["out"] == [(rows, (0, t))]
+        else:
+            assert sorted(moves["y"]) == [(rows, c) for c in chunks]
+
+
+@pytest.mark.parametrize("n,bn,bk,ranks,sizes", [
+    (2816, 64, 256, 2, [6, 5]),          # Cora layer 2: 88 CTAs
+    (1024, 512, 256, 4, [1, 1, 1, 1]),
+    (2048, 64, 128, 4, [4, 4, 4, 4]),    # 32 blocks x 4 = 128 CTAs
+    (512, 512, 16, 8, [4] * 8),          # units of 4 blocks (64 sources)
+    (2816, 16, 256, 1, [11]),            # 176 blocks fill the SMs alone
+    (3072, 32, 256, 1, [12]),            # 96 blocks: 2 ranks would not fit
+])
+def test_one_chunk_ranks_split_whole_source_blocks(n, bn, bk, ranks, sizes):
+    assert ea.cta_plan(n, 16, bn, bk, True) == (ranks, True, ranks)
+    assert ea.cta_plan(n, 16, bn, bk, False) == (ranks, True, ranks)
+    spans = [ea.source_range(n, bk, ranks, r) for r in range(ranks)]
+    assert [(hi - lo) // bk for lo, hi in spans] == sizes
+    assert spans[0][0] == 0 and spans[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(lo % ea.SPLIT_SOURCES == 0 for lo, _ in spans)
+
+
+def test_cora_layer_grids_fill_the_sms():
+    """Layer 1: 6 chunks x 88 blocks = 528 CTAs (4 x 132); layer 2: 11
+    source blocks as 6/5 over 44 blocks = 88 CTAs, one wave."""
+    l1, l2 = conf.cora_operating_points()
+    s1 = ea.fused_grid_spec(l1.K, l1.N, l1.T, l1.Bn, l1.Bk)
+    s2 = ea.fused_grid_spec(l2.K, l2.N, l2.T, l2.Bn, l2.Bk)
+    assert (s1.grid, s1.cluster) == ((6, 88), 6)
+    assert (s2.grid, s2.cluster) == ((2, 44), 2)
+    u1 = eu.aggregate_grid_spec(l1.K, l1.N, l1.Bn, l1.Bk)
+    assert (u1.grid, u1.cluster) == ((6, 88), 1)
+    assert math.prod(s1.grid) == 4 * ea.SMS and math.prod(s2.grid) <= ea.SMS
 
 
 @pytest.mark.parametrize("block_n,fc", [(16, 512), (32, 256), (128, 64),

@@ -280,6 +280,84 @@ def test_gcn_combine_weights_refuse_a_bias_and_broken_widths():
 
 
 # ---------------------------------------------------------------------------
+# The f32 kernels' arithmetic: 3xTF32, emulated on the CPU.
+# ---------------------------------------------------------------------------
+def _tf32_rna(v: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: round to 10 stored significand bits, ties away
+    from zero (the 13 dropped bits are rounded on the magnitude)."""
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_aggregate(a: np.ndarray, x: np.ndarray, block_k: int,
+                    terms: int) -> np.ndarray:
+    """A @ X as K1 and K2 form it: each operand split into hi = rna(v) and
+    lo = rna(v - hi); per source block the sum of hi.hi (+ lo.hi + hi.lo
+    with terms=3) taken exactly (products of TF32 values are exact in fp32,
+    summed in float64 here), and the source blocks added in fp32."""
+    a_hi, x_hi = _tf32_rna(a), _tf32_rna(x)
+    a_lo, x_lo = _tf32_rna(a - a_hi), _tf32_rna(x - x_hi)
+    acc = np.zeros((a.shape[0], x.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], block_k):
+        ks = slice(k0, k0 + block_k)
+        part = a_hi[:, ks].astype(np.float64) @ x_hi[ks].astype(np.float64)
+        if terms == 3:
+            part += (a_hi[:, ks].astype(np.float64) @ x_lo[ks].astype(np.float64)
+                     + a_lo[:, ks].astype(np.float64) @ x_hi[ks].astype(np.float64))
+        acc = (acc + part.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+@pytest.fixture(scope="module")
+def cora_layers():
+    """The seeded Cora inputs of both GCN layers, f32: (A, X, W) each."""
+    n = 2816   # V padded, as at both Cora operating points (Bk = 256)
+    g = data.cora_graph(seed=0)
+    a = g.dense_adjacency(n).astype(np.float32)
+    x = data.cora_features(seed=0, n_pad=n).astype(np.float32)
+    w1, w2 = (w.numpy() for w in params.gcn_combine_weights(
+        params.gcn_params(data.CORA_WIDTHS, seed=0), device="cpu"))
+    h1 = np.maximum(_tf32_aggregate(a, x, 256, 3) @ w1, 0).astype(np.float32)
+    return {"cora_layer1": (a, x, w1), "cora_layer2": (a, h1, w2)}
+
+
+@pytest.mark.parametrize("layer", ["cora_layer1", "cora_layer2"])
+def test_three_tf32_products_hold_f32_where_one_misses(layer, cora_layers):
+    """K1's and K2's f32 arithmetic (3xTF32) holds the f32 gate of 1e-5
+    against the plain versions and the JAX reference on the seeded Cora
+    inputs of each layer; one TF32 product misses it."""
+    a, x, w = cora_layers[layer]
+    ta, tx, tw = (torch.as_tensor(v) for v in (a, x, w))
+    plain_agg = eu.aggregate_pass_plain(ta, tx).numpy()
+    plain_out = ea.fused_aggregate_combine_plain(ta, tx, tw).numpy()
+    ref_out = np.asarray(jref.fused_aggregate_combine_ref(
+        jnp.asarray(a), jnp.asarray(x), jnp.asarray(w)))
+    three = _tf32_aggregate(a, x, 256, 3)
+    one = _tf32_aggregate(a, x, 256, 1)
+    tol = DTYPES["f32"][2]
+    assert _rel(three, plain_agg) < tol / 10
+    assert _rel(three @ w, plain_out) < tol / 10
+    assert _rel(three @ w, ref_out) < tol / 10
+    assert _rel(one, plain_agg) > tol
+    assert _rel(one @ w, plain_out) > tol
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    v = np.array([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                  -(1.0 + 2.0 ** -11), 3.0 * 2.0 ** -12], np.float32)
+    got = _tf32_rna(v)
+    assert list(got) == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                         -(1.0 + 2.0 ** -10), 3.0 * 2.0 ** -12]
+    # hi + lo carries 22 of the value's 24 significand bits.
+    v = np.float32([np.pi, 1 / 3, 1e-3 * np.e])
+    hi = _tf32_rna(v)
+    two = hi.astype(np.float64) + _tf32_rna(v - hi)
+    assert np.all(np.abs(two - v) <= 2.0 ** -21 * np.abs(v))
+    assert np.all(np.abs(hi - v) > 2.0 ** -21 * np.abs(v))
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version.
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
@@ -297,6 +375,29 @@ def test_cuda_kernels_match_plain_versions(n, f, t, bn, bk, dtype,
     out2 = eu.combine_pass(agg, w, block_n=bn)
     assert _rel(_np(out2.cpu()), _np(eu.combine_pass_plain(agg, w).cpu())) < tol
     torch.cuda.synchronize()
+
+
+#: (n, f, t, block_n, block_k): one feature chunk whose 16 source blocks
+#: split over 4 ranks, and 6 feature chunks over a cluster of 6 (in bf16 X's
+#: 1400-byte rows start off 16-byte boundaries).
+CLUSTER_SHAPES = [(2048, 24, 5, 64, 128), (1024, 700, 9, 64, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,t,bn,bk", CLUSTER_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cuda_cluster_schedules_match_plain_versions(n, f, t, bn, bk, dtype,
+                                                     cuda_device):
+    sched = ea.fused_grid_spec(n, f, t, bn, bk)
+    assert sched.grid[0] in (4, 6)
+    _, (a, x, w), tol = _both(_layer_inputs(n, f, t, n + f), dtype)
+    a, x, w = (v.to(cuda_device) for v in (a, x, w))
+    out = ea.fused_aggregate_combine(a, x, w, block_n=bn, block_k=bk)
+    agg = eu.aggregate_pass(a, x, block_n=bn, block_k=bk)
+    torch.cuda.synchronize()
+    assert _rel(_np(out.cpu()), _np(ea.fused_aggregate_combine_plain(
+        a, x, w).cpu())) < tol
+    assert _rel(_np(agg.cpu()), _np(eu.aggregate_pass_plain(a, x).cpu())) < tol
 
 
 @pytest.mark.gpu
