@@ -8,7 +8,7 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` compiles the kernels under ``src/repro_torch/csrc``; the
    registers and spills of each instance of the tensor-core kernels, by
-   name: bf16 K5 and K1 / K2 (none may spill);
+   name: bf16 K5 and K1 / K2, and of K3 and K4 (none may spill);
 3. kernels vs plain versions: K1 (fused), K2 (aggregate) and K3 (combine)
    on the card, f32 and bf16, at the reference's four kernel-test shapes,
    at two shapes of the cluster schedules (one feature chunk split over 4
@@ -27,13 +27,18 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    computes the same function (timed here only; the port never calls it);
    K1 and K2 also beside their block-dense bound (the schedule's operations
    at the rate of the arithmetic they use, or its traced bytes), K1 beside
-   the same-association ``matmul(matmul(A, X), W)``; bf16 K1 and K2 at
-   layer 1; and the fused-minus-unfused time (K2 + K3 - K1) against the
-   modelled spill;
+   the same-association ``matmul(matmul(A, X), W)``; K1-K3's grids and how
+   many of their clusters fit the card at once, and K3's share of its byte
+   bound; bf16 K1 and K2 at layer 1; and the fused-minus-unfused time (K2 +
+   K3 - K1) against the modelled spill;
 6. K4 (the trace segment reduce) against its plain version, bit for bit:
    every trace dataset at the reference test battery's parameters and
-   capacities, an int64-index case, a 2^53-scale multiplicity case, and the
-   10^7-edge graph of phase 7 at all 16 capacities;
+   capacities, an int64-index case, a 2^53-scale multiplicity case, the
+   boundaries of K4's routes (one tile, the last tile count the shared
+   histogram holds and one more, packed and unpacked; 65,536 tiles; the
+   packing limit 2^32), and the 10^7-edge graph of phase 7 at all 16
+   capacities; each case passes its multiplicities' total, as a trace does,
+   or none, and both routes of each kind must occur;
 7. the exact-trace path: the counters are zeroed, then
    ``examples/scenarios/trace_smoke.json`` runs through the scenario front
    door (its three pins must hold), and ``TiledGraphModel`` sweeps 16 tile
@@ -43,9 +48,9 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    schedule and every term must equal the NumPy engine's bit for bit, and
    the 10^6-edge schedules the per-capacity ``np.unique`` oracle's;
 8. times of K4 per capacity of the 10^7-edge sweep (CUDA events, median of
-   20) beside its byte bound, its plain version and ``index_add_``, and the
-   host-clock times of the factorization and of the whole sweep under each
-   engine;
+   20) beside its byte bound and its share of it, its route, its plain
+   version and ``index_add_``, and the host-clock times of the
+   factorization and of the whole sweep under each engine;
 9. K5 (flash attention) against its plain version, f32 and bf16: the
    reference test grid, GQA at rep 3 (SmolLM's) and rep 4, softcap 50
    (gemma2's), head dims 16-256, s < 128, and the serving path's own shape
@@ -127,8 +132,8 @@ PEAK_F32_OPS_PER_S = 67e12
 #: Published H100 SXM TF32 dense tensor-core peak at 700 W; K1 and K2 take
 #: three TF32 products per f32 product (3xTF32).
 PEAK_TF32_OPS_PER_S = 495e12
-#: K4's integer operations per pair: two divisions, three compares, the
-#: flag or, and two adds.  They are set against the fp32 non-tensor peak:
+#: K4's integer operations per pair: two divisions (each a multiply and a
+#: shift in the kernel), three compares, the flag or, and two adds.  They are set against the fp32 non-tensor peak:
 #: the table has no integer rate outside the tensor cores, and the bound is
 #: bytes by a factor of about 40 either way.
 K4_OPS_PER_PAIR = 8
@@ -283,14 +288,38 @@ def aggregate_ptxas(log: str) -> list[str]:
                    f"{m[2]}, {'K1' if m[3] == '1' else 'K2'}>"))
 
 
+def combine_ptxas(log: str) -> list[str]:
+    """K3's instances (``combine_kernel<T, BN, TB, W>``: block height, output
+    columns a pass, warps)."""
+    return ptxas_rows(
+        log, r"combine_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E",
+        lambda m: (f"combine_kernel<{'f32' if m[1] == 'f' else 'bf16'}, "
+                   f"{m[2]}, {m[3]}, {m[4]}>"))
+
+
+def k4_ptxas(log: str) -> list[str]:
+    """K4's instances (``schedule_counts_kernel<I, Packed, Shared>``) and its
+    unpacking pass."""
+    return ptxas_rows(
+        log, r"(schedule_counts_kernelI([il])Lb([01])ELb([01])E|unpack_kernel)",
+        lambda m: ("unpack_kernel" if m[1] == "unpack_kernel" else
+                   f"schedule_counts_kernel<int{32 if m[2] == 'i' else 64}, "
+                   f"{'packed' if m[3] == '1' else 'unpacked'}, "
+                   f"{'shared' if m[4] == '1' else 'global'}>"))
+
+
 def cluster_fit(build, ea, eu, kname: str, pt) -> str:
-    """K1's or K2's grid at an operating point (f32) and how many of its
-    clusters fit on the card at once (``cudaOccupancyMaxActiveClusters``)."""
+    """K1's, K2's or K3's grid at an operating point (f32) and how many of
+    its clusters fit on the card at once (``cudaOccupancyMaxActiveClusters``)."""
     fc = ea.feature_chunk(pt.Bn)
     if kname == "edge_aggregate":
         sched = ea.fused_grid_spec(pt.K, pt.N, pt.T, pt.Bn, pt.Bk)
         fit = build.library("edge_aggregate").fused_active_clusters(
             pt.K, pt.N, pt.T, pt.Bn, pt.Bk, fc, 0)
+    elif kname == "edge_aggregate_unfused.combine":
+        sched = eu.combine_grid_spec(pt.K, pt.N, pt.T, pt.Bn)
+        fit = build.library("edge_aggregate_unfused").combine_active_clusters(
+            pt.K, pt.N, pt.T, pt.Bn, fc, 0)
     else:
         sched = eu.aggregate_grid_spec(pt.K, pt.N, pt.Bn, pt.Bk)
         fit = build.library("edge_aggregate_unfused").aggregate_active_clusters(
@@ -411,6 +440,26 @@ def hot_pair_case(total: int) -> tuple:
     return V, (u_snd, u_rcv, new_src, mult)
 
 
+#: K4's route boundaries (n_tiles, total multiplicity or None) on
+#: ``route_pairs``: one tile; 8192 packed or 4096 unpacked bins fill the
+#: 64 KB shared histogram, one more goes to device memory; 65,536 tiles;
+#: totals either side of the 2^32 packing limit.
+K4_ROUTE_CASES = ((1, 10**6), (8192, 10**6), (8193, 10**6), (4096, None),
+                  (4097, None), (65_536, 10**6), (65_536, None),
+                  (4096, 2**32 - 1), (4096, 2**32), (3, 2**53 + 4097))
+
+
+def route_pairs(seed: int = 5, V: int = 1 << 18, U: int = 200_000) -> tuple:
+    """Seeded unique (sender, receiver) pairs over V vertices, sender-major,
+    with multiplicities 1-3: the inputs of the route-boundary cases."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, V * V, U, dtype=np.int64))
+    snd, rcv = (keys // V).astype(np.int32), (keys % V).astype(np.int32)
+    new_src = np.concatenate([[True], snd[1:] != snd[:-1]])
+    return V, (snd, rcv, new_src,
+               rng.integers(1, 4, snd.size).astype(np.int64))
+
+
 def trace_models(trace, caps, device) -> dict:
     """The sweep of phase 7: three dataflows at N = 30, T = 5 and EnGN at
     the GCN-Cora widths, over the capacity axis of one trace."""
@@ -463,39 +512,61 @@ def trace_phases(dev, card: str, launches: dict, max_abs: dict,
           f"10^6-edge graph), factorized on the host in {fact_s:.3f} s; "
           f"capacities {caps}")
 
-    # 6. K4 vs its plain version on the card, bit for bit.
+    # 6. K4 vs its plain version on the card, bit for bit.  A case is
+    # (label, tensors, n_tiles, K, total): total bounds the multiplicities'
+    # sum, as a trace passes its edge count, or is None (unknown).
     cases = []
     for name, params in TRACE_DATASETS.items():
         tr = trace_mod.resolve_trace_dataset(name, params)
         t = pair_tensors(tr, dev)
-        cases += [(f"{name}@{cap}", t, *tr._geometry(cap))
-                  for cap in battery_caps(tr.n_nodes)]
+        cases += [(f"{name}@{cap}", t, *tr._geometry(cap), total)
+                  for cap in battery_caps(tr.n_nodes)
+                  for total in (tr.n_edges, None)]
     V = 3_000_000_000  # ids past int32: the int64-index instantiation
     wide = tuple(torch.tensor(a, device=dev) for a in (
         [0, 5, 2_999_999_999, 2_999_999_999],
         [2_999_999_998, 7, 1, 2_000_000_000],
         [True, True, True, False], [3, 1, 2**40, 1]))
     cases += [(f"int64-ids@{cap}", wide, -(-V // cap),
-               -(-V // -(-V // cap))) for cap in (V // 2, V // 1000, 12345)]
+               -(-V // -(-V // cap)), 2**40 + 5)
+              for cap in (V // 2, V // 1000, 12345)]
     for total in (2**53 - 1, 2**53 + 4097):
         hv, arrays = hot_pair_case(total)
         hot = tuple(torch.from_numpy(a).to(dev) for a in arrays)
         cases += [(f"2^53-mult({total})@{cap}", hot, -(-hv // cap),
-                   -(-hv // -(-hv // cap))) for cap in battery_caps(hv)]
+                   -(-hv // -(-hv // cap)), total) for cap in battery_caps(hv)]
+    rv, arrays = route_pairs()
+    for n_tiles, total in K4_ROUTE_CASES:
+        mult = arrays[3].copy()
+        if total is not None:
+            mult[mult.size // 2] += total - int(mult.sum())
+        tensors = tuple(torch.from_numpy(a).to(dev)
+                        for a in (*arrays[:3], mult))
+        cases.append((f"route-boundary n_tiles={n_tiles} total={total}",
+                      tensors, n_tiles, -(-rv // n_tiles), total))
     big_t = pair_tensors(big, dev)
-    cases += [(f"power_law_stream-1e7@{cap}", big_t, *big._geometry(cap))
-              for cap in caps]
-    for label, tensors, n_tiles, K in cases:
-        got = sr.schedule_counts(*tensors, K, n_tiles)
+    cases += [(f"power_law_stream-1e7@{cap}", big_t, *big._geometry(cap),
+               big.n_edges) for cap in caps]
+    routes = {}
+    for label, tensors, n_tiles, K, total in cases:
+        route = sr.k4_route(tensors[0].shape[0], n_tiles, total)
+        routes[route.describe()] = routes.get(route.describe(), 0) + 1
+        got = sr.schedule_counts(*tensors, K, n_tiles, total)
         expect = sr.schedule_counts_plain(*tensors, K, n_tiles)
         err = max(int((g - e).abs().max()) for g, e in zip(got, expect))
         if not all(torch.equal(g, e) for g, e in zip(got, expect)):
             raise AssertionError(f"K4 disagrees with its plain version at "
-                                 f"{label}: max abs err {err}")
+                                 f"{label} ({route.describe()}): max abs "
+                                 f"err {err}")
+        if label.startswith(("2^53", "route")):
+            print(f"# check {k4} {label}: {route.describe()}, bit-identical")
         max_abs[k4] = max(max_abs[k4], float(err))
     torch.cuda.synchronize()
     print(f"# check {k4}: {len(cases)} cases bit-identical to the plain "
-          f"version (tolerance 0), max abs err {max_abs[k4]}")
+          f"version (tolerance 0), max abs err {max_abs[k4]}; cases by route: "
+          f"{json.dumps(routes, sort_keys=True)}")
+    if len({(k.split(",")[0], "unpacked" in k) for k in routes}) < 4:
+        raise AssertionError(f"K4's routes not all exercised: {routes}")
 
     # 7. The exact-trace path through the entry points a user calls.
     full = FullGraphParams(V=float(big.n_nodes), E=float(big.n_edges),
@@ -568,9 +639,10 @@ def trace_phases(dev, card: str, launches: dict, max_abs: dict,
         nbytes = U * (2 * s_idx + 1 + 8) + 16 * n_tiles
         bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
         ops_ms = 1e3 * K4_OPS_PER_PAIR * U / PEAK_F32_OPS_PER_S
+        route = sr.k4_route(U, n_tiles, big.n_edges)
         row = {
             "ms": time_ms(torch, lambda: sr.schedule_counts(
-                *big_t, K, n_tiles)),
+                *big_t, K, n_tiles, big.n_edges)),
             "plain_ms": time_ms(torch, lambda: sr.schedule_counts_plain(
                 *big_t, K, n_tiles)),
             "library_ms": time_ms(torch, lambda: torch.zeros(
@@ -581,10 +653,15 @@ def trace_phases(dev, card: str, launches: dict, max_abs: dict,
         for k, v in row.items():
             tot[k] += v
         print(f"# time {k4} cap={cap} (n_tiles={n_tiles}, K={K}, U={U}, "
-              f"int{8 * s_idx} ids): kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library (index_add_) "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({nbytes} B) | {card}")
+              f"int{8 * s_idx} ids; {route.describe()}): kernel "
+              f"{row['ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f}% "
+              f"of the bound), plain {row['plain_ms']:.4f} ms, library "
+              f"(index_add_) {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({nbytes} B) | {card}")
+    print(f"# time {k4}, the 16 capacities: kernel {tot['ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}%"
+          f"), plain {tot['plain_ms']:.4f} ms, library (index_add_) "
+          f"{tot['library_ms']:.4f} ms | {card}")
     t0 = time.perf_counter()
     fresh._device_factorization(dev)
     torch.cuda.synchronize()
@@ -1178,11 +1255,14 @@ def main() -> int:
           f"{len(spills)} with spills")
     for line in spills:
         print(f"#   spill {line}")
-    for line in k5_ptxas(build.build_log()) + aggregate_ptxas(
-            build.build_log()):
+    log = build.build_log()
+    rows = (k5_ptxas(log) + aggregate_ptxas(log) + combine_ptxas(log)
+            + k4_ptxas(log))
+    for line in rows:
         print(f"# ptxas {line}")
-        if " 0 bytes spill stores" not in line:
-            raise AssertionError(f"a tensor-core kernel spills: {line}")
+    spilling = [line for line in rows if " 0 bytes spill stores" not in line]
+    if spilling:
+        raise AssertionError(f"kernel instances spill: {spilling}")
 
     # Inputs of the main path: the seeded Cora-sized graph, padded.
     (cora1, cora2) = conformance.cora_operating_points()
@@ -1343,8 +1423,10 @@ def main() -> int:
                 same = time_ms(torch, lambda: torch.matmul(
                     torch.matmul(ca, cx), cw))
                 extra += f", library (A @ X) @ W {same:.4f} ms"
-            if kname != "edge_aggregate_unfused.combine":
-                extra += ", " + cluster_fit(build, ea, eu, kname, pt)
+            if kname == "edge_aggregate_unfused.combine":
+                extra += (f", {100 * row['bound_ms'] / row['ms']:.1f}% of "
+                          "its bound")
+            extra += ", " + cluster_fit(build, ea, eu, kname, pt)
             print(f"# time {kname} {label} (K={K} N={F} T={T} Bn={pt.Bn} "
                   f"Bk={pt.Bk}, f32, nnz(A)={nnz}): kernel {row['ms']:.4f} ms"
                   f", plain {row['plain_ms']:.4f} ms, library "
@@ -1369,6 +1451,12 @@ def main() -> int:
                       f"{time_ms(torch, kernel):.4f} ms, block-dense bound "
                       f"{dense_bound(conformance, ea, eu, kname, pt, 'bf16')}"
                       f" | {card}")
+    k3 = totals["edge_aggregate_unfused.combine"]
+    print(f"# time edge_aggregate_unfused.combine, both Cora layers, f32: "
+          f"kernel {k3['ms']:.4f} ms, library (matmul) {k3['library_ms']:.4f}"
+          f" ms (kernel / library {k3['ms'] / k3['library_ms']:.2f}x), bound "
+          f"{k3['bound_ms']:.4f} ms ({100 * k3['bound_ms'] / k3['ms']:.1f}%) "
+          f"| {card}")
     print(f"# fused minus unfused, both Cora layers, f32: K2 + K3 - K1 = "
           f"{layer_ms['unfused'] - layer_ms['fused']:.4f} ms against a "
           f"modelled spill of {layer_ms['spill_ms']:.4f} ms "

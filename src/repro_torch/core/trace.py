@@ -554,7 +554,8 @@ class GraphTrace:
         parts = []
         for _, n_tiles, K in geos:
             _bump_stat("schedule_computes")
-            parts.extend(ops.schedule_counts(*tensors, K, n_tiles))
+            parts.extend(ops.schedule_counts(*tensors, K, n_tiles,
+                                             total=self.n_edges))
         flat = torch.cat(parts).cpu().numpy()
         out, at = [], 0
         for cap, n_tiles, K in geos:

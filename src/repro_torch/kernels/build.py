@@ -54,11 +54,15 @@ SIGNATURES = {
         "aggregate_active_clusters": [_INT] * 6,
         # y, w, out, n, f, t, bn, fc, dtype, stream
         "combine_pass": [_VOID] * 3 + [_INT] * 6 + [_VOID],
+        # n, f, t, bn, fc
+        "combine_ranks": [_INT] * 5,
+        # n, f, t, bn, fc, dtype
+        "combine_active_clusters": [_INT] * 6,
     },
     "segment_reduce": {
-        # u_snd, u_rcv, new_src, mult, halo, cut, n, k, n_tiles, idx_bytes,
-        # stream
-        "schedule_counts": [_VOID] * 6 + [_I64] * 2 + [_INT] * 2 + [_VOID],
+        # u_snd, u_rcv, new_src, mult, halo, cut, n, k, magic, n_tiles,
+        # idx_bytes, div_shift, route, pack_shift, stream
+        "schedule_counts": [_VOID] * 6 + [_I64] * 3 + [_INT] * 5 + [_VOID],
     },
     "flash_attention": {
         # q, k, v, o, b, s, h, hk, d, causal, window, softcap, scale, dtype,

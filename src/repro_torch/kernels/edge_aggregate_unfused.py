@@ -9,8 +9,11 @@ between them (``csrc/edge_aggregate_unfused.cu``):
   with one chunk, a cluster whose ranks split the source blocks as the
   fused kernel's do, so both read the same A and X bytes; each chunk of the
   aggregate is spilled once, rounded to the input type;
-* pass 2, :func:`combine_pass` (K3): Y = Y_agg @ W over grid ``(n/Bn,)``,
-  reading the spill back.
+* pass 2, :func:`combine_pass` (K3): Y = Y_agg @ W over grid
+  ``(ranks, n/Bn)``, reading the spill back: a destination block's feature
+  chunks spread over the ranks of a cluster (rank r takes chunks r, r + 8,
+  ... and their rows of W), whose leader sums the (Bn, T) partials and
+  writes the tile once; with one chunk, one CTA a block.
 
 The passes stay two launches: joined into one program, the round trip they
 exist to measure would disappear.  The fused-minus-unfused traffic is then
@@ -21,20 +24,22 @@ the ``*_grid_spec`` geometry below.
 
 from __future__ import annotations
 
+import math
 from typing import Iterator
 
 import torch
 
 from . import build
 from .edge_aggregate import (DEFAULT_BLOCK_K, DEFAULT_BLOCK_N, DTYPE_CODES,
-                             MAX_SMEM_BYTES, CtaSchedule, Move, rank_work,
-                             check_blocks, check_ranks, chunk_bounds,
+                             MAX_CLUSTER, MAX_SMEM_BYTES, CtaSchedule, Move,
+                             rank_work, check_blocks, check_ranks, chunk_bounds,
                              check_operands, feature_chunk,
                              kernel_smem_bytes, require_aligned,
                              require_cuda)
 from ..backend import full_fp32
 
-__all__ = ["aggregate_grid_spec", "combine_grid_spec",
+__all__ = ["aggregate_grid_spec", "combine_grid_spec", "combine_plan",
+           "combine_smem_bytes",
            "aggregate_block_streams", "combine_block_streams",
            "aggregate_launch_tensors", "combine_launch_tensors",
            "aggregate_pass", "combine_pass", "unfused_aggregate_combine",
@@ -70,28 +75,53 @@ def aggregate_grid_spec(n: int, f: int, block_n: int,
                        moves=moves, cluster=cluster)
 
 
+def combine_plan(f: int, block_n: int) -> tuple[int, int]:
+    """``(ranks, cluster)`` of a destination block in the combine, the rule
+    of ``combine_plan()`` in ``csrc/edge_aggregate_unfused.cu``: one rank per
+    feature chunk, at most a cluster of 8 (rank r takes chunks r, r + 8,
+    ...); one chunk is one CTA and no cluster."""
+    ranks = min(math.ceil(f / feature_chunk(block_n)), MAX_CLUSTER)
+    return ranks, ranks if ranks > 1 else 1
+
+
+def combine_smem_bytes(block_n: int, t: int) -> int:
+    """Shared memory of one combine CTA (``CombineGeo`` in
+    ``csrc/edge_aggregate_unfused.cu``): W's chunk rows (at least 32) in one
+    block of TB output columns (TB = 8, 16 or 32), each padded to TB + 4
+    floats, and the (Bn, T) fp32 partial."""
+    fc = feature_chunk(block_n)
+    tb = 8 if t <= 8 else 16 if t <= 16 else 32
+    return 4 * (max(fc, 32) * (tb + 4) + block_n * t)
+
+
 def combine_grid_spec(n: int, f: int, t: int, block_n: int) -> CtaSchedule:
-    """CTA ``i`` reads its aggregate rows and W's rows chunk by chunk (each
-    once) and writes its (Bn, T) output tile once."""
+    """Grid ``(ranks, n / Bn)``, clusters of ``ranks`` along the first axis.
+    Rank ``r`` of destination block ``i`` reads the aggregate rows and W's
+    rows of its chunks (r, r + ranks, ...), each once; the leader writes the
+    (Bn, T) output tile once.  Per destination block that is its (Bn, F)
+    rows once, W once and the tile once, as with one CTA a block."""
     fc = feature_chunk(block_n)
     check_blocks(n, block_n, block_n)
     chunks = chunk_bounds(f, fc)
-    smem = 4 * (block_n * (fc + 1) + fc * t + block_n * t)
+    ranks, cluster = combine_plan(f, block_n)
+    smem = combine_smem_bytes(block_n, t)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"block_n={block_n}, t={t} need {smem} B of shared "
                          f"memory; a CTA has {MAX_SMEM_BYTES}")
 
     def moves(i: int) -> Iterator[Move]:
-        rows = (i * block_n, (i + 1) * block_n)
-        for cols in chunks:
+        b, r = divmod(i, ranks)
+        rows = (b * block_n, (b + 1) * block_n)
+        for cols in chunks[r::ranks]:
             yield "y", rows, cols
             yield "w", cols, (0, t)
-        yield "out", rows, (0, t)
+        if r == 0:
+            yield "out", rows, (0, t)
 
-    return CtaSchedule(grid=(n // block_n,), block_n=block_n, block_k=None,
-                       chunk=fc, smem_bytes=smem,
+    return CtaSchedule(grid=(ranks, n // block_n), block_n=block_n,
+                       block_k=None, chunk=fc, smem_bytes=smem,
                        operands={"y": (n, f), "w": (f, t), "out": (n, t)},
-                       moves=moves)
+                       moves=moves, cluster=cluster)
 
 
 def aggregate_block_streams(n: int, f: int, *,
@@ -193,6 +223,8 @@ def combine_pass(y_agg: torch.Tensor, w: torch.Tensor, *,
     sched, (y, w, out) = combine_launch_tensors(y_agg, w, block_n=block_n)
     n, f = y.shape
     lib = build.library("edge_aggregate_unfused")
+    check_ranks(lib.combine_ranks(n, f, w.shape[1], sched.block_n,
+                                  sched.chunk), sched, "combine_pass")
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         build.check(lib.combine_pass(

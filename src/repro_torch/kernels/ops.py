@@ -80,13 +80,17 @@ def gnn_combine(y_agg: torch.Tensor, w: torch.Tensor, *,
 
 def schedule_counts(u_snd: torch.Tensor, u_rcv: torch.Tensor,
                     u_new_src: torch.Tensor, mult: torch.Tensor, K: int,
-                    n_tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+                    n_tiles: int, total: Optional[int] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tile ``(halo, cut)`` int64 counts of stride K (K4 on CUDA).
+    ``total``, an upper bound of ``mult.sum()`` where the caller knows one,
+    steers the kernel's route (``segment_reduce.k4_route``).
 
     An empty pair list returns zeros and launches nothing.
     """
     if u_rcv.device.type == "cuda":
-        out = sr.schedule_counts(u_snd, u_rcv, u_new_src, mult, K, n_tiles)
+        out = sr.schedule_counts(u_snd, u_rcv, u_new_src, mult, K, n_tiles,
+                                 total)
         if u_rcv.shape[0]:
             LAUNCHES["segment_reduce.schedule_counts"] += 1
         return out

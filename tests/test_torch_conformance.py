@@ -114,75 +114,119 @@ def test_unfused_geometry_covers_the_reference_blocks(n, f, t, bn, bk):
 
     grid, (y_g, w_g), out_g = jeu.combine_grid_spec(n, f, t, bn)
     sched = eu.combine_grid_spec(n, f, t, bn)
-    assert sched.grid == grid
+    assert sched.grid[1:] == grid
     for i in range(grid[0]):
-        moves = _by_operand(sched.moves(i))
-        assert _merge_cols(moves["y"]) == {
+        # The union of a block's rank moves: its aggregate rows, all of W
+        # and its output tile, each once.
+        moves = _by_operand(_block_moves(sched, i))
+        assert _merge_cols(sorted(moves["y"], key=lambda m: m[1])) == {
             _extent(y_g, i)[0]: _extent(y_g, i)[1]}
-        assert _merge_rows(moves["w"]) == {(0, t): _extent(w_g, i)[0]}
+        assert _merge_rows(sorted(moves["w"])) == {(0, t): _extent(w_g, i)[0]}
         assert moves["out"] == [_extent(out_g, i)]
 
 
 # ---------------------------------------------------------------------------
 # The cluster schedules against one CTA per destination block.
 # ---------------------------------------------------------------------------
-def _row_block_schedule(n, f, t, bn, bk, fused):
-    """One CTA per destination block walking every chunk and source block,
-    written out here: the schedule the clusters must match byte for byte."""
+def _row_block_schedule(n, f, t, bn, bk, kernel):
+    """One CTA per destination block walking every chunk (and, for K1 and
+    K2, every source block), written out here: the schedule the clusters
+    must match byte for byte."""
     fc = ea.feature_chunk(bn)
     chunks = [(c, min(f, c + fc)) for c in range(0, f, fc)]
 
     def moves(i):
         rows = (i * bn, (i + 1) * bn)
         for cols in chunks:
+            if kernel == "K3":
+                yield "y", rows, cols
+                yield "w", cols, (0, t)
+                continue
             for j in range(0, n, bk):
                 yield "a", rows, (j, j + bk)
                 yield "x", (j, j + bk), cols
-            yield ("w", cols, (0, t)) if fused else ("y", rows, cols)
-        if fused:
+            yield ("w", cols, (0, t)) if kernel == "K1" else ("y", rows, cols)
+        if kernel != "K2":
             yield "out", rows, (0, t)
 
-    operands = ({"a": (n, n), "x": (n, f), "w": (f, t), "out": (n, t)}
-                if fused else {"a": (n, n), "x": (n, f), "y": (n, f)})
+    operands = {"K1": {"a": (n, n), "x": (n, f), "w": (f, t), "out": (n, t)},
+                "K2": {"a": (n, n), "x": (n, f), "y": (n, f)},
+                "K3": {"y": (n, f), "w": (f, t), "out": (n, t)}}[kernel]
     return ea.CtaSchedule(grid=(n // bn,), block_n=bn, block_k=bk, chunk=fc,
                           smem_bytes=0, operands=operands, moves=moves)
 
 
+def _kernel_schedule(kernel, n, f, t, bn, bk):
+    return {"K1": lambda: ea.fused_grid_spec(n, f, t, bn, bk),
+            "K2": lambda: eu.aggregate_grid_spec(n, f, bn, bk),
+            "K3": lambda: eu.combine_grid_spec(n, f, t, bn)}[kernel]()
+
+
 @pytest.mark.parametrize("pt", POINTS, ids=PT_IDS)
-@pytest.mark.parametrize("fused", [True, False], ids=["K1", "K2"])
-def test_cluster_schedule_traces_the_row_block_bytes(pt, fused):
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_cluster_schedule_traces_the_row_block_bytes(pt, kernel):
     K, N, T, bn, bk = pt.K, pt.N, pt.T, pt.Bn, pt.Bk
-    acct = (ea.fused_block_streams(K, N, T, block_n=bn, block_k=bk) if fused
-            else eu.aggregate_block_streams(K, N, block_n=bn, block_k=bk))
+    acct = {"K1": lambda: ea.fused_block_streams(K, N, T, block_n=bn,
+                                                 block_k=bk),
+            "K2": lambda: eu.aggregate_block_streams(K, N, block_n=bn,
+                                                     block_k=bk),
+            "K3": lambda: eu.combine_block_streams(K, N, T, block_n=bn)
+            }[kernel]()
     got = conf.block_schedule(acct["schedule"], acct["streams"])
-    expect = conf.block_schedule(_row_block_schedule(K, N, T, bn, bk, fused),
+    expect = conf.block_schedule(_row_block_schedule(K, N, T, bn, bk, kernel),
                                  acct["streams"])
     assert got == expect
 
 
 @pytest.mark.parametrize("n,f,t,bn,bk", GEOMETRIES, ids=GEO_IDS)
-@pytest.mark.parametrize("fused", [True, False], ids=["K1", "K2"])
-def test_cluster_schedule_covers_each_block_once(n, f, t, bn, bk, fused):
-    sched = (ea.fused_grid_spec(n, f, t, bn, bk) if fused
-             else eu.aggregate_grid_spec(n, f, bn, bk))
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_cluster_schedule_covers_each_block_once(n, f, t, bn, bk, kernel):
+    sched = _kernel_schedule(kernel, n, f, t, bn, bk)
     ranks, nrb = sched.grid
     assert nrb == n // bn and 1 <= sched.cluster <= ea.MAX_CLUSTER
     assert ranks % sched.cluster == 0
-    assert sched.cluster in ((ranks,) if fused or ranks == 1
+    assert sched.cluster in ((ranks,) if kernel != "K2" or ranks == 1
                              else (1, ranks))
     chunks = ea.chunk_bounds(f, sched.chunk)
     for i in range(nrb):
         moves = _by_operand(_block_moves(sched, i))
         rows = (i * bn, (i + 1) * bn)
+        if kernel == "K3":
+            assert sorted(moves["y"]) == [(rows, c) for c in chunks]
+            assert sorted(moves["w"]) == [(c, (0, t)) for c in chunks]
+            assert moves["out"] == [(rows, (0, t))]
+            continue
         pairs = sorted(zip(moves["a"], moves["x"]))
         expect = sorted(((rows, (j, j + bk)), ((j, j + bk), cols))
                         for cols in chunks for j in range(0, n, bk))
         assert pairs == expect      # each (chunk, source block) exactly once
-        if fused:
+        if kernel == "K1":
             assert sorted(moves["w"]) == [(c, (0, t)) for c in chunks]
             assert moves["out"] == [(rows, (0, t))]
         else:
             assert sorted(moves["y"]) == [(rows, c) for c in chunks]
+
+
+@pytest.mark.parametrize("pt", POINTS, ids=PT_IDS)
+def test_combine_ranks_follow_the_documented_plan(pt):
+    """K3: one rank per feature chunk up to a cluster of 8; rank r reads the
+    aggregate rows and W rows of chunks r, r + ranks, ...; the leader
+    writes the tile; one chunk is one CTA and no cluster."""
+    sched = eu.combine_grid_spec(pt.K, pt.N, pt.T, pt.Bn)
+    chunks = ea.chunk_bounds(pt.N, ea.feature_chunk(pt.Bn))
+    ranks = min(len(chunks), ea.MAX_CLUSTER)
+    assert eu.combine_plan(pt.N, pt.Bn) == (ranks, ranks if ranks > 1 else 1)
+    assert sched.grid == (ranks, pt.K // pt.Bn)
+    assert sched.cluster == (ranks if ranks > 1 else 1)
+    assert sched.smem_bytes == eu.combine_smem_bytes(pt.Bn, pt.T)
+    for b in range(pt.K // pt.Bn):
+        rows = (b * pt.Bn, (b + 1) * pt.Bn)
+        for r in range(ranks):
+            expect = [m for c in chunks[r::ranks]
+                      for m in (("y", rows, c), ("w", c, (0, pt.T)))]
+            if r == 0:
+                expect.append(("out", rows, (0, pt.T)))
+            assert list(sched.moves(b * ranks + r)) == expect
 
 
 @pytest.mark.parametrize("n,bn,bk,ranks,sizes", [
@@ -214,6 +258,13 @@ def test_cora_layer_grids_fill_the_sms():
     u1 = eu.aggregate_grid_spec(l1.K, l1.N, l1.Bn, l1.Bk)
     assert (u1.grid, u1.cluster) == ((6, 88), 1)
     assert math.prod(s1.grid) == 4 * ea.SMS and math.prod(s2.grid) <= ea.SMS
+    # K3: layer 1's 6 chunks over clusters of 6 (528 CTAs); layer 2's one
+    # chunk one CTA a block (44 CTAs).
+    c1 = eu.combine_grid_spec(l1.K, l1.N, l1.T, l1.Bn)
+    c2 = eu.combine_grid_spec(l2.K, l2.N, l2.T, l2.Bn)
+    assert (c1.grid, c1.cluster) == ((6, 88), 6)
+    assert (c2.grid, c2.cluster) == ((1, 44), 1)
+    assert math.prod(c1.grid) == 4 * ea.SMS
 
 
 @pytest.mark.parametrize("block_n,fc", [(16, 512), (32, 256), (128, 64),

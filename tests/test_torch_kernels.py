@@ -401,6 +401,23 @@ def test_cuda_cluster_schedules_match_plain_versions(n, f, t, bn, bk, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,f,t,bn", [(2816, 1433, 16, 32), (2816, 16, 7, 64),
+                                      (1024, 700, 9, 64), (512, 2000, 33, 32),
+                                      (256, 32, 8, 128), (512, 300, 3, 512)])
+def test_cuda_combine_ranks_match_the_plan(n, f, t, bn, cuda_device):
+    """The C side's ranks per destination block are combine_grid_spec's, and
+    the combine on those ranks matches its plain version."""
+    sched = eu.combine_grid_spec(n, f, t, bn)
+    lib = build.library("edge_aggregate_unfused")
+    assert lib.combine_ranks(n, f, t, bn, sched.chunk) == sched.grid[0]
+    assert lib.combine_active_clusters(n, f, t, bn, sched.chunk, 0) >= 1
+    _, (y, w), tol = _both(_layer_inputs(n, f, t, n + t)[1:], "f32")
+    y, w = y.to(cuda_device), w.to(cuda_device)
+    out = eu.combine_pass(y, w, block_n=bn)
+    assert _rel(_np(out.cpu()), _np(eu.combine_pass_plain(y, w).cpu())) < tol
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_count_their_launches(cuda_device):
     ops.reset_launches()
     a, x, w = (torch.ones(s, device=cuda_device)
@@ -408,4 +425,7 @@ def test_cuda_wrappers_count_their_launches(cuda_device):
     ops.gnn_aggregate_combine(a, x, w)
     ops.gnn_combine(ops.gnn_aggregate(a, x), w)
     torch.cuda.synchronize()
-    assert set(ops.LAUNCHES.values()) == {1}
+    layer = ("edge_aggregate", "edge_aggregate_unfused.aggregate",
+             "edge_aggregate_unfused.combine")
+    assert [ops.LAUNCHES[k] for k in layer] == [1, 1, 1]
+    assert sum(ops.LAUNCHES.values()) == 3

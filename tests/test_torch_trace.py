@@ -124,6 +124,91 @@ def test_empty_pair_list_counts_zero_without_a_launch():
 
 
 # ---------------------------------------------------------------------------
+# K4's host-side plan: magic division and the flush route.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("K", [1, 2, 3, 7, 15, 16, 244, 976, 62_500, 500_000,
+                               2**31 - 1, 2**31 + 1, 2**40 + 3, 2**62 + 1,
+                               2**63 - 1])
+def test_div_magic_matches_floor_division(K, bits):
+    top = 2 ** (bits - 1) - 1           # the largest id of the index type
+    if K > top:
+        with pytest.raises(ValueError, match="must lie"):
+            sr.div_magic(K, bits)
+        return
+    m, s = sr.div_magic(K, bits)
+    assert m < 2**64 and (bits == 64 or m <= 2**32)
+    rng = np.random.default_rng(K % 1000)
+    xs = {0, 1, K - 1, K, K + 1, 2 * K - 1, 2 * K, top, top - 1,
+          top // K * K, top // K * K - 1}
+    xs |= {int(v) for v in rng.integers(0, top, 200, dtype=np.int64)}
+    for x in sorted(v for v in xs if 0 <= v <= top):
+        assert (x * m) >> s == x // K, x
+    if bits == 32:                       # the kernel's product fits 63 bits
+        assert top * m < 2**63
+
+
+#: (n_tiles, total multiplicity or None, shared?, packed?) at the route
+#: boundaries: 8192 packed bins (8 bytes) or 4096 unpacked (16 bytes) fill
+#: the 64 KB histogram; both fields of a packed word must stay below 2^32.
+ROUTE_CASES = [
+    (1, 10**6, True, True),
+    (8192, 10**6, True, True),
+    (8193, 10**6, False, True),
+    (4096, None, True, False),
+    (4097, None, False, False),
+    (65_536, 10**6, False, True),
+    (65_536, None, False, False),
+    (4096, 2**32 - 1, True, True),
+    (4096, 2**32, True, False),
+    (3, 2**53 + 4097, True, False),
+]
+
+
+@pytest.mark.parametrize("n_tiles,total,shared,packed", ROUTE_CASES)
+def test_k4_route_at_the_field_and_memory_limits(n_tiles, total, shared,
+                                                 packed):
+    route = sr.k4_route(200_000, n_tiles, total)
+    assert (route.shared, route.packed) == (shared, packed)
+    assert route.pack_shift == (sr.PACK_SHIFT if packed else 0)
+    assert route.code == (1 if shared else 0) | (2 if packed else 0)
+
+
+def test_k4_route_needs_the_pair_count_below_2p32_to_pack():
+    assert sr.k4_route(2**32 - 1, 16, 10).packed
+    assert not sr.k4_route(2**32, 16, 10).packed
+    assert not sr.k4_route(10, 16, -1).packed
+
+
+def _route_pairs(seed=5, V=1 << 18, U=200_000):
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, V * V, U, dtype=np.int64))
+    snd, rcv = (keys // V).astype(np.int32), (keys % V).astype(np.int32)
+    new_src = np.concatenate([[True], snd[1:] != snd[:-1]])
+    mult = rng.integers(1, 4, snd.size).astype(np.int64)
+    return V, (snd, rcv, new_src, mult)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tiles,total,shared,packed", ROUTE_CASES)
+def test_cuda_schedule_counts_on_every_route(n_tiles, total, shared, packed,
+                                             cuda_device):
+    V, arrays = _route_pairs()
+    if total is not None and total > 10**6:
+        arrays[3][len(arrays[3]) // 2] += total - int(arrays[3].sum())
+    cpu = tuple(torch.from_numpy(a) for a in arrays)
+    bound = None if total is None else int(arrays[3].sum())
+    route = sr.k4_route(cpu[0].shape[0], n_tiles, bound)
+    assert (route.shared, route.packed) == (shared, packed)
+    K = -(-V // n_tiles)
+    got = sr.schedule_counts(*(t.to(cuda_device) for t in cpu), K, n_tiles,
+                             bound)
+    expect = sr.schedule_counts_plain(*cpu, K, n_tiles)
+    for g, e in zip(got, expect):
+        assert torch.equal(g.cpu(), e)
+
+
+# ---------------------------------------------------------------------------
 # GraphTrace: both port engines against the reference, every dataset.
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("engine", ["torch", "numpy"])
