@@ -97,7 +97,18 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    (timed here only; the port never calls it); the device time of one
    ``serve_bulk`` request and of 8 ``serve_p99`` requests by kind (K6,
    cuBLAS products, copies, other kernels) under ``torch.profiler``,
-   against their unprofiled host time.
+   against their unprofiled host time;
+15. the paper's figures and front-door conformance: the counters are
+   zeroed, then ``python -m repro_torch.api`` runs in process on
+   ``examples/scenarios/comparison.json`` on the card (exit 0, its five
+   pins held, and the ``spmm_tiled`` row's conformance block checked and
+   ok against ``spmm_tiled_cta``: K1, K2 and K3 must have launched); the
+   registry crosscheck runs with the harness on the card (the five Sec. IV
+   goldens at ratio 1.0, modelled HBM bytes equal to measured); every
+   ported template (Figures 3-7, ``comparison``, ``cora_end_to_end``,
+   ``cora_trace``) and ``sweep_accelerators()`` is evaluated, timed on the
+   host clock (median of 20) and its grids' SHA-256 held to a digest
+   pinned from the JAX reference; the phase's launches join the counts.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -246,6 +257,30 @@ DLRM_CHECK_ROW_CAP, DLRM_CHECK_BATCH = 65_536, 512
 DLRM_TOLERANCE = 1e-4
 #: Retrieval scores, card vs CPU: one 128-long f32 dot per candidate.
 RETRIEVAL_TOLERANCE = 1e-5
+#: The reference's batch of the paper's Sec. IV defaults: five pinned
+#: dataflows (spmm_tiled with the conformance check) and three more rows.
+COMPARISON = (Path(__file__).resolve().parent / "examples" / "scenarios"
+              / "comparison.json")
+#: ``grid_digest`` of every ported template's evaluated groups and of
+#: ``sweep_accelerators()``'s outputs, as the JAX reference gives them on the
+#: CPU (tests/test_torch_registry.py holds these pins to it).
+FIGURE_DIGESTS = {
+    "fig3": "1f1449ffb813618a1492a991637a8065a1534c8bd5fa3944e190af578a81c34d",
+    "fig4": "369f890fb9c9ba3b4db1f7d75137a4189ffff7280c68a4d0679f09676039ee88",
+    "fig5a": "f337512959db3c69e9909973104166515829b6bc2b5d3a97a58ba041bb421506",
+    "fig5b": "1ad76e7395558afb479e04af5d0d99e73568127218efbc22cd89f32e2ac1c5c1",
+    "fig6": "d7bc4015cd3436158d500a27ef7fb959901084da556fcdcb3db960b135620de5",
+    "fig7": "4e490f092545a090235f49b668d441212d2e38e493238cb207d68b2614a17db9",
+    "comparison":
+        "cada68b46fc29f0d43c49d6abd9979635c3f3d9bd548936578ef9ef0951b0025",
+    "cora_end_to_end":
+        "6c105cc7c625d6b400552fc913470d0e31349fcad455ee42c1072afdc5bb24a1",
+    "cora_trace":
+        "98045e0b21ca545f23c670a4a3499778530111bc0380e1e2f8d4f44ac4564d0b",
+    "sweep_accelerators":
+        "cada68b46fc29f0d43c49d6abd9979635c3f3d9bd548936578ef9ef0951b0025",
+}
+FIGURE_REPEATS = 20
 
 
 def k5_work(b: int, s: int, h: int, hk: int, d: int) -> tuple[int, int]:
@@ -679,6 +714,109 @@ def trace_phases(dev, card: str, launches: dict, max_abs: dict,
           f"{statistics.median(sweep['torch']):.4f} s (factorization already on "
           f"the card; its upload took {upload_s:.4f} s); host factorization "
           f"{fact_s:.4f} s; trace path {path_s:.3f} s | {card}")
+
+
+def grid_digest(outputs) -> str:
+    """SHA-256 of evaluated grids: for each ``(ModelOutput, cells)`` in
+    order, each term's ``data_bits`` then ``iterations``, broadcast to the
+    cells, float64, C order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for out, cells in outputs:
+        for t in out.terms:
+            for arr in (t.data_bits, t.iterations):
+                h.update(np.ascontiguousarray(np.broadcast_to(
+                    np.asarray(arr, np.float64), (cells,))).tobytes())
+    return h.hexdigest()
+
+
+def figure_phases(dev, card: str, launches: dict) -> None:
+    """Phase 15: the paper's figures and front-door conformance.  Adds the
+    phase's launches to ``launches``."""
+    import tempfile
+
+    from repro_torch.api import cli, evaluate_groups, template
+    from repro_torch.core import registry
+    from repro_torch.core.sweep import sweep_accelerators
+    from repro_torch.core.validation import (SEC4_GOLDEN_TOTALS,
+                                             crosscheck_registry)
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    # (a) The front door on the reference's Sec. IV batch, on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "comparison.json"
+        t0 = time.perf_counter()
+        rc = cli.main(["--scenario", str(COMPARISON), "--device", "cuda",
+                       "--json", str(path)])
+        torch.cuda.synchronize()
+        front_s = time.perf_counter() - t0
+        payload = json.loads(path.read_text()) if rc == 0 else None
+    front = {k: ops.LAUNCHES[k] for k in LAYER_KERNELS}
+    print(f"# front door: comparison.json exit {rc} in {front_s:.3f} s host "
+          f"clock, launches {json.dumps(front, sort_keys=True)} | {card}")
+    if rc != 0:
+        raise AssertionError(f"the front door exited {rc} on comparison.json")
+    pinned = [r["expect_ok"] for r in payload["results"] if "expect_ok" in r]
+    if pinned != [True] * 5:
+        raise AssertionError(f"comparison.json pins: {pinned}")
+    (conf,) = [r["conformance"] for r in payload["results"]
+               if "conformance" in r]
+    print(f"# front door conformance (spmm_tiled): "
+          f"{json.dumps(conf, sort_keys=True)}")
+    if not (conf["checked"] and conf["ok"]
+            and conf["spec"] == "spmm_tiled_cta"):
+        raise AssertionError(f"front-door conformance: {conf}")
+    for kname, count in front.items():
+        if count < 1:
+            raise AssertionError(f"{kname} never launched from the front "
+                                 "door")
+
+    # (b) The registry crosscheck with the harness on the card.
+    records = crosscheck_registry(conformance=True, device=dev)
+    for name in SEC4_GOLDEN_TOTALS:
+        if records[name].ratio != 1.0:
+            raise AssertionError(f"golden {name}: {records[name]}")
+    for name in registry.runnable_names():
+        rec = records[f"{name}::conformance"]
+        if rec.analytical_bytes != rec.measured_bytes:
+            raise AssertionError(f"crosscheck {name}: {rec}")
+    hbm = {n: records[f"{n}::conformance"].measured_bytes
+           for n in registry.runnable_names()}
+    print(f"# crosscheck: {len(SEC4_GOLDEN_TOTALS)} goldens at ratio 1.0; "
+          f"HBM bytes modelled = measured {json.dumps(hbm)}")
+
+    # (c) Every ported template and sweep_accelerators(), held to the
+    # reference's grids by their digests.
+    def evaluated(name):
+        if name == "sweep_accelerators":
+            sw = sweep_accelerators()
+            return sw.total_bits.shape, [(o, sw.total_bits[0].size)
+                                         for o in sw.meta["outputs"]]
+        batch = template(name)
+        groups = evaluate_groups(batch.scenarios, device=dev)
+        return ((len(groups), *batch.grid_shape),
+                [(g.output, len(g.indices)) for g in groups])
+
+    for name, pin in FIGURE_DIGESTS.items():
+        shape, outputs = evaluated(name)
+        samples = []
+        for _ in range(FIGURE_REPEATS):
+            t0 = time.perf_counter()
+            evaluated(name)
+            samples.append(time.perf_counter() - t0)
+        digest = grid_digest(outputs)
+        print(f"# figure {name}: grid {shape} (evaluations x axes), "
+              f"{1e3 * statistics.median(samples):.4f} ms a call (host "
+              f"clock, median of {FIGURE_REPEATS}), sha256 {digest} "
+              f"({'= pin' if digest == pin else 'PIN ' + pin}) | {card}")
+        if digest != pin:
+            raise AssertionError(f"{name}'s grids differ from the "
+                                 "reference's")
+    for kname, count in ops.LAUNCHES.items():
+        launches[kname] += count
+    print(f"# figure phase launches: {json.dumps(ops.LAUNCHES)}")
 
 
 def percentile(samples, q: float) -> float:
@@ -1466,6 +1604,7 @@ def main() -> int:
     trace_phases(dev, card, launches, max_abs, totals)
     serving_phases(dev, card, launches, max_abs, totals)
     dlrm_phases(dev, card, launches, max_abs, totals)
+    figure_phases(dev, card, launches)
 
     kernels = []
     for kname, meta in KERNELS.items():

@@ -8,12 +8,15 @@ its own copy.  Layout mirrors ``repro``:
   ``sm_90a``: the GNN layer (fused K1, unfused K2 + K3), the trace
   segment reduce K4, flash attention K5 and the embedding bag K6, their
   geometry, plain versions and ``ops`` wrappers;
-* :mod:`repro_torch.core` — the closed forms (``engn``, ``hygcn``,
-  ``awb_gcn`` and the kernels' ``spmm_tiled_cta`` / ``spmm_unfused_cta``),
-  the composition layer, the exact-trace scheduler and the conformance
-  harness;
+* :mod:`repro_torch.core` — the closed forms (the reference's ``engn``,
+  ``hygcn``, ``spmm_tiled``, ``spmm_unfused`` and ``awb_gcn``, and the
+  kernels' ``spmm_tiled_cta`` / ``spmm_unfused_cta``), the composition
+  layer, the exact-trace scheduler, the conformance harness, the paper's
+  Figures 3-7 and the Sec. IV golden totals;
 * :mod:`repro_torch.api` — the scenario front door
-  (``python -m repro_torch.api``) for tile, full and trace scenarios;
+  (``python -m repro_torch.api``) for tile, full and trace scenarios, with
+  the paper's figures as named templates and conformance checks that run
+  K1-K3;
 * :mod:`repro_torch.models` / :mod:`repro_torch.configs` — the dense
   transformer that serves SmolLM-135M (prefill through K5, decode over KV
   caches), DLRM serving (every embedding bag through K6, retrieval

@@ -3,15 +3,43 @@
 * :class:`~repro_torch.api.scenario.Scenario` /
   :class:`~repro_torch.api.scenario.Composition`: pure-data,
   JSON-round-trippable descriptions of one evaluation (``tile``, ``full``
-  and ``trace`` graph kinds);
+  and ``trace`` graph kinds, optionally with ``conformance=True``);
 * :func:`~repro_torch.api.planner.evaluate_scenarios`: one broadcast
-  closed-form call per plan group, trace schedules counted by kernel K4;
-* ``python -m repro_torch.api --scenario PATH [--device cuda|cpu]``.
+  closed-form call per plan group, trace schedules counted by kernel K4,
+  conformance checks run with kernels K1-K3;
+* :mod:`~repro_torch.api.templates`: the paper's figures as named scenario
+  batches, which the ``figN_*`` functions of :mod:`repro_torch.core.sweep`
+  evaluate;
+* ``python -m repro_torch.api --scenario PATH | --template NAME
+  [--device cuda|cpu] [--json [PATH]] [--list]``.
 """
 
 from .planner import (BatchResult, GroupResult, ScenarioResult,
+                      coalesce_scenarios, evaluate_groups, evaluate_scenario,
                       evaluate_scenarios)
-from .scenario import Composition, Scenario, load_scenarios
+from .scenario import (Composition, FULL_GRAPH_FIELDS, Scenario,
+                       TILE_GRAPH_FIELDS, TRACE_GRAPH_FIELDS, load_scenarios)
+from .templates import (TEMPLATES, TemplateBatch, template, template_names,
+                        tile_scenarios_from_graph, trace_scenarios_from_graph)
 
-__all__ = ["Scenario", "Composition", "load_scenarios", "ScenarioResult",
-           "GroupResult", "BatchResult", "evaluate_scenarios"]
+__all__ = [
+    "Scenario",
+    "Composition",
+    "TILE_GRAPH_FIELDS",
+    "FULL_GRAPH_FIELDS",
+    "TRACE_GRAPH_FIELDS",
+    "load_scenarios",
+    "ScenarioResult",
+    "GroupResult",
+    "BatchResult",
+    "evaluate_scenario",
+    "evaluate_scenarios",
+    "evaluate_groups",
+    "coalesce_scenarios",
+    "TemplateBatch",
+    "TEMPLATES",
+    "template",
+    "template_names",
+    "tile_scenarios_from_graph",
+    "trace_scenarios_from_graph",
+]

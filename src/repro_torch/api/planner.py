@@ -7,8 +7,11 @@ evaluates each group in one closed-form call: every numeric leaf (graph
 fields, hardware overrides, layer widths, tile capacities) is stacked along
 a leading batch axis.  The closed forms are elementwise float64 algebra, so
 the stacked evaluation is bit-identical to evaluating each scenario alone.
-A trace group's exact schedules come from kernel K4 on ``device`` (CUDA
-unless ``device="cpu"``).
+
+Two things run on ``device`` (CUDA unless ``device="cpu"``): a trace
+group's exact schedules come from kernel K4, and a ``conformance=True``
+scenario's check holds its dataflow's kernels to their closed form and runs
+K1, K2 and K3 against the fp32 oracle.
 """
 
 from __future__ import annotations
@@ -31,7 +34,10 @@ __all__ = [
     "ScenarioResult",
     "GroupResult",
     "BatchResult",
+    "coalesce_scenarios",
+    "evaluate_scenario",
     "evaluate_scenarios",
+    "evaluate_groups",
 ]
 
 #: Relative tolerance for ``Scenario.expect`` pins.  The planner is
@@ -52,6 +58,7 @@ class ScenarioResult:
     breakdown: Mapping[str, float]
     iteration_breakdown: Mapping[str, float]
     n_tiles: Optional[float] = None
+    conformance: Optional[Mapping[str, Any]] = None
     meta: Mapping[str, Any] = field(default_factory=dict)
 
     @property
@@ -89,6 +96,8 @@ class ScenarioResult:
             out["n_tiles"] = self.n_tiles
         if self.scenario.expect is not None:
             out["expect_ok"] = self.expect_ok
+        if self.conformance is not None:
+            out["conformance"] = dict(self.conformance)
         return out
 
 
@@ -119,6 +128,12 @@ class BatchResult:
         """Broadcast closed-form calls performed (== number of groups)."""
         return len(self.groups)
 
+    def evaluations_per_dataflow(self) -> dict[str, int]:
+        counts: dict[str, int] = {}
+        for g in self.groups:
+            counts[g.dataflow] = counts.get(g.dataflow, 0) + 1
+        return counts
+
     def expect_failures(self) -> list[tuple[Scenario, list[str]]]:
         out = []
         for r in self.results:
@@ -139,6 +154,48 @@ class BatchResult:
             "cache_bits": r.cache_bits,
             "onchip_bits": r.onchip_bits,
         } for r in self.results]
+
+    def to_dict(self) -> dict:
+        return {
+            "n_scenarios": len(self.results),
+            "n_evaluations": self.n_evaluations,
+            "evaluations_per_dataflow": self.evaluations_per_dataflow(),
+            "results": [r.to_dict() for r in self.results],
+        }
+
+
+def coalesce_scenarios(scenarios: Sequence[Scenario]
+                       ) -> tuple[list[Scenario], tuple[int, ...]]:
+    """Cross-request dedup: ``(distinct, backmap)`` over a flat batch.
+
+    ``distinct`` holds the unique scenarios in first-seen order and
+    ``backmap[i]`` is the position of ``scenarios[i]`` inside it, so a
+    caller can evaluate ``distinct`` once and scatter results back with
+    ``[results[j] for j in backmap]``.  Equality is full scenario equality,
+    finer than :meth:`Scenario.plan_key`: equal-plan-key scenarios with
+    different numeric leaves stay distinct here and share one broadcast
+    group later.
+    """
+    distinct: list[Scenario] = []
+    index: dict[Scenario, int] = {}
+    backmap: list[int] = []
+    for s in _checked(scenarios):
+        j = index.get(s)
+        if j is None:
+            j = len(distinct)
+            index[s] = j
+            distinct.append(s)
+        backmap.append(j)
+    return distinct, tuple(backmap)
+
+
+def _checked(scenarios: Sequence[Scenario]) -> list[Scenario]:
+    scenarios = list(scenarios)
+    for i, s in enumerate(scenarios):
+        if not isinstance(s, Scenario):
+            raise TypeError(f"scenarios[{i}] is {type(s).__name__}, "
+                            "expected Scenario")
+    return scenarios
 
 
 def _stack(values: Iterable[float]) -> np.ndarray:
@@ -221,28 +278,75 @@ def _evaluate_group(scenarios: Sequence[Scenario], device) -> ModelOutput:
     return model.evaluate(graph, hw)
 
 
-def evaluate_scenarios(scenarios: Sequence[Scenario], *,
-                       device=None) -> BatchResult:
-    """Evaluate a scenario batch: one broadcast call per plan group.
+def _conformance_summary(dataflow: str, points=None, device=None) -> dict:
+    """One-point measured-vs-modeled check of a dataflow's kernels.
 
-    Results come back in input order.  Trace groups count their schedules
-    with kernel K4 on ``device``: CUDA unless ``device="cpu"``, and without
-    a card the call raises rather than run on the CPU.
+    The harness holds the kernel analogue to the kernel spec it names
+    (``spmm_tiled`` -> K1 against ``spmm_tiled_cta``, ``spmm_unfused`` ->
+    K2 + K3 against ``spmm_unfused_cta``); then K1, K2 and K3 run once at
+    each point through the counted ``ops`` wrappers against the fp32
+    oracle: launched on CUDA, their plain versions on the CPU.
     """
-    scenarios = list(scenarios)
-    for i, s in enumerate(scenarios):
-        if not isinstance(s, Scenario):
-            raise TypeError(f"scenarios[{i}] is {type(s).__name__}, "
-                            "expected Scenario")
+    spec = registry.get(dataflow)
+    if not spec.has_runnable:
+        return {"checked": False, "ok": True,
+                "reason": "no runnable kernel analogue (analytical-only)"}
+    from ..core.conformance import (CHECK_POINT, NUMERICS_REL_TOL,
+                                    conformance_records, verify_numerics)
+
+    pts = points if points is not None else (CHECK_POINT,)
+    n = n_bad = 0
+    analytical = measured = 0.0
+    for pt in pts:
+        for rec in conformance_records(spec, pt, device=device):
+            n += 1
+            if not rec.ok:
+                n_bad += 1
+            if rec.movement == "hbm_total":
+                analytical += rec.analytical_bytes
+                measured += rec.measured_bytes
+    numerics = max(verify_numerics(pt, device=device) for pt in pts)
+    return {"checked": True,
+            "ok": n_bad == 0 and numerics < NUMERICS_REL_TOL,
+            "spec": spec.runnable_analogue().dataflow, "records": n, "violations": n_bad,
+            "hbm_analytical_bytes": analytical,
+            "hbm_measured_bytes": measured,
+            "numerics_max_rel_err": numerics}
+
+
+def evaluate_groups(scenarios: Sequence[Scenario], *,
+                    device=None) -> tuple[GroupResult, ...]:
+    """Group a batch by plan key and run one broadcast call per group.
+
+    The sweep engine's path: it needs only each group's stacked
+    :class:`~repro_torch.core.terms.ModelOutput`, so no per-scenario result
+    is built.  Trace groups count their schedules with K4 on ``device``.
+    """
+    scenarios = _checked(scenarios)
     by_key: dict[tuple, list[int]] = {}
     for i, s in enumerate(scenarios):
         by_key.setdefault(s.plan_key(), []).append(i)
-    groups = tuple(
+    return tuple(
         GroupResult(dataflow=scenarios[idx[0]].dataflow, plan_key=key,
                     indices=tuple(idx),
                     output=_evaluate_group([scenarios[i] for i in idx],
                                            device))
         for key, idx in by_key.items())
+
+
+def evaluate_scenarios(scenarios: Sequence[Scenario], *, device=None,
+                       conformance_points=None) -> BatchResult:
+    """Evaluate a scenario batch: one broadcast call per plan group.
+
+    Results come back in input order.  Trace groups count their schedules
+    with kernel K4 on ``device``, and ``conformance=True`` scenarios run at
+    most one conformance check per dataflow per batch there: CUDA unless
+    ``device="cpu"``, and without a card the call raises rather than run
+    on the CPU.
+    """
+    scenarios = list(scenarios)
+    groups = evaluate_groups(scenarios, device=device)
+    conformance_cache: dict[str, dict] = {}
     slots: list[Optional[ScenarioResult]] = [None] * len(scenarios)
     for grp in groups:
         members = [scenarios[i] for i in grp.indices]
@@ -268,8 +372,15 @@ def evaluate_scenarios(scenarios: Sequence[Scenario], *,
                              "n_nodes": int(tr.n_nodes),
                              "n_edges": int(tr.n_edges)}
         for j, i in enumerate(grp.indices):
+            s = members[j]
+            conf = None
+            if s.conformance:
+                if s.dataflow not in conformance_cache:
+                    conformance_cache[s.dataflow] = _conformance_summary(
+                        s.dataflow, conformance_points, device)
+                conf = conformance_cache[s.dataflow]
             slots[i] = ScenarioResult(
-                scenario=members[j],
+                scenario=s,
                 total_bits=float(total_bits[j]),
                 total_iterations=float(total_iters[j]),
                 offchip_bits=float(offchip[j]),
@@ -279,6 +390,12 @@ def evaluate_scenarios(scenarios: Sequence[Scenario], *,
                 iteration_breakdown={k: float(v[j])
                                      for k, v in per_term_iters.items()},
                 n_tiles=None if n_tiles_col is None else float(n_tiles_col[j]),
+                conformance=conf,
                 meta=meta,
             )
     return BatchResult(results=tuple(slots), groups=groups)
+
+
+def evaluate_scenario(scenario: Scenario, **kw) -> ScenarioResult:
+    """Evaluate one scenario (a batch of one)."""
+    return evaluate_scenarios([scenario], **kw).results[0]

@@ -15,11 +15,13 @@ Graph kinds
           approximation.  Needs ``tile_vertices`` and forbids
           ``halo_dedup != 1``.
 
-The reference's ``hetero`` and ``minibatch`` kinds, ``optimize`` blocks and
-``conformance=True`` are not ported yet; each raises a ``ValueError`` that
-names the ROADMAP item that brings it.  ``expect`` optionally pins
-``total_bits`` / ``total_iterations``, so a checked-in scenario file is a
-golden-drift gate.
+``conformance=True`` asks for the measured-vs-modeled check of the
+dataflow's kernels (one operating point, the port's harness).  The
+reference's ``hetero`` and ``minibatch`` kinds and ``optimize`` blocks are
+not ported yet; each raises a ``ValueError`` that names the ROADMAP item
+that brings it.  ``expect`` optionally pins ``total_bits`` /
+``total_iterations``, so a checked-in scenario file is a golden-drift
+gate.
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ NOT_PORTED = {
     "hetero": "ROADMAP.md Queue 1 item 4a (typed traces)",
     "minibatch": "ROADMAP.md Queue 1 item 4d (sampled minibatches)",
     "optimize": "ROADMAP.md Queue 1 item 4e (the design-space tuner)",
-    "conformance": "ROADMAP.md Queue 1 item 3 (front-door conformance)",
 }
 
 _RESIDENCIES = ("spill", "resident")
@@ -274,7 +275,8 @@ class Scenario:
       hardware: overrides applied to the dataflow's default hardware
         record; keys must be fields of that record.
       composition: optional policy (layer widths / residency / tiling).
-      conformance: not ported yet; ``True`` raises.
+      conformance: request the measured-vs-modeled check (one operating
+        point) for dataflows with a runnable kernel analogue.
       expect: optional pinned ``total_bits`` / ``total_iterations``.
       label / workload: free-form identification carried through results.
       optimize: not ported yet; a block raises.
@@ -296,8 +298,6 @@ class Scenario:
                              f"name, got {self.dataflow!r}")
         if self.optimize is not None:
             raise _not_ported("optimize")
-        if self.conformance:
-            raise _not_ported("conformance")
         graph, kind = _normalized_graph(dict(self.graph))
         object.__setattr__(self, "graph", graph)
         object.__setattr__(self, "_graph_kind", kind)
@@ -403,7 +403,7 @@ class Scenario:
                   else tuple(sorted(self.expect.items())))
         return hash((self.dataflow, self._graph_key(),
                      tuple(sorted(self.hardware.items())), self.composition,
-                     expect, self.label, self.workload))
+                     self.conformance, expect, self.label, self.workload))
 
     @property
     def graph_kind(self) -> str:
@@ -437,6 +437,8 @@ class Scenario:
             out["hardware"] = dict(self.hardware)
         if self.composition is not None:
             out["composition"] = self.composition.to_dict()
+        if self.conformance:
+            out["conformance"] = True
         if self.expect is not None:
             out["expect"] = dict(self.expect)
         if self.label:
@@ -479,6 +481,31 @@ class Scenario:
 
     def replace(self, **kw: Any) -> "Scenario":
         return dataclasses.replace(self, **kw)
+
+
+def _trusted_tile(dataflow: str, graph: Mapping[str, float],
+                  hardware: Mapping[str, float], label: str = "",
+                  workload: str = "") -> Scenario:
+    """A plain tile Scenario built without validation (the figure
+    templates' hot path, one object per grid cell).
+
+    Only for values the caller already normalized: finite float64s, exactly
+    the tile field set, no composition.  Everything else goes through the
+    public constructors.
+    """
+    s = object.__new__(Scenario)
+    set_ = object.__setattr__
+    set_(s, "dataflow", dataflow)
+    set_(s, "graph", dict(graph))
+    set_(s, "hardware", dict(hardware))
+    set_(s, "composition", None)
+    set_(s, "conformance", False)
+    set_(s, "expect", None)
+    set_(s, "label", label)
+    set_(s, "workload", workload)
+    set_(s, "optimize", None)
+    set_(s, "_graph_kind", "tile")
+    return s
 
 
 def load_scenarios(path: str) -> list[Scenario]:

@@ -1,2 +1,83 @@
 """Closed forms, the composition layer, the exact-trace scheduler and the
-conformance harness of the port."""
+conformance harness of the port.
+
+* :mod:`.registry` — the reference's five dataflows by name (``engn``,
+  ``hygcn``, ``spmm_tiled``, ``spmm_unfused``, ``awb_gcn``), plus the
+  kernel specs ``spmm_tiled_cta`` / ``spmm_unfused_cta``;
+* :mod:`.compose` — ``MultiLayerModel`` and ``TiledGraphModel``;
+* :mod:`.trace` — exact edge-list tile schedules, counted by kernel K4;
+* :mod:`.sweep` — the paper's Figures 3-7 and the stacked all-dataflow
+  sweep (imported on its own: it is a client of :mod:`repro_torch.api`);
+* :mod:`.validation` — the Sec. IV golden totals and the registry
+  crosscheck;
+* :mod:`.conformance` — the kernels' byte schedules held to their closed
+  forms.
+"""
+
+from . import registry
+from .awb_gcn import AWB_GCN_SPEC
+from .compose import (FullGraphParams, MultiLayerModel, RESIDENCY_POLICIES,
+                      TiledGraphModel, tile_working_set_bits)
+from .conformance import (ConformanceRecord, OperatingPoint,
+                          default_operating_points, run_conformance,
+                          summarize_records)
+from .dataflow import DataflowSpec, MovementSpec, SpecModel, MOVEMENT_ROLES
+from .engn import ENGN_SPEC, EnGNModel
+from .hygcn import HYGCN_SPEC, HyGCNModel
+from .notation import (AWBGCNHardwareParams, EnGNHardwareParams,
+                       GraphTileParams, HyGCNHardwareParams,
+                       TiledSpMMHardwareParams, paper_default_graph)
+from .spmm_tiled import SPMM_TILED_SPEC
+from .spmm_unfused import SPMM_UNFUSED_SPEC
+from .terms import (AcceleratorModel, CACHE_CLASSES, L1_CLASSES, L2_CLASSES,
+                    ModelOutput, MovementTerm, tabulate)
+from .trace import (GraphTrace, TraceSchedule, clear_trace_cache,
+                    register_trace_dataset, reset_trace_stats,
+                    resolve_trace_dataset, trace_cache_info,
+                    trace_dataset_names)
+
+__all__ = [
+    "DataflowSpec",
+    "MovementSpec",
+    "SpecModel",
+    "MOVEMENT_ROLES",
+    "registry",
+    "EnGNModel",
+    "HyGCNModel",
+    "ENGN_SPEC",
+    "HYGCN_SPEC",
+    "SPMM_TILED_SPEC",
+    "SPMM_UNFUSED_SPEC",
+    "AWB_GCN_SPEC",
+    "ConformanceRecord",
+    "OperatingPoint",
+    "default_operating_points",
+    "run_conformance",
+    "summarize_records",
+    "MultiLayerModel",
+    "TiledGraphModel",
+    "FullGraphParams",
+    "RESIDENCY_POLICIES",
+    "tile_working_set_bits",
+    "GraphTrace",
+    "TraceSchedule",
+    "register_trace_dataset",
+    "resolve_trace_dataset",
+    "trace_dataset_names",
+    "clear_trace_cache",
+    "reset_trace_stats",
+    "trace_cache_info",
+    "GraphTileParams",
+    "EnGNHardwareParams",
+    "HyGCNHardwareParams",
+    "TiledSpMMHardwareParams",
+    "AWBGCNHardwareParams",
+    "paper_default_graph",
+    "AcceleratorModel",
+    "ModelOutput",
+    "MovementTerm",
+    "tabulate",
+    "L1_CLASSES",
+    "L2_CLASSES",
+    "CACHE_CLASSES",
+]

@@ -18,11 +18,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from .dataflow import DataflowSpec, MovementSpec
+from .dataflow import DataflowSpec, MovementSpec, SpecModel
 from .notation import EnGNHardwareParams, GraphTileParams
 from .terms import ceil, minimum
 
-__all__ = ["ENGN_SPEC"]
+__all__ = ["EnGNModel", "ENGN_SPEC"]
 
 
 def _f64(x) -> np.ndarray:
@@ -116,3 +116,14 @@ ENGN_SPEC = DataflowSpec(
                 "cache (Table III).",
 )
 
+
+class EnGNModel(SpecModel):
+    """Table III assembled: the EnGN per-tile data-movement model."""
+
+    spec = ENGN_SPEC
+
+    def fitting_factor(self, graph: GraphTileParams,
+                       hw: EnGNHardwareParams) -> np.ndarray:
+        """EnGN array-fitting factor K*N / M^2 studied in Fig. 6 (M = M')."""
+        N, _, K, _, _ = graph.astuple_f64()
+        return K * N / (_f64(hw.M) * _f64(hw.M_prime))

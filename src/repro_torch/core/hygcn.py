@@ -14,11 +14,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from .dataflow import DataflowSpec, MovementSpec
+from .dataflow import DataflowSpec, MovementSpec, SpecModel
 from .notation import GraphTileParams, HyGCNHardwareParams
 from .terms import ceil, minimum
 
-__all__ = ["HYGCN_SPEC"]
+__all__ = ["HyGCNModel", "HYGCN_SPEC"]
 
 
 def _f64(x) -> np.ndarray:
@@ -129,3 +129,8 @@ HYGCN_SPEC = DataflowSpec(
                 "dataflow with an inter-phase buffer (Table IV).",
 )
 
+
+class HyGCNModel(SpecModel):
+    """Table IV assembled: the HyGCN per-tile data-movement model."""
+
+    spec = HYGCN_SPEC

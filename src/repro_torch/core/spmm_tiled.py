@@ -1,11 +1,19 @@
-"""``spmm_tiled_cta``: the fused block-dense SpMM as the H100 kernel runs it.
+"""The fused block-dense SpMM as a dataflow: the reference's ``spmm_tiled``
+and ``spmm_tiled_cta``, the form the H100 kernel K1 is held to.
 
-The port spec of kernel K1 (:mod:`repro_torch.kernels.edge_aggregate`).  It
-keeps every movement form of the reference ``spmm_tiled`` spec unchanged
-except the three that the GPU schedule changes.  The reference encodes the
-TPU's sequential grid, which keeps a block resident while consecutive grid
-steps revisit it; on the H100 each CTA loads the blocks it touches and
-nothing carries over between CTAs:
+``spmm_tiled`` is a copy of the reference's closed form (``repro/core/
+spmm_tiled.py``): the adjacency of a K-vertex tile is cut into (Bn x Bk)
+dense blocks, each block-step does ``acc += A[i,j] @ X[j]``, and the
+combine weight is applied straight out of the accumulator, so there is no
+inter-phase buffer level.  Its defaults are the reference's (Bn = Bk =
+256) and it encodes the TPU's sequential grid, which keeps a block resident
+while consecutive grid steps revisit it.
+
+``spmm_tiled_cta`` is the port spec of kernel K1
+(:mod:`repro_torch.kernels.edge_aggregate`).  It keeps every movement form
+of ``spmm_tiled`` except the three that the GPU schedule changes: on the
+H100 each CTA loads the blocks it touches and nothing carries over between
+CTAs.
 
 * ``loadweights``: W is loaded once per CTA, ``nbn * N * T * sigma`` (the
   TPU loads it once in total);
@@ -17,7 +25,9 @@ nothing carries over between CTAs:
   is multiplied by ``nfc = ceil(N / FC)``.
 
 On the H100 every ``L2-L1`` level is the traffic from device memory (through
-the L2 cache) into a CTA's shared memory — the paper's L2-L1 level.
+the L2 cache) into a CTA's shared memory — the paper's L2-L1 level.  Both
+specs name the kernel analogue K1 as their runnable target; the harness
+holds it to ``spmm_tiled_cta``.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from .dataflow import DataflowSpec, MovementSpec
 from .notation import GraphTileParams, TiledSpMMHardwareParams
 from .terms import ceil
 
-__all__ = ["SPMM_TILED_CTA_SPEC", "feature_chunks"]
+__all__ = ["SPMM_TILED_SPEC", "SPMM_TILED_CTA_SPEC", "feature_chunks"]
 
 
 def _f64(x) -> np.ndarray:
@@ -43,30 +53,25 @@ def _blocks(g: GraphTileParams, hw: TiledSpMMHardwareParams):
     return nbn, nbk
 
 
-def feature_chunks(g: GraphTileParams, hw: TiledSpMMHardwareParams):
-    """Feature chunks per CTA: ``ceil(N / (ACC_ELEMS / Bn))``."""
-    N, _, _, _, _ = g.astuple_f64()
-    return ceil(N / (_f64(ACC_ELEMS) / _f64(hw.Bn)))
-
-
 def loadadjblocks(g: GraphTileParams, hw: TiledSpMMHardwareParams):
-    """Every (Bn x Bk) dense adjacency block, once per feature chunk."""
+    """Stream every (Bn x Bk) dense adjacency block once (zeros included)."""
     s_adj, B = _f64(hw.sigma_adj), _f64(hw.B)
     Bn, Bk = _f64(hw.Bn), _f64(hw.Bk)
     nbn, nbk = _blocks(g, hw)
-    nfc = feature_chunks(g, hw)
     block_bits = Bn * Bk * s_adj
-    iters = nfc * nbn * nbk * ceil(block_bits / B)
-    bits = nfc * nbn * nbk * block_bits
+    iters = nbn * nbk * ceil(block_bits / B)
+    bits = nbn * nbk * block_bits
     return bits, iters
 
 
 def loadvertblocks(g: GraphTileParams, hw: TiledSpMMHardwareParams):
-    """Every CTA loads every (Bk x N) feature block, chunk by chunk."""
+    """Stream a (Bk x N) feature block whenever its block index changes:
+    ``nbn * nbk`` fetches, except in the single-source-block schedule
+    (nbk == 1), where the TPU fetches X exactly once."""
     N, _, _, _, _ = g.astuple_f64()
     s, B, Bk = _f64(hw.sigma), _f64(hw.B), _f64(hw.Bk)
     nbn, nbk = _blocks(g, hw)
-    n_fetch = nbn * nbk
+    n_fetch = np.where(nbk > 1.0, nbn * nbk, 1.0)
     block_bits = Bk * N * s
     iters = n_fetch * ceil(block_bits / B)
     bits = n_fetch * block_bits
@@ -74,12 +79,12 @@ def loadvertblocks(g: GraphTileParams, hw: TiledSpMMHardwareParams):
 
 
 def loadweights(g: GraphTileParams, hw: TiledSpMMHardwareParams):
-    """Each CTA loads the whole (N x T) combine weight once."""
+    """Load the (N x T) combine weight once: it stays resident over the
+    whole TPU grid."""
     N, T, _, _, _ = g.astuple_f64()
     s, B = _f64(hw.sigma), _f64(hw.B)
-    nbn, _ = _blocks(g, hw)
-    iters = nbn * ceil(N * T * s / B)
-    bits = nbn * N * T * s
+    iters = ceil(N * T * s / B)
+    bits = N * T * s
     return bits, iters
 
 
@@ -112,17 +117,66 @@ def writeout(g: GraphTileParams, hw: TiledSpMMHardwareParams):
     return bits, iters
 
 
+def feature_chunks(g: GraphTileParams, hw: TiledSpMMHardwareParams):
+    """Feature chunks per CTA: ``ceil(N / (ACC_ELEMS / Bn))``."""
+    N, _, _, _, _ = g.astuple_f64()
+    return ceil(N / (_f64(ACC_ELEMS) / _f64(hw.Bn)))
+
+
+def loadadjblocks_cta(g: GraphTileParams, hw: TiledSpMMHardwareParams):
+    """Every (Bn x Bk) dense adjacency block, once per feature chunk."""
+    bits, iters = loadadjblocks(g, hw)
+    nfc = feature_chunks(g, hw)
+    return nfc * bits, nfc * iters
+
+
+def loadvertblocks_cta(g: GraphTileParams, hw: TiledSpMMHardwareParams):
+    """Every CTA loads every (Bk x N) feature block, chunk by chunk."""
+    N, _, _, _, _ = g.astuple_f64()
+    s, B, Bk = _f64(hw.sigma), _f64(hw.B), _f64(hw.Bk)
+    nbn, nbk = _blocks(g, hw)
+    n_fetch = nbn * nbk
+    block_bits = Bk * N * s
+    iters = n_fetch * ceil(block_bits / B)
+    bits = n_fetch * block_bits
+    return bits, iters
+
+
+def loadweights_cta(g: GraphTileParams, hw: TiledSpMMHardwareParams):
+    """Each CTA loads the whole (N x T) combine weight once."""
+    bits, iters = loadweights(g, hw)
+    nbn, _ = _blocks(g, hw)
+    return nbn * bits, nbn * iters
+
+
 def _runnable_analogue():
     from .conformance import FusedCtaAnalogue
     return FusedCtaAnalogue()
 
 
-SPMM_TILED_CTA_SPEC = DataflowSpec(
-    name="spmm_tiled_cta",
+SPMM_TILED_SPEC = DataflowSpec(
+    name="spmm_tiled",
     movements=(
         MovementSpec("loadadjblocks", "L2-L1", loadadjblocks, role="edges"),
         MovementSpec("loadvertblocks", "L2-L1", loadvertblocks, role="vertex_in"),
         MovementSpec("loadweights", "L2-L1", loadweights, role="weights"),
+        MovementSpec("accumulate", "L1-L1", accumulate, role="compute"),
+        MovementSpec("combinefuse", "L1-L1", combinefuse, role="compute"),
+        MovementSpec("writeout", "L1-L2", writeout, role="vertex_out"),
+    ),
+    hw_factory=TiledSpMMHardwareParams,
+    description="Generic fused block-dense SpMM (the repo's Pallas-kernel "
+                "analogue): no inter-phase buffer, dense topology blocks.",
+    runnable=_runnable_analogue,
+)
+
+SPMM_TILED_CTA_SPEC = DataflowSpec(
+    name="spmm_tiled_cta",
+    movements=(
+        MovementSpec("loadadjblocks", "L2-L1", loadadjblocks_cta, role="edges"),
+        MovementSpec("loadvertblocks", "L2-L1", loadvertblocks_cta,
+                     role="vertex_in"),
+        MovementSpec("loadweights", "L2-L1", loadweights_cta, role="weights"),
         MovementSpec("accumulate", "L1-L1", accumulate, role="compute"),
         MovementSpec("combinefuse", "L1-L1", combinefuse, role="compute"),
         MovementSpec("writeout", "L1-L2", writeout, role="vertex_out"),

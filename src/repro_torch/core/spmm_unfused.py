@@ -1,12 +1,18 @@
-"""``spmm_unfused_cta``: the unfused two-pass SpMM as the H100 kernels run it.
+"""The unfused two-pass block-dense SpMM as a dataflow: the reference's
+``spmm_unfused`` and ``spmm_unfused_cta``, the form the H100 kernels K2 + K3
+are held to.
 
-The port spec of kernels K2 + K3
-(:mod:`repro_torch.kernels.edge_aggregate_unfused`).  Pass 1 spills the
-(K x N) aggregate to memory (``writeinterphase``); pass 2 reads it back
-(``readinterphase``) over the grid ``(nbn,)``, loading W once per CTA.  All
-other levels are the ``spmm_tiled_cta`` forms, so the fused-minus-unfused
-delta is exactly the two inter-phase terms, which are copied unchanged from
-the reference ``spmm_unfused`` spec.
+``spmm_unfused`` is a copy of the reference's closed form (``repro/core/
+spmm_unfused.py``), the HyGCN inter-phase analogue: pass 1 spills the
+(K x N) aggregate (``writeinterphase``), pass 2 reads it back
+(``readinterphase``) and combines.  Every other level is ``spmm_tiled``'s,
+so the fused-minus-unfused delta is exactly the two inter-phase terms.
+
+``spmm_unfused_cta`` is the port spec of kernels K2 + K3
+(:mod:`repro_torch.kernels.edge_aggregate_unfused`): the same two
+inter-phase terms over the ``spmm_tiled_cta`` forms, W loaded once per CTA
+of pass 2.  Both specs name the kernel pair as their runnable target; the
+harness holds it to ``spmm_unfused_cta``.
 """
 
 from __future__ import annotations
@@ -14,10 +20,12 @@ from __future__ import annotations
 from .dataflow import DataflowSpec, MovementSpec
 from .notation import GraphTileParams, TiledSpMMHardwareParams
 from .spmm_tiled import (_blocks, _f64, accumulate, combinefuse,
-                         loadadjblocks, loadvertblocks, loadweights, writeout)
+                         loadadjblocks, loadadjblocks_cta, loadvertblocks,
+                         loadvertblocks_cta, loadweights, loadweights_cta,
+                         writeout)
 from .terms import ceil
 
-__all__ = ["SPMM_UNFUSED_CTA_SPEC"]
+__all__ = ["SPMM_UNFUSED_SPEC", "SPMM_UNFUSED_CTA_SPEC"]
 
 
 def writeinterphase(g: GraphTileParams, hw: TiledSpMMHardwareParams):
@@ -42,21 +50,39 @@ def _runnable_analogue():
     return UnfusedCtaAnalogue()
 
 
-SPMM_UNFUSED_CTA_SPEC = DataflowSpec(
-    name="spmm_unfused_cta",
-    movements=(
-        MovementSpec("loadadjblocks", "L2-L1", loadadjblocks, role="edges"),
-        MovementSpec("loadvertblocks", "L2-L1", loadvertblocks, role="vertex_in"),
-        MovementSpec("accumulate", "L1-L1", accumulate, role="compute"),
-        MovementSpec("writeinterphase", "L1-L2", writeinterphase, role="interphase"),
-        MovementSpec("readinterphase", "L2-L1", readinterphase, role="interphase"),
-        MovementSpec("loadweights", "L2-L1", loadweights, role="weights"),
-        MovementSpec("combine", "L1-L1", combinefuse, role="compute"),
-        MovementSpec("writeout", "L1-L2", writeout, role="vertex_out"),
-    ),
-    hw_factory=TiledSpMMHardwareParams,
-    description="Unfused two-pass block-dense SpMM as the H100 kernels K2 + "
-                "K3 run it: the aggregate round-trips through device memory "
-                "between two launches.",
-    runnable=_runnable_analogue,
-)
+def _unfused_spec(name: str, description: str, adj, vert,
+                  weights) -> DataflowSpec:
+    return DataflowSpec(
+        name=name,
+        movements=(
+            MovementSpec("loadadjblocks", "L2-L1", adj, role="edges"),
+            MovementSpec("loadvertblocks", "L2-L1", vert, role="vertex_in"),
+            MovementSpec("accumulate", "L1-L1", accumulate, role="compute"),
+            MovementSpec("writeinterphase", "L1-L2", writeinterphase,
+                         role="interphase"),
+            MovementSpec("readinterphase", "L2-L1", readinterphase,
+                         role="interphase"),
+            MovementSpec("loadweights", "L2-L1", weights, role="weights"),
+            # The fused kernel's on-array combine, shared so that the
+            # fused-minus-unfused delta stays the two interphase terms.
+            MovementSpec("combine", "L1-L1", combinefuse, role="compute"),
+            MovementSpec("writeout", "L1-L2", writeout, role="vertex_out"),
+        ),
+        hw_factory=TiledSpMMHardwareParams,
+        description=description,
+        runnable=_runnable_analogue,
+    )
+
+
+SPMM_UNFUSED_SPEC = _unfused_spec(
+    "spmm_unfused",
+    "Unfused two-pass block-dense SpMM (HyGCN inter-phase analogue): the "
+    "aggregate round-trips through HBM between separately-compiled "
+    "aggregation and combination kernels.",
+    loadadjblocks, loadvertblocks, loadweights)
+
+SPMM_UNFUSED_CTA_SPEC = _unfused_spec(
+    "spmm_unfused_cta",
+    "Unfused two-pass block-dense SpMM as the H100 kernels K2 + K3 run it: "
+    "the aggregate round-trips through device memory between two launches.",
+    loadadjblocks_cta, loadvertblocks_cta, loadweights_cta)

@@ -33,6 +33,7 @@ from repro_torch.core.terms import tabulate
 
 ROOT = Path(__file__).resolve().parents[1]
 TRACE_SMOKE = ROOT / "examples" / "scenarios" / "trace_smoke.json"
+COMPARISON = ROOT / "examples" / "scenarios" / "comparison.json"
 DATAFLOWS = ("engn", "hygcn", "awb_gcn")
 POWER_LAW = {"n_nodes": 2000, "n_edges": 12000, "seed": 0, "alpha": 1.6}
 CAPS = [1000, 500, 250, 125, 62, 31]
@@ -214,22 +215,36 @@ def test_trace_smoke_matches_the_reference_planner():
 
 
 def test_comparison_batch_matches_the_reference():
-    """The reference's comparison batch, minus the dataflows and the
-    conformance check the port does not carry, with its pins intact."""
-    data = json.loads((ROOT / "examples/scenarios/comparison.json"
-                       ).read_text())["scenarios"]
-    keep = [d for d in data if d["dataflow"] in DATAFLOWS
-            and not d.get("conformance")]
-    assert len(keep) >= 4
-    port = evaluate_scenarios([Scenario.from_dict(d) for d in keep])
-    ref = j_evaluate([JScenario.from_dict(d) for d in keep])
+    """The reference's comparison batch, whole: all five dataflows, the
+    conformance check on the CPU and the five pins."""
+    port = evaluate_scenarios(load_scenarios(str(COMPARISON)), device="cpu")
+    from repro.api import load_scenarios as j_load
+    ref = j_evaluate(j_load(str(COMPARISON)))
     assert not port.expect_failures()
+    assert sum(r.expect_ok is True for r in port.results) == 5
     assert port.n_evaluations == ref.n_evaluations
+    assert port.evaluations_per_dataflow() == ref.evaluations_per_dataflow()
     for got, expect in zip(port.results, ref.results):
-        assert got.scenario.graph_kind == expect.scenario.graph_kind
+        assert got.scenario.to_dict() == expect.scenario.to_dict()
         assert got.total_bits == expect.total_bits
+        assert got.total_iterations == expect.total_iterations
         assert got.breakdown == expect.breakdown
+        assert got.iteration_breakdown == expect.iteration_breakdown
         assert got.n_tiles == expect.n_tiles
+        assert (got.conformance is None) == (expect.conformance is None)
+    (conf,) = [r.conformance for r in port.results if r.conformance]
+    assert port.results[2].scenario.dataflow == "spmm_tiled"
+    assert conf["checked"] and conf["ok"] and conf["violations"] == 0
+    assert conf["spec"] == "spmm_tiled_cta"
+    assert conf["numerics_max_rel_err"] < 1e-5
+    # The bytes are the spmm_tiled_cta form's at the default point (the
+    # reference's own conformance bytes follow the TPU schedule).
+    from repro_torch.core.conformance import FusedCtaAnalogue, OperatingPoint
+    spec = registry.get("spmm_tiled_cta")
+    pt = OperatingPoint(256, 16, 8, 128, 128)
+    g, hw = FusedCtaAnalogue().graph_hw(spec, pt)
+    offchip = float(spec.evaluate(g, hw).offchip_bits()) / 8.0
+    assert conf["hbm_analytical_bytes"] == conf["hbm_measured_bytes"] == offchip
 
 
 def test_capacity_sweep_is_one_group_and_round_trips():
@@ -254,10 +269,8 @@ def test_unported_features_name_their_roadmap_item(feature):
             "composition": {"tile_vertices": 512.0}}
     if feature in ("hetero", "minibatch"):
         base["graph"]["kind"] = feature
-    elif feature == "optimize":
-        base["optimize"] = {"objective": "movement"}
     else:
-        base["conformance"] = True
+        base["optimize"] = {"objective": "movement"}
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item"):
         Scenario.from_dict(base)
 
@@ -276,7 +289,7 @@ def test_schema_rejections_match_reference():
     with pytest.raises(ValueError, match="unknown hardware override"):
         evaluate_scenarios([Scenario.tile("engn", hardware={"Bogus": 1.0})])
     with pytest.raises(KeyError, match="unknown port dataflow"):
-        evaluate_scenarios([Scenario.tile("spmm_tiled")])
+        evaluate_scenarios([Scenario.tile("spmm_bogus")])
 
 
 def test_evaluate_scenarios_without_a_card_raises(monkeypatch):
@@ -287,3 +300,79 @@ def test_evaluate_scenarios_without_a_card_raises(monkeypatch):
     # Tile and full scenarios never touch a device.
     assert evaluate_scenarios([Scenario.tile("engn")]).results[0].total_bits \
         == SEC4_GOLDEN_TOTALS["engn"][0]
+
+
+# ---------------------------------------------------------------------------
+# Templates and front-door conformance.
+# ---------------------------------------------------------------------------
+def test_comparison_batch_through_the_cli(tmp_path, capsys, monkeypatch):
+    from repro_torch.api import cli
+    path = tmp_path / "comparison.json"
+    argv = ["--scenario", str(COMPARISON), "--json", str(path)]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    for name, (bits, _) in SEC4_GOLDEN_TOTALS.items():
+        assert f"{name}@sec4-defaults,paper-sec4,{name},tile,{bits}" in out
+    payload = json.loads(path.read_text())
+    assert payload["status"] == "ok" and payload["n_scenarios"] == 8
+    assert [r.get("expect_ok") for r in payload["results"]].count(True) == 5
+    conf = payload["results"][2]["conformance"]
+    assert conf["checked"] and conf["ok"] and conf["spec"] == "spmm_tiled_cta"
+    assert ["conformance" in r for r in payload["results"]] == [
+        i == 2 for i in range(8)]
+    # Without a card the default device refuses, at the CLI and below it.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(argv) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_scenarios([Scenario.tile("spmm_tiled", conformance=True)])
+
+
+def test_template_fig3_json_rows_match_the_reference(tmp_path, capsys):
+    from repro.api import template as j_template
+    from repro_torch.api import cli
+    path = tmp_path / "fig3.json"
+    assert cli.main(["--template", "fig3", "--device", "cpu", "--json",
+                     str(path)]) == 0
+    assert "# 56 scenarios in 1 broadcast evaluations" in (
+        capsys.readouterr().out)
+    ref = j_evaluate(j_template("fig3").scenarios)
+    payload = json.loads(path.read_text())
+    assert payload["results"] == ref.to_dict()["results"]
+    assert payload["n_evaluations"] == ref.n_evaluations == 1
+    from repro_torch.api import template
+    assert evaluate_scenarios(template("fig3").scenarios).rows() == ref.rows()
+
+
+@pytest.mark.parametrize("name,item", [("rgcn_cora", "item 4a"),
+                                       ("tune_cora", "item 4e")])
+def test_unported_templates_name_their_roadmap_item(name, item):
+    from repro_torch.api import template, template_names
+    assert name in template_names()
+    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
+        template(name)
+
+
+def test_dataflows_flag_names_its_roadmap_item(capsys):
+    from repro_torch.api import cli
+    assert cli.main(["--template", "fig3", "--dataflows", "engn",
+                     "--device", "cpu"]) == 2
+    assert "ROADMAP.md Queue 1 item 4f" in capsys.readouterr().err
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_conformance_scenario_on_cuda_launches_k1(cuda_device):
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    res = evaluate_scenarios([Scenario.tile("spmm_tiled", conformance=True)],
+                             device=cuda_device)
+    conf = res.results[0].conformance
+    assert conf["checked"] and conf["ok"] and conf["spec"] == "spmm_tiled_cta"
+    assert ops.LAUNCHES["edge_aggregate"] >= 1

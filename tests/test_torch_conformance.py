@@ -398,15 +398,21 @@ def test_verify_numerics_and_cli_on_cpu(tmp_path, capsys):
 
 
 def test_port_registry_is_its_own_namespace():
-    assert registry.names() == ["engn", "hygcn", "awb_gcn",
-                                "spmm_tiled_cta", "spmm_unfused_cta"]
-    assert registry.runnable_names() == ["spmm_tiled_cta", "spmm_unfused_cta"]
+    assert registry.names() == ref_registry.names() == (
+        "engn", "hygcn", "spmm_tiled", "spmm_unfused", "awb_gcn")
+    assert registry.runnable_names() == ("spmm_tiled", "spmm_unfused")
+    # The kernel specs resolve by name but stay out of the listing.
+    for name in ("spmm_tiled_cta", "spmm_unfused_cta"):
+        assert registry.get(name).name == name
+        assert name not in registry.names()
     with pytest.raises(KeyError, match="unknown port dataflow"):
-        registry.get("spmm_tiled")
+        registry.get("spmm_bogus")
     # The closed forms the port shares with the reference are its own copies.
     shared = set(registry.names()) & set(ref_registry.names())
-    assert shared == {"engn", "hygcn", "awb_gcn"}
+    assert shared == set(ref_registry.names())
     assert all(registry.get(n) is not ref_registry.get(n) for n in shared)
+    assert all(type(registry.get(n)).__module__.startswith("repro_torch.")
+               for n in shared)
 
 
 def test_operating_points_are_the_reference_ten_plus_cora():
