@@ -108,7 +108,36 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    ported template (Figures 3-7, ``comparison``, ``cora_end_to_end``,
    ``cora_trace``) and ``sweep_accelerators()`` is evaluated, timed on the
    host clock (median of 20) and its grids' SHA-256 held to a digest
-   pinned from the JAX reference; the phase's launches join the counts.
+   pinned from the JAX reference; the phase's launches join the counts;
+16. the static model auditor and the conformance preflight: the
+   in-process ``python -m repro_torch.analysis --strict`` (the five
+   registered dataflows and the composition forms strict-clean, HyGCN's 4
+   Table IV findings and EnGN's ``M_prime`` waived; the kernel specs
+   ``spmm_tiled_cta`` / ``spmm_unfused_cta`` clean; the lint of
+   ``src/repro_torch/core`` clean; every mutant of the battery caught),
+   the provenance table equal to ``DESIGN.md``'s committed appendix, the
+   harness on the card passing its preflight with phase 4's 204 records
+   (equal to the records with the gate bypassed), and a ``drop-sigma``
+   mutant of ``spmm_tiled_cta`` swapped into the registry refused before
+   anything launches (every launch count unchanged); the host time of a
+   cold ``audit_registry()`` and of the mutation battery;
+17. typed traces through K4: ``typed_power_law`` at ogbn-mag's node and
+   edge counts and its four relation types (V = 1,939,743, E =
+   21,111,007, R = 4, seed 0; the repo's seeded power law, not the
+   dataset).  The counters are zeroed, then every relation's schedules at
+   the 16 capacities V/2 ... V/2^16 come from K4 (R x 16 launches),
+   ``examples/scenarios/hetero_smoke.json`` runs through the front door on
+   the card (its four pins held) and the ``rgcn_cora`` template is
+   evaluated (its grids' SHA-256 held to a digest pinned from the JAX
+   reference); the counters are read right after.  The torch-engine
+   schedules equal the NumPy engine's bit for bit, relation by relation;
+   the relations' edge counts sum to E; at the smallest, middle and
+   largest capacity each relation's schedule equals that of a
+   ``GraphTrace`` built independently from the edges of that relation.
+   Times: generation, typed factorization, the torch- and NumPy-engine
+   sweeps (host clock), K4 summed over the 64 launches (CUDA events,
+   median of 20) beside its byte bound, and ``RelationalGraphModel`` for
+   ``engn``, ``hygcn`` and ``awb_gcn`` over the 16 capacities.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -281,6 +310,27 @@ FIGURE_DIGESTS = {
         "cada68b46fc29f0d43c49d6abd9979635c3f3d9bd548936578ef9ef0951b0025",
 }
 FIGURE_REPEATS = 20
+#: ``grid_digest`` of the ``rgcn_cora`` template's evaluated groups, as the
+#: JAX reference gives them on the CPU (tests/test_torch_hetero.py holds
+#: this pin to it).
+RGCN_CORA_DIGEST = (
+    "bac5dcea8ce91f4f38a12f9d76b3a568794b534cd0c92bed7c9448abe51f9c9a")
+#: The repo's typed front-door batch: three hetero dataflows and one
+#: sampled-minibatch episode set, each with a pinned total.
+HETERO_SMOKE = (Path(__file__).resolve().parent / "examples" / "scenarios"
+                / "hetero_smoke.json")
+HETERO_SMOKE_PINS = (67006960.0, 6590008.0, 3476624.0, 2783920.0)
+#: ogbn-mag's node and edge counts and its four relation types (Hu et al.,
+#: "Open Graph Benchmark", NeurIPS 2020); the edges are the repo's seeded
+#: typed power law, not the dataset.
+TYPED_TRACE = {"n_nodes": 1_939_743, "n_edges": 21_111_007,
+               "n_relations": 4, "seed": 0}
+TYPED_DATAFLOWS = ("engn", "hygcn", "awb_gcn")
+#: The reference's mutation battery over its five dataflows: drop-sigma and
+#: swap-NT for each, degenerate-minimum for the three whose forms call
+#: ``minimum``.
+MUTANTS = 13
+DESIGN = Path(__file__).resolve().parent / "DESIGN.md"
 
 
 def k5_work(b: int, s: int, h: int, hk: int, d: int) -> tuple[int, int]:
@@ -817,6 +867,243 @@ def figure_phases(dev, card: str, launches: dict) -> None:
     for kname, count in ops.LAUNCHES.items():
         launches[kname] += count
     print(f"# figure phase launches: {json.dumps(ops.LAUNCHES)}")
+
+
+def analysis_phase(dev, card: str) -> None:
+    """Phase 16: the static model auditor and the conformance preflight.
+    Launches nothing."""
+    import dataclasses
+
+    from repro_torch.analysis import (audit_composition_forms,
+                                      audit_registry, audit_spec,
+                                      clear_analysis_cache, lint_paths,
+                                      mutate_spec, render_provenance,
+                                      run_mutation_battery)
+    from repro_torch.analysis.__main__ import extract_committed_provenance
+    from repro_torch.core import conformance, registry
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    clear_analysis_cache()
+    t0 = time.perf_counter()
+    audits = audit_registry()
+    audit_ms = 1e3 * (time.perf_counter() - t0)
+    audits["composition"] = audit_composition_forms()
+    for name, a in sorted(audits.items()):
+        print(f"# audit {name}: {'ok' if a.ok else 'FAIL'} movements="
+              f"{len(a.movements)} unit_errors={a.unit_error_count} "
+              f"waived={a.waived_issue_count} overflow_findings="
+              f"{a.overflow_count} dead_hw={','.join(a.dead_hw) or '-'}")
+        if not a.ok:
+            raise AssertionError(f"audit {name}: {a.strict_errors()}")
+    if (audits["hygcn"].waived_issue_count != 4
+            or audits["engn"].waived_dead_hw != ("M_prime",)):
+        raise AssertionError("the HyGCN / EnGN audit waivers changed")
+    for name in ("spmm_tiled_cta", "spmm_unfused_cta"):
+        errors = audit_spec(registry.get(name)).strict_errors()
+        print(f"# audit {name}: {'ok' if not errors else errors}")
+        if errors:
+            raise AssertionError(f"audit {name}: {errors}")
+    violations = lint_paths()
+    print(f"# lint src/repro_torch/core: {len(violations)} violation(s)")
+    if violations:
+        raise AssertionError("; ".join(str(v) for v in violations))
+    t0 = time.perf_counter()
+    outcomes = run_mutation_battery()
+    battery_ms = 1e3 * (time.perf_counter() - t0)
+    caught = sum(o.caught for o in outcomes)
+    print(f"# mutation battery: {caught}/{len(outcomes)} mutants caught")
+    if caught != len(outcomes) or len(outcomes) != MUTANTS:
+        raise AssertionError(f"mutation battery: {outcomes}")
+    committed = extract_committed_provenance(DESIGN.read_text())
+    if committed != render_provenance(audits):
+        raise AssertionError("the provenance table differs from DESIGN.md's "
+                             "appendix")
+    print(f"# provenance: equal to DESIGN.md's appendix "
+          f"({sum(len(a.movements) for a in audits.values())} movements)")
+
+    # The harness on the card behind its preflight, then a mis-transcribed
+    # kernel spec refused before anything is allocated or launched.
+    records = conformance.run_conformance(device=dev)
+    bypass = conformance.run_conformance(device=dev, preflight_audit=False)
+    if ([r.as_row() for r in records] != [r.as_row() for r in bypass]
+            or len(records) != 204 or not all(r.ok for r in records)):
+        raise AssertionError(f"conformance behind the preflight: "
+                             f"{len(records)} records")
+    print(f"# preflight: run_conformance passed the gate with "
+          f"{len(records)} records, all ok, equal to the ungated run")
+    mutant = next(m for m in mutate_spec(registry.get("spmm_tiled_cta"))
+                  if m.name == "drop-sigma")
+    swapped = dataclasses.replace(mutant.spec, name="spmm_tiled_cta")
+    before = dict(ops.LAUNCHES)
+    with registry.temporarily_registered(swapped, overwrite=True):
+        try:
+            conformance.run_conformance(device=dev)
+        except AssertionError as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError("the preflight let a drop-sigma mutant of "
+                                 "spmm_tiled_cta through")
+    torch.cuda.synchronize()
+    if not refusal.startswith("static model audit failure for "
+                              "'spmm_tiled_cta'"):
+        raise AssertionError(f"preflight refusal: {refusal}")
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError("the refused conformance run launched a "
+                             "kernel")
+    print(f"# preflight: drop-sigma spmm_tiled_cta refused before any "
+          f"launch (K1 launches {before['edge_aggregate']} before and "
+          f"after): {refusal[:120]}...")
+    print(f"# time audit_registry (cold cache) {audit_ms:.1f} ms, mutation "
+          f"battery {battery_ms:.1f} ms (host clock); phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}")
+
+
+def typed_phases(dev, card: str, launches: dict) -> None:
+    """Phase 17: typed traces through K4 at ogbn-mag's size.  Adds the
+    phase's launches to ``launches``."""
+    import tempfile
+
+    from repro_torch.api import cli, evaluate_groups, template
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.core.compose import (FullGraphParams,
+                                          RelationalGraphModel)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+
+    k4 = "segment_reduce.schedule_counts"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tr = trace_mod.resolve_trace_dataset("typed_power_law", TYPED_TRACE)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr._typed_factorization()
+    fact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rels = tr.relation_traces()
+    carve_s = time.perf_counter() - t0
+    R, V, E = tr.n_relations, tr.n_nodes, tr.n_edges
+    counts = tr.relation_edge_counts()
+    if int(counts.sum()) != E or counts.shape != (R,):
+        raise AssertionError(f"relation edge counts {counts} vs E={E}")
+    U = [rel._pair_factorization()[0].size for rel in rels]
+    caps = pow2_caps(V, SWEEP_POINTS)
+    print(f"# typed set-up: typed_power_law V={V} E={E} R={R}, edges per "
+          f"relation {counts.tolist()} (sum = E), unique pairs {U}; "
+          f"generated in {gen_s:.3f} s, typed factorization {fact_s:.3f} s, "
+          f"relation traces carved in {carve_s:.3f} s (host clock); "
+          f"capacities {caps}")
+
+    # The typed path through the entry points a user calls.
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sweep = [rel.schedules(caps, device=dev) for rel in rels]
+    torch.cuda.synchronize()
+    torch_ms = 1e3 * (time.perf_counter() - t0)
+    sweep_launches = ops.LAUNCHES[k4]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "hetero_smoke.json"
+        rc = cli.main(["--scenario", str(HETERO_SMOKE), "--device", "cuda",
+                       "--json", str(path)])
+        payload = json.loads(path.read_text()) if rc == 0 else None
+    smoke_launches = ops.LAUNCHES[k4] - sweep_launches
+    front_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    groups = evaluate_groups(template("rgcn_cora").scenarios, device=dev)
+    torch.cuda.synchronize()
+    rgcn_s = time.perf_counter() - t0
+    phase = dict(ops.LAUNCHES)
+    print(f"# typed path launches: {json.dumps(phase)} ({sweep_launches} "
+          f"from the sweep, {smoke_launches} from hetero_smoke.json)")
+    if sweep_launches != R * len(caps) or smoke_launches < 1:
+        raise AssertionError(f"{k4} launches on the typed path: "
+                             f"{sweep_launches}, {smoke_launches}")
+    if rc != 0:
+        raise AssertionError(f"the front door exited {rc} on "
+                             "hetero_smoke.json")
+    got_pins = tuple(r["total_bits"] for r in payload["results"])
+    if (got_pins != HETERO_SMOKE_PINS
+            or [r["expect_ok"] for r in payload["results"]] != [True] * 4):
+        raise AssertionError(f"hetero_smoke pins: {got_pins}")
+    print(f"# hetero_smoke: total_bits {got_pins} == pins")
+    digest = grid_digest([(g.output, len(g.indices)) for g in groups])
+    print(f"# rgcn_cora: {len(groups)} evaluations, sha256 {digest} "
+          f"({'= pin' if digest == RGCN_CORA_DIGEST else 'PIN ' + RGCN_CORA_DIGEST})")
+    if digest != RGCN_CORA_DIGEST:
+        raise AssertionError("rgcn_cora's grids differ from the reference's")
+
+    # The NumPy engine relation by relation (the LRU is engine-blind, so it
+    # is cleared first), and the drift gate against traces built from each
+    # relation's own edges.
+    tr.clear_schedules()
+    t0 = time.perf_counter()
+    expect = [rel.schedules(caps, engine="numpy") for rel in rels]
+    numpy_ms = 1e3 * (time.perf_counter() - t0)
+    for r in range(R):
+        same_schedules(sweep[r], expect[r],
+                       f"relation {r}: torch vs numpy engine")
+    picks = (0, len(caps) // 2, len(caps) - 1)
+    t0 = time.perf_counter()
+    for r in range(R):
+        mask = tr.rels == r
+        solo = trace_mod.GraphTrace(tr.senders[mask], tr.receivers[mask], V)
+        same_schedules([sweep[r][i] for i in picks],
+                       solo.schedules([caps[i] for i in picks],
+                                      engine="numpy"),
+                       f"relation {r} vs its own GraphTrace")
+    drift_s = time.perf_counter() - t0
+    print(f"# typed sweep: {R} relations x {len(caps)} capacities "
+          "bit-identical to the NumPy engine; at capacities "
+          f"{[caps[i] for i in picks]} every relation equals a GraphTrace "
+          "built from its own edges")
+    tr.clear_schedules()
+    for rel in rels:
+        rel.schedules(caps, device=dev)
+    full = FullGraphParams(V=float(V), E=float(E), N=30.0, T=5.0)
+    t_models = time.perf_counter()
+    model_ms = {}
+    for name in TYPED_DATAFLOWS:
+        model = RelationalGraphModel(name, tile_vertices=np.asarray(
+            caps, dtype=np.float64), trace=tr, device=dev)
+        out = model.evaluate(full)
+        total = np.asarray(out.total_bits())
+        if total.shape != (len(caps),) or not np.all(np.isfinite(total)):
+            raise AssertionError(f"{name} relational totals {total}")
+        t0 = time.perf_counter()
+        model.evaluate(full)
+        model_ms[name] = 1e3 * (time.perf_counter() - t0)
+
+    models_s = time.perf_counter() - t_models
+    # K4 over the 64 (relation, capacity) launches, beside its byte bound.
+    t0 = time.perf_counter()
+    k4_ms = bound_ms = 0.0
+    for rel in rels:
+        tensors = rel._device_factorization(dev)
+        u, s_idx = tensors[0].shape[0], tensors[1].element_size()
+        for cap in caps:
+            n_tiles, K = rel._geometry(cap)
+            k4_ms += time_ms(torch, lambda: sr.schedule_counts(
+                *tensors, K, n_tiles, rel.n_edges))
+            bound_ms += 1e3 * (u * (2 * s_idx + 1 + 8) + 16 * n_tiles) \
+                / PEAK_BYTES_PER_S
+    for kname, count in phase.items():
+        launches[kname] += count
+    print(f"# time typed sweep ({R} x {len(caps)} schedules, host clock): "
+          f"torch engine {torch_ms:.1f} ms, numpy engine {numpy_ms:.1f} ms; "
+          f"K4 over the {R * len(caps)} launches {k4_ms:.4f} ms (CUDA "
+          f"events, median of 20 each), byte bound {bound_ms:.4f} ms "
+          f"({100 * bound_ms / k4_ms:.1f}%); RelationalGraphModel over the "
+          f"{len(caps)} capacities (schedules cached): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in model_ms.items())
+          + f" | {card}")
+    print(f"# phase 17 took {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock): generation {gen_s:.1f}, factorization and carving "
+          f"{fact_s + carve_s:.1f}, torch sweep {torch_ms / 1e3:.2f}, front "
+          f"door {front_s:.2f}, rgcn_cora {rgcn_s:.2f}, numpy engine "
+          f"{numpy_ms / 1e3:.2f}, drift gate {drift_s:.1f}, relational "
+          f"models {models_s:.1f}, K4 timing "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def percentile(samples, q: float) -> float:
@@ -1605,6 +1892,8 @@ def main() -> int:
     serving_phases(dev, card, launches, max_abs, totals)
     dlrm_phases(dev, card, launches, max_abs, totals)
     figure_phases(dev, card, launches)
+    analysis_phase(dev, card)
+    typed_phases(dev, card, launches)
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -1620,7 +1909,8 @@ def main() -> int:
         })
     print(f"# wall time {time.perf_counter() - t_start:.1f} s; K1-K3 times "
           "are sums over the two GCN-Cora layers, f32; K4's over the 16 "
-          "capacities of the 10^7-edge sweep; K5's one layer of the "
+          "capacities of the 10^7-edge sweep (its launches include phase "
+          "17's typed path); K5's one layer of the "
           "SmolLM-135M prefill, bf16; K6's the 26 tables of one serve_bulk "
           "forward of DLRM-MLPerf, f32")
     print(json.dumps({"kernels": kernels}))

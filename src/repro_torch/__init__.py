@@ -11,18 +11,24 @@ its own copy.  Layout mirrors ``repro``:
 * :mod:`repro_torch.core` — the closed forms (the reference's ``engn``,
   ``hygcn``, ``spmm_tiled``, ``spmm_unfused`` and ``awb_gcn``, and the
   kernels' ``spmm_tiled_cta`` / ``spmm_unfused_cta``), the composition
-  layer, the exact-trace scheduler, the conformance harness, the paper's
-  Figures 3-7 and the Sec. IV golden totals;
+  layer (with the typed-graph ``RelationalGraphModel``), the exact-trace
+  scheduler for plain and typed traces, the conformance harness, the
+  paper's Figures 3-7 and the Sec. IV golden totals;
+* :mod:`repro_torch.analysis` — the static model auditor (``python -m
+  repro_torch.analysis``): units, symbol provenance and float64 exactness
+  of every closed form, an AST linter and a mutation battery; the
+  conformance harness refuses a spec it fails;
 * :mod:`repro_torch.api` — the scenario front door
-  (``python -m repro_torch.api``) for tile, full and trace scenarios, with
-  the paper's figures as named templates and conformance checks that run
-  K1-K3;
+  (``python -m repro_torch.api``) for tile, full, trace, hetero and
+  minibatch scenarios, with the paper's figures as named templates and
+  conformance checks that run K1-K3;
 * :mod:`repro_torch.models` / :mod:`repro_torch.configs` — the dense
   transformer that serves SmolLM-135M (prefill through K5, decode over KV
   caches), DLRM serving (every embedding bag through K6, retrieval
   scoring), their published configs and the recsys shape cells;
 * :mod:`repro_torch.data` / :mod:`repro_torch.params` — seeded Cora-sized
-  inputs, the trace datasets' graph generators, seeded Criteo batches, and
+  inputs, the trace datasets' graph generators, the minibatch neighbor
+  sampler, seeded Criteo batches, and
   the GCN, transformer and DLRM weights carried across from the JAX
   layout.
 

@@ -2,11 +2,12 @@
 
 * :class:`~repro_torch.api.scenario.Scenario` /
   :class:`~repro_torch.api.scenario.Composition`: pure-data,
-  JSON-round-trippable descriptions of one evaluation (``tile``, ``full``
-  and ``trace`` graph kinds, optionally with ``conformance=True``);
+  JSON-round-trippable descriptions of one evaluation (``tile``, ``full``,
+  ``trace``, ``hetero`` and ``minibatch`` graph kinds, optionally with
+  ``conformance=True``);
 * :func:`~repro_torch.api.planner.evaluate_scenarios`: one broadcast
-  closed-form call per plan group, trace schedules counted by kernel K4,
-  conformance checks run with kernels K1-K3;
+  closed-form call per plan group, trace and typed-trace schedules counted
+  by kernel K4, conformance checks run with kernels K1-K3;
 * :mod:`~repro_torch.api.templates`: the paper's figures as named scenario
   batches, which the ``figN_*`` functions of :mod:`repro_torch.core.sweep`
   evaluate;
@@ -17,8 +18,9 @@
 from .planner import (BatchResult, GroupResult, ScenarioResult,
                       coalesce_scenarios, evaluate_groups, evaluate_scenario,
                       evaluate_scenarios)
-from .scenario import (Composition, FULL_GRAPH_FIELDS, Scenario,
-                       TILE_GRAPH_FIELDS, TRACE_GRAPH_FIELDS, load_scenarios)
+from .scenario import (Composition, FULL_GRAPH_FIELDS, HETERO_GRAPH_FIELDS,
+                       MINIBATCH_GRAPH_FIELDS, Scenario, TILE_GRAPH_FIELDS,
+                       TRACE_GRAPH_FIELDS, load_scenarios)
 from .templates import (TEMPLATES, TemplateBatch, template, template_names,
                         tile_scenarios_from_graph, trace_scenarios_from_graph)
 
@@ -28,6 +30,8 @@ __all__ = [
     "TILE_GRAPH_FIELDS",
     "FULL_GRAPH_FIELDS",
     "TRACE_GRAPH_FIELDS",
+    "HETERO_GRAPH_FIELDS",
+    "MINIBATCH_GRAPH_FIELDS",
     "load_scenarios",
     "ScenarioResult",
     "GroupResult",

@@ -6,9 +6,9 @@ Evaluates scenario batches and prints one CSV row per scenario:
   bare list); repeatable;
 * ``--template fig3`` — a named template (:mod:`repro_torch.api.templates`:
   the paper's Figures 3-7, ``comparison``, ``cora_end_to_end``,
-  ``cora_trace``); repeatable.  ``--list`` names them all.
+  ``cora_trace``, ``rgcn_cora``); repeatable.  ``--list`` names them all.
 
-Trace scenarios count their exact schedules with kernel K4, and
+Trace and hetero scenarios count their exact schedules with kernel K4, and
 ``conformance=True`` scenarios run their kernels' check (K1-K3), on
 ``--device`` (``cuda`` by default; ``cpu`` runs the plain versions).
 ``--json [PATH]`` also writes the results as JSON.
@@ -75,8 +75,9 @@ def build_scenarios(args: argparse.Namespace) -> list[Scenario]:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.api",
-        description="Evaluate declarative scenario batches (tile, full and "
-                    "trace graph kinds) in broadcast closed form.")
+        description="Evaluate declarative scenario batches (tile, full, "
+                    "trace, hetero and minibatch graph kinds) in broadcast "
+                    "closed form.")
     ap.add_argument("--scenario", action="append", metavar="PATH",
                     help="scenario batch JSON file (repeatable)")
     ap.add_argument("--template", action="append", metavar="NAME",

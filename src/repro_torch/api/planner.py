@@ -1,6 +1,6 @@
 """Batch planner: evaluate scenario batches with one broadcast call per plan
-(a copy of the reference's ``repro/api/planner.py`` for the ``tile``,
-``full`` and ``trace`` kinds).
+(a copy of the reference's ``repro/api/planner.py``; ``optimize`` blocks
+are not ported).
 
 ``evaluate_scenarios`` groups scenarios by :meth:`Scenario.plan_key` and
 evaluates each group in one closed-form call: every numeric leaf (graph
@@ -8,10 +8,12 @@ fields, hardware overrides, layer widths, tile capacities) is stacked along
 a leading batch axis.  The closed forms are elementwise float64 algebra, so
 the stacked evaluation is bit-identical to evaluating each scenario alone.
 
-Two things run on ``device`` (CUDA unless ``device="cpu"``): a trace
-group's exact schedules come from kernel K4, and a ``conformance=True``
-scenario's check holds its dataflow's kernels to their closed form and runs
-K1, K2 and K3 against the fp32 oracle.
+Two things run on ``device`` (CUDA unless ``device="cpu"``): a trace or
+hetero group's exact schedules come from kernel K4 (for a hetero group, one
+:class:`~repro_torch.core.compose.RelationalGraphModel` call covers every
+relation), and a ``conformance=True`` scenario's check holds its
+dataflow's kernels to their closed form and runs K1, K2 and K3 against the
+fp32 oracle.  A minibatch group's episode schedule is sampled on the host.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ from typing import Any, Iterable, Mapping, Optional, Sequence
 import numpy as np
 
 from ..core import registry
-from ..core.compose import FullGraphParams, MultiLayerModel, TiledGraphModel
+from ..core.compose import (FullGraphParams, MultiLayerModel,
+                            RelationalGraphModel, TiledGraphModel)
 from ..core.notation import GraphTileParams
 from ..core.terms import ModelOutput
-from ..core.trace import resolve_trace_dataset
+from ..core.trace import TypedGraphTrace, resolve_trace_dataset
 from .scenario import Scenario, TILE_GRAPH_FIELDS
 
 __all__ = [
@@ -218,13 +221,78 @@ def _group_hw(spec, scenarios: Sequence[Scenario]):
                          for k in keys})
 
 
+def _stack_rel(values) -> np.ndarray:
+    """Stack relation-carrying leaves of a hetero group, relation axis
+    LAST: a per-relation list stacks to ``(B, R)``, a scalar leaf to
+    ``(B, 1)`` so its batch axis cannot collide with the relation axis.
+    Arity is uniform within a plan group (it is structural)."""
+    vals = list(values)
+    if vals and isinstance(vals[0], (tuple, list)):
+        return np.asarray(vals, dtype=np.float64)
+    return np.asarray(vals, dtype=np.float64)[:, None]
+
+
+def _resolve_group_trace(first: Scenario):
+    """Resolve the edge list behind a trace / hetero / minibatch group."""
+    if first.graph_kind == "hetero":
+        params = dict(first.graph["params"])
+        params["n_relations"] = first.graph["n_relations"]
+        trace = resolve_trace_dataset(first.graph["dataset"], params)
+        if not isinstance(trace, TypedGraphTrace):
+            raise TypeError(
+                f"hetero scenario dataset {first.graph['dataset']!r} "
+                f"resolved to {type(trace).__name__}, not a "
+                "TypedGraphTrace; register a typed dataset (e.g. "
+                "typed_power_law / typed_blocks / typed_cora) or use "
+                "kind='trace' for homogeneous edge lists")
+        if trace.n_relations != first.graph["n_relations"]:
+            raise ValueError(
+                f"dataset {first.graph['dataset']!r} produced "
+                f"{trace.n_relations} relations but the scenario declares "
+                f"n_relations={first.graph['n_relations']}")
+        return trace
+    return resolve_trace_dataset(first.graph["dataset"],
+                                 first.graph["params"])
+
+
+def _group_schedule(first: Scenario, trace):
+    """The measured episode schedule of a minibatch group (cached per
+    trace-backed CSR by minibatch_schedule's parameter-keyed cache)."""
+    from ..data.sampler import csr_from_trace, minibatch_schedule
+
+    g = getattr(trace, "_sampler_csr", None)
+    if g is None:
+        g = csr_from_trace(trace)
+        trace._sampler_csr = g
+    return minibatch_schedule(
+        g, batch_nodes=first.graph["batch_nodes"],
+        fanout=first.graph["fanout"], n_batches=first.graph["n_batches"],
+        seed=first.graph["seed"])
+
+
 def _group_model(spec, scenarios: Sequence[Scenario], trace=None,
-                 device=None):
+                 schedule=None, device=None):
     """The (possibly composed) model shared by one plan group; ``trace``
     switches the tiled model onto the exact edge-list schedule, with tile
-    capacities stacked along the capacity axis."""
+    capacities stacked along the capacity axis.  A typed trace (hetero
+    group) builds ONE :class:`RelationalGraphModel` covering every
+    relation; ``schedule`` (minibatch group) pins the episode schedule."""
     comp = scenarios[0].composition
+    if scenarios[0].graph_kind == "hetero":
+        widths = None
+        if comp.widths is not None:
+            widths = tuple(
+                _stack_rel(s.composition.widths[i] for s in scenarios)
+                for i in range(len(comp.widths)))
+        return RelationalGraphModel(
+            spec,
+            tile_vertices=_stack(s.composition.tile_vertices
+                                 for s in scenarios),
+            trace=trace, widths=widths, residency=comp.residency,
+            device=device)
     if comp is None:
+        if schedule is not None:
+            return TiledGraphModel(spec, schedule=schedule)
         return spec
     inner = spec
     if comp.widths is not None:
@@ -232,6 +300,8 @@ def _group_model(spec, scenarios: Sequence[Scenario], trace=None,
             _stack(s.composition.widths[i] for s in scenarios)
             for i in range(len(comp.widths)))
         inner = MultiLayerModel(spec, widths, residency=comp.residency)
+    if schedule is not None:
+        return TiledGraphModel(inner, schedule=schedule)
     if comp.tile_vertices is None:
         return inner
     tile_vertices = _stack(s.composition.tile_vertices for s in scenarios)
@@ -242,23 +312,32 @@ def _group_model(spec, scenarios: Sequence[Scenario], trace=None,
                            halo_dedup=comp.halo_dedup)
 
 
-def _group_graph(scenarios: Sequence[Scenario], trace=None):
+def _group_graph(scenarios: Sequence[Scenario], trace=None, schedule=None):
     kind = scenarios[0].graph_kind
     if kind == "tile":
         return GraphTileParams(**{
             f: _stack(s.graph[f] for s in scenarios)
             for f in TILE_GRAPH_FIELDS})
-    if kind == "trace":
+    stack = _stack
+    if kind in ("trace", "hetero"):
         # V/E are properties of the resolved edge list, shared across the
-        # group (the dataset reference is part of the plan key).
+        # group (the dataset reference is part of the plan key).  Hetero
+        # N/T may be per-relation vectors, stacked with the relation axis
+        # LAST.
         V, E = float(trace.n_nodes), float(trace.n_edges)
+        if kind == "hetero":
+            stack = _stack_rel
+    elif kind == "minibatch":
+        # E is the measured total of sampled episode edges: the explicit
+        # schedule is exact, so the declared graph must match it.
+        V, E = float(trace.n_nodes), float(schedule.n_edges)
     else:
         V = _stack(s.graph["V"] for s in scenarios)
         E = _stack(s.graph["E"] for s in scenarios)
     return FullGraphParams(
         V=V, E=E,
-        N=_stack(s.graph["N"] for s in scenarios),
-        T=_stack(s.graph["T"] for s in scenarios),
+        N=stack(s.graph["N"] for s in scenarios),
+        T=stack(s.graph["T"] for s in scenarios),
         high_degree_fraction=_stack(s.graph["high_degree_fraction"]
                                     for s in scenarios),
     )
@@ -267,12 +346,14 @@ def _group_graph(scenarios: Sequence[Scenario], trace=None):
 def _evaluate_group(scenarios: Sequence[Scenario], device) -> ModelOutput:
     first = scenarios[0]
     spec = registry.get(first.dataflow)
-    trace = None
-    if first.graph_kind == "trace":
-        trace = resolve_trace_dataset(first.graph["dataset"],
-                                      first.graph["params"])
-    model = _group_model(spec, scenarios, trace=trace, device=device)
-    graph = _group_graph(scenarios, trace=trace)
+    trace = schedule = None
+    if first.graph_kind in ("trace", "hetero", "minibatch"):
+        trace = _resolve_group_trace(first)
+    if first.graph_kind == "minibatch":
+        schedule = _group_schedule(first, trace)
+    model = _group_model(spec, scenarios, trace=trace, schedule=schedule,
+                         device=device)
+    graph = _group_graph(scenarios, trace=trace, schedule=schedule)
     hw = _group_hw(spec, scenarios)
     # THE one broadcast closed-form call for this group.
     return model.evaluate(graph, hw)
@@ -338,11 +419,11 @@ def evaluate_scenarios(scenarios: Sequence[Scenario], *, device=None,
                        conformance_points=None) -> BatchResult:
     """Evaluate a scenario batch: one broadcast call per plan group.
 
-    Results come back in input order.  Trace groups count their schedules
-    with kernel K4 on ``device``, and ``conformance=True`` scenarios run at
-    most one conformance check per dataflow per batch there: CUDA unless
-    ``device="cpu"``, and without a card the call raises rather than run
-    on the CPU.
+    Results come back in input order.  Trace and hetero groups count their
+    schedules with kernel K4 on ``device``, and ``conformance=True``
+    scenarios run at most one conformance check per dataflow per batch
+    there: CUDA unless ``device="cpu"``, and without a card the call
+    raises rather than run on the CPU.
     """
     scenarios = list(scenarios)
     groups = evaluate_groups(scenarios, device=device)
@@ -366,11 +447,33 @@ def evaluate_scenarios(scenarios: Sequence[Scenario], *, device=None,
         n_tiles = out.meta.get("n_tiles")
         n_tiles_col = None if n_tiles is None else col(n_tiles)
         meta: dict = {}
-        if members[0].graph_kind == "trace":
+        kind = members[0].graph_kind
+        if kind == "trace":
             tr = out.meta["trace"]
             meta["trace"] = {"dataset": members[0].graph["dataset"],
                              "n_nodes": int(tr.n_nodes),
                              "n_edges": int(tr.n_edges)}
+        elif kind == "hetero":
+            tr = out.meta["trace"]
+            meta["trace"] = {
+                "dataset": members[0].graph["dataset"],
+                "n_nodes": int(tr.n_nodes),
+                "n_edges": int(tr.n_edges),
+                "n_relations": int(tr.n_relations),
+                "relation_edge_counts": [
+                    int(c) for c in tr.relation_edge_counts()],
+            }
+        elif kind == "minibatch":
+            tr = _resolve_group_trace(members[0])
+            sched = _group_schedule(members[0], tr)
+            meta["minibatch"] = {
+                "dataset": members[0].graph["dataset"],
+                "n_nodes": int(tr.n_nodes),
+                "n_episodes": int(sched.n_tiles),
+                "batch_nodes": int(sched.capacity),
+                "sampled_edges": int(sched.n_edges),
+                "gathered_sources": int(sched.halo_total),
+            }
         for j, i in enumerate(grp.indices):
             s = members[j]
             conf = None

@@ -1,6 +1,6 @@
 """``Scenario``: one (dataflow x graph x hardware x composition) evaluation
 as pure, serializable data (a copy of the reference's
-``repro/api/scenario.py`` for the ``tile``, ``full`` and ``trace`` kinds).
+``repro/api/scenario.py`` for every graph kind).
 
 Graph kinds
 -----------
@@ -14,14 +14,30 @@ Graph kinds
           schedule, counted by kernel K4, replaces the uniform-tile
           approximation.  Needs ``tile_vertices`` and forbids
           ``halo_dedup != 1``.
+``hetero`` a typed graph: ``{"kind": "hetero", "dataset": ..., "params":
+          {...}, "n_relations": R, "N": ..., "T": ...}`` references a
+          registered typed trace dataset and evaluates a
+          :class:`~repro_torch.core.compose.RelationalGraphModel` over all
+          R relations at once, each relation's schedule counted by K4.
+          ``N`` / ``T`` (and each ``composition.widths`` entry) may be a
+          scalar or a length-R list of per-relation values;
+          ``composition.residency`` may be one policy or a length-R list.
+          Same tiling rules as ``trace``.
+``minibatch`` a sampled-minibatch workload: ``{"kind": "minibatch",
+          "dataset": ..., "params": {...}, "batch_nodes": ..., "fanout":
+          [...], "n_batches": ..., "seed": ..., "N": ..., "T": ...}``
+          measures ``n_batches`` fanout-sampling episodes over the
+          dataset's graph (:func:`repro_torch.data.sampler.
+          minibatch_schedule`) and charges each episode as one exact
+          schedule tile.  ``tile_vertices`` is forbidden (the seed batch is
+          the tile).
 
 ``conformance=True`` asks for the measured-vs-modeled check of the
 dataflow's kernels (one operating point, the port's harness).  The
-reference's ``hetero`` and ``minibatch`` kinds and ``optimize`` blocks are
-not ported yet; each raises a ``ValueError`` that names the ROADMAP item
-that brings it.  ``expect`` optionally pins ``total_bits`` /
-``total_iterations``, so a checked-in scenario file is a golden-drift
-gate.
+reference's ``optimize`` blocks are not ported yet; one raises a
+``ValueError`` that names the ROADMAP item that brings it.  ``expect``
+optionally pins ``total_bits`` / ``total_iterations``, so a checked-in
+scenario file is a golden-drift gate.
 """
 
 from __future__ import annotations
@@ -38,6 +54,8 @@ __all__ = [
     "TILE_GRAPH_FIELDS",
     "FULL_GRAPH_FIELDS",
     "TRACE_GRAPH_FIELDS",
+    "HETERO_GRAPH_FIELDS",
+    "MINIBATCH_GRAPH_FIELDS",
     "NOT_PORTED",
     "load_scenarios",
 ]
@@ -48,12 +66,15 @@ TILE_GRAPH_FIELDS = ("N", "T", "K", "L", "P")
 FULL_GRAPH_FIELDS = ("V", "E", "N", "T")
 #: Trace-graph required fields; ``params`` / ``high_degree_fraction`` optional.
 TRACE_GRAPH_FIELDS = ("dataset", "N", "T")
+#: Typed-graph required fields; ``params`` / ``high_degree_fraction`` optional.
+HETERO_GRAPH_FIELDS = ("dataset", "n_relations", "N", "T")
+#: Minibatch required fields; ``params`` / ``seed`` / hdf optional.
+MINIBATCH_GRAPH_FIELDS = ("dataset", "batch_nodes", "fanout", "n_batches",
+                          "N", "T")
 
 #: Reference scenario features the port does not evaluate yet, and the
 #: ROADMAP.md item that brings each.
 NOT_PORTED = {
-    "hetero": "ROADMAP.md Queue 1 item 4a (typed traces)",
-    "minibatch": "ROADMAP.md Queue 1 item 4d (sampled minibatches)",
     "optimize": "ROADMAP.md Queue 1 item 4e (the design-space tuner)",
 }
 
@@ -92,6 +113,25 @@ def _require_fraction(value: Any, what: str) -> float:
     return out
 
 
+def _require_count(value: Any, what: str, *, minimum: int = 1) -> int:
+    out = _require_number(value, what)
+    if out != int(out) or out < minimum:
+        raise ValueError(f"{what} must be an integer >= {minimum}, "
+                         f"got {value!r}")
+    return int(out)
+
+
+def _number_or_vector(value: Any, what: str):
+    """A scalar, or a per-relation list of scalars (hetero graphs)."""
+    if isinstance(value, (list, tuple)):
+        if not value:
+            raise ValueError(f"{what} must not be an empty list; give a "
+                             "scalar or one value per relation")
+        return tuple(_require_nonneg(v, f"{what}[{i}]")
+                     for i, v in enumerate(value))
+    return _require_nonneg(value, what)
+
+
 @dataclass(frozen=True)
 class Composition:
     """Declarative composition policy: layer widths + residency + tiling.
@@ -100,18 +140,21 @@ class Composition:
     ``tile_vertices`` (>= 1) covers a full graph with a tile schedule and
     halo reloads (``halo_dedup >= 1`` divides halo traffic).  Both are
     optional and compose; a ``Composition()`` with neither is rejected.
+
+    For hetero scenarios, each ``widths`` entry may be a length-R list of
+    per-relation widths, and ``residency`` may be a length-R list of
+    per-relation policies; both are rejected on every other graph kind
+    (the relation axis does not exist there).
     """
 
     widths: Optional[tuple] = None
-    residency: str = "spill"
+    residency: Any = "spill"
     tile_vertices: Optional[float] = None
     halo_dedup: float = 1.0
 
     def __post_init__(self) -> None:
         if self.widths is not None:
-            if any(isinstance(x, (list, tuple)) for x in self.widths):
-                raise _not_ported("hetero")
-            w = tuple(_require_nonneg(x, "Composition.widths entry")
+            w = tuple(_number_or_vector(x, "Composition.widths entry")
                       for x in self.widths)
             if len(w) < 2:
                 raise ValueError(f"Composition.widths needs >= 2 entries "
@@ -119,8 +162,17 @@ class Composition:
                                  "widths[l] -> widths[l+1]")
             object.__setattr__(self, "widths", w)
         if isinstance(self.residency, (list, tuple)):
-            raise _not_ported("hetero")
-        if self.residency not in _RESIDENCIES:
+            res = tuple(self.residency)
+            if not res:
+                raise ValueError("Composition.residency must not be an "
+                                 "empty list; give one policy or one "
+                                 "policy per relation")
+            for p in res:
+                if p not in _RESIDENCIES:
+                    raise ValueError(f"unknown residency {p!r}; expected "
+                                     f"one of {_RESIDENCIES}")
+            object.__setattr__(self, "residency", res)
+        elif self.residency not in _RESIDENCIES:
             raise ValueError(f"unknown residency {self.residency!r}; "
                              f"expected one of {_RESIDENCIES}")
         if self.tile_vertices is not None:
@@ -155,20 +207,36 @@ class Composition:
     def n_layers(self) -> Optional[int]:
         return None if self.widths is None else len(self.widths) - 1
 
+    def relation_arity(self) -> Optional[int]:
+        """Max per-relation vector length used (None if all-scalar)."""
+        arities = []
+        if self.widths is not None:
+            arities += [len(w) for w in self.widths if isinstance(w, tuple)]
+        if isinstance(self.residency, tuple):
+            arities.append(len(self.residency))
+        return max(arities) if arities else None
+
     def signature(self) -> tuple:
         """Structural part of the plan key: layer count, residency,
-        tiled-or-not and the scalar halo_dedup must match for two scenarios
-        to share one broadcast evaluation; widths values and tile_vertices
-        stack."""
+        tiled-or-not, the scalar halo_dedup and the per-relation arity of
+        each widths entry must match for two scenarios to share one
+        broadcast evaluation; widths values and tile_vertices stack."""
+        widths_shape = (None if self.widths is None else
+                        tuple(len(w) if isinstance(w, tuple) else None
+                              for w in self.widths))
         return (self.n_layers, self.residency,
-                self.tile_vertices is not None, self.halo_dedup)
+                self.tile_vertices is not None, self.halo_dedup,
+                widths_shape)
 
     def to_dict(self) -> dict:
         out: dict[str, Any] = {}
         if self.widths is not None:
-            out["widths"] = list(self.widths)
+            out["widths"] = [list(w) if isinstance(w, tuple) else w
+                             for w in self.widths]
         if self.residency != "spill":
-            out["residency"] = self.residency
+            out["residency"] = (list(self.residency)
+                                if isinstance(self.residency, tuple)
+                                else self.residency)
         if self.tile_vertices is not None:
             out["tile_vertices"] = self.tile_vertices
         if self.halo_dedup != 1.0:
@@ -225,15 +293,94 @@ def _normalized_trace_graph(graph: Mapping[str, Any]) -> dict:
     }
 
 
+def _dataset_and_params(graph: Mapping[str, Any], kind: str) -> dict:
+    dataset = graph["dataset"]
+    if not isinstance(dataset, str) or not dataset:
+        raise ValueError(f"graph.dataset must be a non-empty registered "
+                         f"trace-dataset name, got {dataset!r}")
+    params = graph.get("params", {})
+    if not isinstance(params, Mapping):
+        raise ValueError(f"graph.params must be a mapping of numeric "
+                         f"dataset parameters, got {params!r}")
+    return {
+        "kind": kind,
+        "dataset": dataset,
+        "params": {str(k): _require_number(v, f"graph.params.{k}")
+                   for k, v in params.items()},
+        "high_degree_fraction": _require_fraction(
+            graph.get("high_degree_fraction", 0.1),
+            "graph.high_degree_fraction"),
+    }
+
+
+def _normalized_hetero_graph(graph: Mapping[str, Any]) -> dict:
+    keys = set(graph)
+    missing = set(HETERO_GRAPH_FIELDS) - keys
+    if missing:
+        raise ValueError(f"hetero scenario is missing {sorted(missing)}; "
+                         f"required: {HETERO_GRAPH_FIELDS} "
+                         "(plus optional params / high_degree_fraction)")
+    allowed = set(HETERO_GRAPH_FIELDS) | {"kind", "params",
+                                          "high_degree_fraction"}
+    extra = keys - allowed
+    if extra:
+        raise ValueError(f"unknown hetero-graph keys {sorted(extra)}; "
+                         f"allowed: {sorted(allowed)}")
+    out = _dataset_and_params(graph, "hetero")
+    R = _require_count(graph["n_relations"], "graph.n_relations")
+    for f in ("N", "T"):
+        v = _number_or_vector(graph[f], f"graph.{f}")
+        if isinstance(v, tuple) and len(v) != R:
+            raise ValueError(
+                f"graph.{f} is per-relation but has {len(v)} entries for "
+                f"n_relations={R}; give a scalar or exactly R values")
+        out[f] = v
+    out["n_relations"] = R
+    return out
+
+
+def _normalized_minibatch_graph(graph: Mapping[str, Any]) -> dict:
+    keys = set(graph)
+    missing = set(MINIBATCH_GRAPH_FIELDS) - keys
+    if missing:
+        raise ValueError(f"minibatch scenario is missing {sorted(missing)}; "
+                         f"required: {MINIBATCH_GRAPH_FIELDS} "
+                         "(plus optional params / seed / "
+                         "high_degree_fraction)")
+    allowed = set(MINIBATCH_GRAPH_FIELDS) | {"kind", "params", "seed",
+                                             "high_degree_fraction"}
+    extra = keys - allowed
+    if extra:
+        raise ValueError(f"unknown minibatch-graph keys {sorted(extra)}; "
+                         f"allowed: {sorted(allowed)}")
+    out = _dataset_and_params(graph, "minibatch")
+    fanout = graph["fanout"]
+    if not isinstance(fanout, (list, tuple)) or not fanout:
+        raise ValueError(f"graph.fanout must be a non-empty list of "
+                         f"per-hop neighbor budgets, got {fanout!r}")
+    out["fanout"] = tuple(_require_count(f, f"graph.fanout[{i}]")
+                          for i, f in enumerate(fanout))
+    out["batch_nodes"] = _require_count(graph["batch_nodes"],
+                                        "graph.batch_nodes")
+    out["n_batches"] = _require_count(graph["n_batches"], "graph.n_batches")
+    out["seed"] = _require_count(graph.get("seed", 0), "graph.seed",
+                                 minimum=0)
+    out["N"] = _require_nonneg(graph["N"], "graph.N")
+    out["T"] = _require_nonneg(graph["T"], "graph.T")
+    return out
+
+
 def _normalized_graph(graph: Mapping[str, Any]) -> tuple[dict, str]:
     keys = set(graph)
     kind = graph.get("kind")
-    if kind in ("hetero", "minibatch"):
-        raise _not_ported(kind)
-    if kind is not None and kind != "trace":
-        raise ValueError(f"unknown graph kind {kind!r}; the explicit kind "
-                         "is 'trace' (tile and full graphs are recognized "
-                         "by their field sets)")
+    if kind is not None and kind not in ("trace", "hetero", "minibatch"):
+        raise ValueError(f"unknown graph kind {kind!r}; the explicit kinds "
+                         "are 'trace', 'hetero', and 'minibatch' (tile and "
+                         "full graphs are recognized by their field sets)")
+    if kind == "hetero":
+        return _normalized_hetero_graph(graph), "hetero"
+    if kind == "minibatch":
+        return _normalized_minibatch_graph(graph), "minibatch"
     if kind == "trace" or "dataset" in keys:
         return _normalized_trace_graph(graph), "trace"
     if {"V", "E"} & keys:
@@ -271,7 +418,8 @@ class Scenario:
 
     Attributes:
       dataflow: registered dataflow name (``repro_torch.core.registry``).
-      graph: tile, full-graph or trace parameters (see the module doc).
+      graph: tile, full-graph, trace, hetero or minibatch parameters (see
+        the module doc).
       hardware: overrides applied to the dataflow's default hardware
         record; keys must be fields of that record.
       composition: optional policy (layer widths / residency / tiling).
@@ -319,17 +467,50 @@ class Scenario:
             raise ValueError(
                 "tile_vertices tiling requires a full-graph scenario "
                 "(give V/E instead of K/L/P)")
-        if kind == "trace":
+        if kind in ("trace", "hetero"):
             if not tiled:
                 raise ValueError(
-                    "a trace scenario needs a composition with "
+                    f"a {kind} scenario needs a composition with "
                     "tile_vertices: the capacity sets the exact tile "
                     "schedule the edge list is partitioned into")
             if self.composition.halo_dedup != 1.0:
                 raise ValueError(
-                    "halo_dedup must stay 1 for a trace scenario: the "
+                    f"halo_dedup must stay 1 for a {kind} scenario: the "
                     "exact schedule already deduplicates remote sources "
                     "per tile, so a divisor would double-count the dedup")
+        if kind == "minibatch" and tiled:
+            raise ValueError(
+                "a minibatch scenario must not set tile_vertices: each "
+                "sampling episode is already one exact schedule tile "
+                "(the seed batch), so a second tiling layer has no "
+                "meaning")
+        arity = (None if self.composition is None
+                 else self.composition.relation_arity())
+        if kind == "hetero":
+            R = self.graph["n_relations"]
+            if arity is not None and arity != R:
+                raise ValueError(
+                    f"per-relation composition values have arity {arity} "
+                    f"but the graph declares n_relations={R}; every "
+                    "per-relation widths entry / residency list must have "
+                    "exactly R entries")
+            if self.composition.widths is not None:
+                for i, w in enumerate(self.composition.widths):
+                    if isinstance(w, tuple) and len(w) != R:
+                        raise ValueError(
+                            f"composition.widths[{i}] has {len(w)} "
+                            f"per-relation entries for n_relations={R}")
+            if (isinstance(self.composition.residency, tuple)
+                    and len(self.composition.residency) != R):
+                raise ValueError(
+                    f"composition.residency lists "
+                    f"{len(self.composition.residency)} policies for "
+                    f"n_relations={R}; give one policy or exactly R")
+        elif arity is not None:
+            raise ValueError(
+                f"per-relation composition values (arity {arity}) are "
+                f"only meaningful for a hetero scenario, not kind "
+                f"{kind!r}: other graph kinds have no relation axis")
         if self.expect is not None:
             known = {"total_bits", "total_iterations"}
             unknown = set(self.expect) - known
@@ -391,6 +572,48 @@ class Scenario:
                  "high_degree_fraction": high_degree_fraction}
         return cls(dataflow=dataflow, graph=graph, composition=comp, **kw)
 
+    @classmethod
+    def hetero(cls, dataflow: str, *, dataset: str, n_relations: int,
+               params: Optional[Mapping[str, float]] = None,
+               N: Any = 30.0, T: Any = 5.0,
+               tile_vertices: float = 1024.0,
+               widths: Optional[Sequence[Any]] = None,
+               residency: Any = "spill",
+               high_degree_fraction: float = 0.1, **kw: Any) -> "Scenario":
+        """Typed-graph scenario: relational schedule over a typed dataset.
+
+        ``N`` / ``T`` / each ``widths`` entry may be a scalar or a
+        length-``n_relations`` list; ``residency`` one policy or a
+        per-relation list.
+        """
+        comp = Composition(
+            widths=None if widths is None else tuple(widths),
+            residency=residency, tile_vertices=tile_vertices)
+        graph = {"kind": "hetero", "dataset": dataset,
+                 "params": dict(params or {}), "n_relations": n_relations,
+                 "N": N, "T": T,
+                 "high_degree_fraction": high_degree_fraction}
+        return cls(dataflow=dataflow, graph=graph, composition=comp, **kw)
+
+    @classmethod
+    def minibatch(cls, dataflow: str, *, dataset: str,
+                  params: Optional[Mapping[str, float]] = None,
+                  batch_nodes: int, fanout: Sequence[int],
+                  n_batches: int, seed: int = 0,
+                  N: float = 30.0, T: float = 5.0,
+                  widths: Optional[Sequence[float]] = None,
+                  residency: str = "spill",
+                  high_degree_fraction: float = 0.1, **kw: Any) -> "Scenario":
+        """Sampled-minibatch scenario: fanout episodes as schedule tiles."""
+        comp = (None if widths is None else Composition(
+            widths=tuple(widths), residency=residency))
+        graph = {"kind": "minibatch", "dataset": dataset,
+                 "params": dict(params or {}), "batch_nodes": batch_nodes,
+                 "fanout": tuple(fanout), "n_batches": n_batches,
+                 "seed": seed, "N": N, "T": T,
+                 "high_degree_fraction": high_degree_fraction}
+        return cls(dataflow=dataflow, graph=graph, composition=comp, **kw)
+
     # -- structure --------------------------------------------------------
     def _graph_key(self) -> tuple:
         """Canonical hashable view of the graph mapping (nested params)."""
@@ -407,7 +630,8 @@ class Scenario:
 
     @property
     def graph_kind(self) -> str:
-        """``"tile"``, ``"full"`` or ``"trace"``."""
+        """``"tile"``, ``"full"``, ``"trace"``, ``"hetero"``, or
+        ``"minibatch"``."""
         return self._graph_kind  # type: ignore[attr-defined]
 
     def plan_key(self) -> tuple:
@@ -426,6 +650,24 @@ class Scenario:
         if self.graph_kind == "trace":
             key += (self.graph["dataset"],
                     tuple(sorted(self.graph["params"].items())))
+        elif self.graph_kind == "hetero":
+            # The dataset+params+R fix the typed edge list, and
+            # scalar-vs-per-relation N/T fix the stacked leaves' shapes;
+            # tile capacity still stacks along the capacity axis, so one
+            # group serves an R-relation batch regardless of R.
+            key += (self.graph["dataset"],
+                    tuple(sorted(self.graph["params"].items())),
+                    self.graph["n_relations"],
+                    isinstance(self.graph["N"], tuple),
+                    isinstance(self.graph["T"], tuple))
+        elif self.graph_kind == "minibatch":
+            # The whole sampling protocol is structural: it fixes the
+            # episode schedule (its rng stream included), so only N/T and
+            # hardware values batch.
+            key += (self.graph["dataset"],
+                    tuple(sorted(self.graph["params"].items())),
+                    self.graph["batch_nodes"], self.graph["fanout"],
+                    self.graph["n_batches"], self.graph["seed"])
         return key
 
     # -- serialization ----------------------------------------------------

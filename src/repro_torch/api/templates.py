@@ -9,9 +9,8 @@ reshape the stacked results onto the figure's grid.  A template returns a
 repro_torch.api --template NAME`` can replay them.
 
 ``TEMPLATES`` is the by-name directory served by ``--template`` and
-``--list``.  ``rgcn_cora`` (typed traces) and ``tune_cora`` (the tuner)
-are listed, and building either raises a ``ValueError`` that names the
-ROADMAP item that brings it.
+``--list``.  ``tune_cora`` (the tuner) is listed, and building it raises a
+``ValueError`` that names the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -285,9 +284,41 @@ def cora_trace(
                                "residency": residency, "dataset": "cora"})
 
 
-def rgcn_cora(**_kw) -> TemplateBatch:
-    """The reference's typed-graph RGCN template (not ported yet)."""
-    raise _not_ported("hetero")
+def rgcn_cora(
+        accelerators: Optional[Sequence[str]] = None,
+        tile_vertices: Optional[np.ndarray] = None,
+        widths: Sequence[float] = (1433, 16, 7),
+        n_relations: int = 3,
+        seed: float = 0.0, alpha: float = 1.6,
+        residency: str = "spill") -> TemplateBatch:
+    """Typed-graph companion of ``cora_trace``: an R-relation RGCN-style
+    layer chain over the deterministic Cora-sized typed power-law trace
+    (dataset ``"typed_cora"``).  Every relation carries its own weight
+    matrices, so weight-load traffic scales with R while the shared vertex
+    set keeps one partition geometry; the planner evaluates all relations
+    in one broadcast :class:`~repro_torch.core.compose.RelationalGraphModel`
+    call per (dataflow, residency) group, each relation's schedule counted
+    by K4."""
+    names = tuple(accelerators) if accelerators is not None else registry.names()
+    caps = np.atleast_1d(_f64(np.array([1024], np.float64)
+                              if tile_vertices is None else tile_vertices))
+    widths = tuple(float(w) for w in widths)
+    params = {"seed": float(seed), "alpha": float(alpha)}
+    scenarios = tuple(
+        Scenario.hetero(name, dataset="typed_cora", params=params,
+                        n_relations=int(n_relations),
+                        N=widths[0], T=widths[-1],
+                        tile_vertices=float(cap), widths=widths,
+                        residency=residency,
+                        label=f"{name}@tile{int(cap)}/rgcn",
+                        workload="rgcn-cora-trace")
+        for name in names for cap in caps)
+    return TemplateBatch(figure="rgcn_cora", scenarios=scenarios,
+                         axes={"tile_vertices": caps},
+                         meta={"accelerators": names, "widths": widths,
+                               "residency": residency,
+                               "dataset": "typed_cora",
+                               "n_relations": int(n_relations)})
 
 
 def tune_cora(**_kw) -> TemplateBatch:

@@ -4,19 +4,23 @@ conformance harness of the port.
 * :mod:`.registry` — the reference's five dataflows by name (``engn``,
   ``hygcn``, ``spmm_tiled``, ``spmm_unfused``, ``awb_gcn``), plus the
   kernel specs ``spmm_tiled_cta`` / ``spmm_unfused_cta``;
-* :mod:`.compose` — ``MultiLayerModel`` and ``TiledGraphModel``;
-* :mod:`.trace` — exact edge-list tile schedules, counted by kernel K4;
+* :mod:`.compose` — ``MultiLayerModel``, ``TiledGraphModel`` and
+  ``RelationalGraphModel``, and the auditable ``COMPOSITION_FORMS``;
+* :mod:`.trace` — exact edge-list tile schedules of plain and typed
+  traces, counted by kernel K4;
 * :mod:`.sweep` — the paper's Figures 3-7 and the stacked all-dataflow
   sweep (imported on its own: it is a client of :mod:`repro_torch.api`);
 * :mod:`.validation` — the Sec. IV golden totals and the registry
   crosscheck;
 * :mod:`.conformance` — the kernels' byte schedules held to their closed
-  forms.
+  forms, behind the static model auditor's preflight
+  (:mod:`repro_torch.analysis`).
 """
 
 from . import registry
 from .awb_gcn import AWB_GCN_SPEC
-from .compose import (FullGraphParams, MultiLayerModel, RESIDENCY_POLICIES,
+from .compose import (COMPOSITION_FORMS, FullGraphParams, MultiLayerModel,
+                      RESIDENCY_POLICIES, RelationalGraphModel,
                       TiledGraphModel, tile_working_set_bits)
 from .conformance import (ConformanceRecord, OperatingPoint,
                           default_operating_points, run_conformance,
@@ -24,17 +28,18 @@ from .conformance import (ConformanceRecord, OperatingPoint,
 from .dataflow import DataflowSpec, MovementSpec, SpecModel, MOVEMENT_ROLES
 from .engn import ENGN_SPEC, EnGNModel
 from .hygcn import HYGCN_SPEC, HyGCNModel
-from .notation import (AWBGCNHardwareParams, EnGNHardwareParams,
-                       GraphTileParams, HyGCNHardwareParams,
+from .notation import (AWBGCNHardwareParams, CompositionHardwareParams,
+                       EnGNHardwareParams, GraphTileParams,
+                       HyGCNHardwareParams, RelationalScheduleParams,
                        TiledSpMMHardwareParams, paper_default_graph)
 from .spmm_tiled import SPMM_TILED_SPEC
 from .spmm_unfused import SPMM_UNFUSED_SPEC
 from .terms import (AcceleratorModel, CACHE_CLASSES, L1_CLASSES, L2_CLASSES,
                     ModelOutput, MovementTerm, tabulate)
-from .trace import (GraphTrace, TraceSchedule, clear_trace_cache,
-                    register_trace_dataset, reset_trace_stats,
-                    resolve_trace_dataset, trace_cache_info,
-                    trace_dataset_names)
+from .trace import (GraphTrace, TraceSchedule, TypedGraphTrace,
+                    clear_trace_cache, register_trace_dataset,
+                    reset_trace_stats, resolve_trace_dataset,
+                    trace_cache_info, trace_dataset_names)
 
 __all__ = [
     "DataflowSpec",
@@ -56,10 +61,13 @@ __all__ = [
     "summarize_records",
     "MultiLayerModel",
     "TiledGraphModel",
+    "RelationalGraphModel",
+    "COMPOSITION_FORMS",
     "FullGraphParams",
     "RESIDENCY_POLICIES",
     "tile_working_set_bits",
     "GraphTrace",
+    "TypedGraphTrace",
     "TraceSchedule",
     "register_trace_dataset",
     "resolve_trace_dataset",
@@ -72,6 +80,8 @@ __all__ = [
     "HyGCNHardwareParams",
     "TiledSpMMHardwareParams",
     "AWBGCNHardwareParams",
+    "RelationalScheduleParams",
+    "CompositionHardwareParams",
     "paper_default_graph",
     "AcceleratorModel",
     "ModelOutput",

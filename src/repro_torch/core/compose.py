@@ -1,5 +1,5 @@
 """Composition layer: from one tile-layer to L-layer, full-graph totals (a
-copy of the reference's ``repro/core/compose.py``, homogeneous part).
+copy of the reference's ``repro/core/compose.py``).
 
 The paper's Tables III/IV model one GNN layer over one graph tile.  This
 module composes any registered dataflow upward:
@@ -14,6 +14,12 @@ module composes any registered dataflow upward:
   features.  Passing a :class:`~repro_torch.core.trace.GraphTrace` swaps
   the uniform approximation for the exact edge-list schedule, whose halo
   and cut counts come from kernel K4 on ``device``.
+* :class:`RelationalGraphModel` evaluates one dataflow over every relation
+  of a :class:`~repro_torch.core.trace.TypedGraphTrace` at once, each
+  relation's schedule counted by K4 on ``device``.
+* ``COMPOSITION_FORMS`` restates the composition layer's own terms (halo
+  reload, resident hand-off, minibatch gather) as closed forms the model
+  auditor (:mod:`repro_torch.analysis`) traces.
 
 All arithmetic is float64 closed form on the host, broadcasting, in the
 reference's operation order, so totals are bit-identical to it.
@@ -29,13 +35,15 @@ import numpy as np
 from .dataflow import DataflowSpec, SpecModel
 from .notation import GraphTileParams, ParamArray
 from .terms import ModelOutput, MovementTerm, ceil
-from .trace import GraphTrace, TraceSchedule
+from .trace import GraphTrace, TraceSchedule, TypedGraphTrace
 
 __all__ = [
     "MultiLayerModel",
     "TiledGraphModel",
+    "RelationalGraphModel",
     "FullGraphParams",
     "RESIDENCY_POLICIES",
+    "COMPOSITION_FORMS",
     "tile_working_set_bits",
 ]
 
@@ -527,3 +535,286 @@ class TiledGraphModel:
             meta={"hw": hw, "graph": full, "n_tiles": n_tiles,
                   "tile": tile, "inner": self.inner},
         )
+
+
+def _normalize_residency(residency, n_relations: int):
+    """-> (uniform policy or None, per-relation resident mask or None).
+
+    A plain policy string applies to every relation (``mask=None``); a
+    length-R sequence of policies collapses back to the uniform case when
+    homogeneous, else yields an exact ``{0.0, 1.0}`` resident mask of
+    shape ``(R, 1)`` (trailing tile axis) for the masked evaluation.
+    """
+    if isinstance(residency, str):
+        if residency not in RESIDENCY_POLICIES:
+            raise ValueError(f"unknown residency {residency!r}; "
+                             f"expected one of {RESIDENCY_POLICIES}")
+        return residency, None
+    res = tuple(residency)
+    if len(res) != n_relations:
+        raise ValueError(
+            f"per-relation residency needs one policy per relation "
+            f"(R={n_relations}), got {len(res)}")
+    for p in res:
+        if p not in RESIDENCY_POLICIES:
+            raise ValueError(f"unknown residency {p!r}; "
+                             f"expected one of {RESIDENCY_POLICIES}")
+    if len(set(res)) == 1:
+        return res[0], None
+    mask = np.asarray([1.0 if p == "resident" else 0.0 for p in res],
+                      dtype=np.float64)[:, None]
+    return None, mask
+
+
+class RelationalGraphModel:
+    """Evaluate one dataflow over every relation of a typed graph at once.
+
+    The relational (RGCN-style) generalization of the trace path: a
+    :class:`~repro_torch.core.trace.TypedGraphTrace` supplies one exact
+    schedule per ``(capacity, relation)``, all carved from a single shared
+    sort and counted by kernel K4 on ``device`` (CUDA unless
+    ``device="cpu"``), and the inner dataflow's closed forms evaluate
+    **once** over axes ``(capacity B, relation R, tile M)``.  Per-relation
+    feature widths ride the relation axis (relation r has its own weight
+    matrices ``widths[l][r] x widths[l+1][r]``), padded tiles are masked
+    with exact ``{0.0, 1.0}`` multiplies, and the relation axis reduces
+    with the same pairwise tree as the tile axis, after each term's
+    ``ceil``, so totals are bit-identical to an R-loop of homogeneous
+    :class:`TiledGraphModel` evaluations whose per-term outputs are stacked
+    and pairwise-reduced.
+
+    ``residency`` may be one policy or a length-R sequence: mixed
+    assignments evaluate interior ``vertex_out``/``vertex_in`` terms masked
+    by an exact ``{0, 1}`` spill mask and charge ``residenthandoff`` under
+    the complementary mask.
+
+    Evaluation always carries the capacity axis: scalar ``tile_vertices``
+    yields shape-(1,) totals.
+    """
+
+    def __init__(self, dataflow, *, tile_vertices: ParamArray,
+                 trace: TypedGraphTrace, widths=None,
+                 residency="spill", device=None) -> None:
+        self.spec = _resolve_spec(dataflow)
+        if not isinstance(trace, TypedGraphTrace):
+            raise TypeError(f"trace must be a TypedGraphTrace, "
+                            f"got {type(trace).__name__}")
+        self.trace = trace
+        tv = _f64(tile_vertices)
+        if tv.ndim > 1:
+            raise ValueError(
+                "tile_vertices must be a scalar or a 1-D capacity array "
+                "(the leading batch axis of the evaluation)")
+        if not np.all(np.isfinite(tv)) or np.any(tv < 1):
+            raise ValueError(f"tile_vertices must be >= 1, "
+                             f"got {tile_vertices!r}")
+        self.tile_vertices = tile_vertices
+        if widths is not None:
+            widths = tuple(widths)
+            if len(widths) < 2:
+                raise ValueError(f"need >= 2 widths (got {len(widths)}): "
+                                 "a layer maps widths[l] -> widths[l+1]")
+        self.widths = widths
+        uniform, mask = _normalize_residency(residency, trace.n_relations)
+        if widths is None and not (uniform == "spill" and mask is None):
+            raise ValueError(
+                "residency other than uniform 'spill' needs layer widths: "
+                "activation residency is an inter-layer property")
+        self.residency = residency
+        self._uniform_residency = uniform
+        self._res_mask = mask
+        self.device = device
+        self.name = f"{self.spec.name}_relational"
+
+    @property
+    def n_relations(self) -> int:
+        return self.trace.n_relations
+
+    def resolve_hw(self, hw=None):
+        return self.spec.resolve_hw(hw)
+
+    def halo_feature_elems(self):
+        """Per-relation halo width: per-vertex elements fetched across
+        tile boundaries over all layers (shape follows the widths)."""
+        if self.widths is None:
+            return None
+        return _f64(sum(_f64(w) for w in self.widths[:-1]))
+
+    def _layer_terms(self, tile: GraphTileParams, hw, acc) -> None:
+        """Inner-dataflow terms over one (B, R, tile-chunk) block.
+
+        Mirrors :class:`MultiLayerModel`, plus the mixed per-relation
+        residency mask: interior vertex terms are kept (x1.0) for spill
+        relations and dropped (x0.0) for resident ones, and
+        ``residenthandoff`` is charged under the complementary mask; both
+        multiplies are exact.
+        """
+        if self.widths is None:
+            for m in self.spec.movements:
+                bits, iters = m.form(tile, hw)
+                acc.add(m.name, m.hierarchy, bits, iters)
+            return
+        W = [_f64(w)[..., None] for w in self.widths]
+        L = len(W) - 1
+        mask = self._res_mask
+        keep = None if mask is None else (1.0 - mask)
+        for l in range(L):
+            g_l = tile.replace(N=W[l], T=W[l + 1])
+            for m in self.spec.movements:
+                interior = m.interior_at(l, L)
+                if interior and self._uniform_residency == "resident":
+                    continue
+                bits, iters = m.form(g_l, hw)
+                if interior and keep is not None:
+                    bits = _f64(bits) * keep
+                    iters = _f64(iters) * keep
+                acc.add(m.name, m.hierarchy, bits, iters)
+        if self._uniform_residency == "resident" or mask is not None:
+            K = _f64(tile.K)
+            s = _f64(hw.sigma)
+            gain = 1.0 if mask is None else mask
+            for l in range(L - 1):
+                acc.add("residenthandoff", "L1-L1",
+                        K * W[l + 1] * s * gain, np.ones_like(K) * gain)
+
+    def evaluate(self, full: FullGraphParams, hw=None) -> ModelOutput:
+        hw = self.resolve_hw(hw)
+        tr = self.trace
+        if (np.any(_f64(full.V) != tr.n_nodes)
+                or np.any(_f64(full.E) != tr.n_edges)):
+            raise ValueError(
+                f"FullGraphParams (V={full.V!r}, E={full.E!r}) does not "
+                f"match the typed trace (V={tr.n_nodes}, E={tr.n_edges}); "
+                "E counts edges across ALL relations")
+        R = tr.n_relations
+        caps = np.atleast_1d(np.asarray(self.tile_vertices)).tolist()
+        B = len(caps)
+        # One shared typed sort; per relation, the multi-capacity schedules
+        # come from K4 over that relation's sliced factorization.
+        rel_scheds = [tr.relation(r).schedules(caps, device=self.device)
+                      for r in range(R)]
+        M = max(s.n_tiles for s in rel_scheds[0])
+        # Partition geometry is relation-independent (same vertex set), so
+        # the vertex counts ride a broadcast (B, 1, M) axis.
+        K_pad = np.zeros((B, 1, M), dtype=np.float64)
+        P_pad = np.zeros((B, R, M), dtype=np.float64)
+        mask = np.zeros((B, 1, M), dtype=np.float64)
+        for b in range(B):
+            m = rel_scheds[0][b].n_tiles
+            K_pad[b, 0, :m] = rel_scheds[0][b].vertex_counts
+            mask[b, 0, :m] = 1.0
+            for r in range(R):
+                P_pad[b, r, :m] = rel_scheds[r][b].edge_counts
+        # Relation-carrying graph fields broadcast with ONE trailing (tile)
+        # axis; per-scenario scalars (hdf, hw) get TWO (relation + tile).
+        N = _f64(full.N)[..., None]
+        T = _f64(full.T)[..., None]
+        hdf = _f64(full.high_degree_fraction)[..., None, None]
+        phw_kw = {f.name: _f64(getattr(hw, f.name))[..., None, None]
+                  for f in dataclasses.fields(hw)
+                  if getattr(hw, f.name) is not None}
+        phw = hw.replace(**phw_kw)
+        order: list[tuple[str, str]] = []
+        partial_bits: dict[tuple[str, str], list] = {}
+        partial_iters: dict[tuple[str, str], list] = {}
+        for start in range(0, M, TRACE_TILE_CHUNK):
+            sl = slice(start, start + TRACE_TILE_CHUNK)
+            K_c = K_pad[:, :, sl]
+            tile_c = GraphTileParams(N=N, T=T, K=K_c,
+                                     L=np.floor(K_c * hdf),
+                                     P=P_pad[:, :, sl])
+            acc = _TermAccumulator()
+            self._layer_terms(tile_c, phw, acc)
+            m_c = mask[:, :, sl]
+            for t in acc.terms():
+                key = (t.name, t.hierarchy)
+                if key not in partial_bits:
+                    order.append(key)
+                    partial_bits[key] = []
+                    partial_iters[key] = []
+                partial_bits[key].append(
+                    _pairwise_sum(_f64(t.data_bits) * m_c))
+                partial_iters[key].append(
+                    _pairwise_sum(_f64(t.iterations) * m_c))
+
+        def collapse_rel(x):
+            # Reduce the relation axis with the same pairwise tree; terms
+            # that never picked up the R axis (geometry-only iteration
+            # counts) broadcast to it first, so each relation pays them.
+            a = _f64(x)
+            return _pairwise_sum(np.broadcast_to(
+                a, np.broadcast_shapes(a.shape, (R,))))
+
+        terms = []
+        for name, hier in order:
+            bits = _pairwise_sum(np.stack(partial_bits[(name, hier)],
+                                          axis=-1))
+            iters = _pairwise_sum(np.stack(partial_iters[(name, hier)],
+                                           axis=-1))
+            terms.append(MovementTerm(name, hier, collapse_rel(bits),
+                                      collapse_rel(iters)))
+        width = self.halo_feature_elems()
+        if width is None:
+            width = _f64(full.N)
+        halo_totals = _f64([[rel_scheds[r][b].halo_total for r in range(R)]
+                            for b in range(B)])
+        sigma = _f64(hw.sigma)[..., None]
+        bw = _f64(hw.B)[..., None]
+        halo_bits = halo_totals * width * sigma
+        halo_iters = ceil(halo_bits / bw)
+        terms.append(MovementTerm("haloreload", "L2-L1",
+                                  collapse_rel(halo_bits),
+                                  collapse_rel(halo_iters)))
+        return ModelOutput(
+            accelerator=self.name,
+            terms=tuple(terms),
+            meta={"hw": hw, "graph": full, "trace": tr,
+                  "n_relations": R,
+                  "n_tiles": _f64([s.n_tiles for s in rel_scheds[0]]),
+                  "relation_schedules": tuple(tuple(s) for s in rel_scheds),
+                  "widths": self.widths, "residency": self.residency},
+        )
+
+
+# ---------------------------------------------------------------------------
+# Auditable closed forms of the composition-layer terms.
+#
+# The relational / episode evaluations charge three terms that no
+# registered MovementSpec owns: the exact halo reload, the resident
+# inter-layer hand-off, and the minibatch gather.  Each is restated here
+# as a per-tile closed form over a declared parameter record
+# (notation.RelationalScheduleParams x notation.CompositionHardwareParams)
+# so `python -m repro_torch.analysis` traces them like Table III/IV
+# movements: units must reduce to bits^1 / bits^0, provenance must carry
+# the `R` relation symbol, and the 2^53 interval propagates the R
+# multiplicity.  Value parity with the array path is pinned in
+# tests/test_torch_hetero.py.
+# ---------------------------------------------------------------------------
+
+def _relational_halo_form(graph, hw):
+    """R relations x (unique remote sources x halo width x sigma) bits."""
+    per_relation = graph.H * graph.W * hw.sigma
+    return graph.R * per_relation, graph.R * ceil(per_relation / hw.B)
+
+
+def _relational_handoff_form(graph, hw):
+    """Resident inter-layer hand-off: K x width x sigma bits per relation,
+    one on-array iteration per (relation, tile, layer boundary)."""
+    per_relation = graph.K * graph.W * hw.sigma
+    return graph.R * per_relation, graph.R
+
+
+def _minibatch_gather_form(graph, hw):
+    """One episode's neighbor-sampling gather: unique non-seed sources
+    fetched at the halo feature width (R=1 for homogeneous sampling)."""
+    bits = graph.H * graph.W * hw.sigma
+    return bits, ceil(bits / hw.B)
+
+
+#: (name, form) pairs the analysis auditor traces alongside the registry
+#: dataflows (see repro_torch.analysis.audit.audit_composition_forms).
+COMPOSITION_FORMS = (
+    ("relationalhalo", _relational_halo_form),
+    ("relationalhandoff", _relational_handoff_form),
+    ("minibatchgather", _minibatch_gather_form),
+)

@@ -19,9 +19,11 @@ Measurement layers (each a ``ConformanceRecord.source``):
     equal the block cover of the declared streams, and the unfused pair's
     boundary exceeds the fused kernel's by the spilled aggregate, twice.
 
-The reference harness's ``cost_analysis`` and ``hlo_collectives`` layers
-read XLA artefacts and have no counterpart here; its static-audit preflight
-is not ported yet.
+Before any measurement, :func:`run_conformance` passes every dataflow it
+is asked for, and the kernel spec each is held to, through the static model
+auditor (:mod:`repro_torch.analysis`) and refuses a spec with a strict
+error.  The reference harness's ``cost_analysis`` and ``hlo_collectives``
+layers read XLA artefacts and have no counterpart here.
 
 Run it as ``python -m repro_torch.core.conformance [--device cuda|cpu]
 [--points M] [--execute] [--json PATH]``; it exits non-zero on any
@@ -399,26 +401,61 @@ def interphase_delta(point: OperatingPoint, *, device=None,
     ]
 
 
-def run_conformance(points: Sequence[OperatingPoint] | None = None, *,
-                    device=None) -> list[ConformanceRecord]:
-    """Both runnable dataflows (K1, and K2 + K3) at every point, plus the
-    inter-phase delta."""
+def _preflight_audit(names: Sequence[str]) -> None:
+    """The static-audit gate: each named dataflow, and the kernel spec its
+    analogue is held to, must audit strict-clean; the first that does not
+    raises ``AssertionError`` before anything is measured or launched."""
+    from ..analysis import audit_spec
     from . import registry
 
+    for name in names:
+        spec = registry.get(name)
+        checked = [spec]
+        if spec.has_runnable:
+            checked.append(registry.get(spec.runnable_analogue().dataflow))
+        for s in checked:
+            errors = audit_spec(s).strict_errors()
+            if errors:
+                raise AssertionError(
+                    f"static model audit failure for {s.name!r}; refusing "
+                    "to measure (rerun with preflight_audit=False to "
+                    "override): " + "; ".join(errors))
+
+
+def run_conformance(names: Sequence[str] | None = None,
+                    points: Sequence[OperatingPoint] | None = None, *,
+                    device=None, preflight_audit: bool = True
+                    ) -> list[ConformanceRecord]:
+    """The harness: every named runnable dataflow (default: both, K1 and
+    K2 + K3) at every point, plus the inter-phase delta when both run.
+
+    With ``preflight_audit`` (the default) every named dataflow and the
+    kernel spec it is held to first pass the static model auditor
+    (:func:`_preflight_audit`): a model whose closed forms fail the
+    unit / provenance / golden audit is refused before any launch tensor
+    is allocated on ``device``.
+    """
+    from . import registry
+
+    names = (registry.runnable_names() if names is None
+             else tuple(names))
+    if preflight_audit:
+        _preflight_audit(names)
+    analogues = {name: registry.get(name).runnable_analogue()
+                 for name in names}
     dev = resolve_device(device)
     points = operating_points() if points is None else points
     records: list[ConformanceRecord] = []
     for pt in points:
         measured = {}
-        for name in registry.runnable_names():
-            spec = registry.get(name)
-            measured[name] = measure_analogue(spec.runnable_analogue(), pt,
-                                              dev)
-            records.extend(conformance_records(spec, pt,
+        for name, analogue in analogues.items():
+            measured[name] = measure_analogue(analogue, pt, dev)
+            records.extend(conformance_records(registry.get(name), pt,
                                                measures=measured[name]))
-        records.extend(interphase_delta(
-            pt, fused_measures=measured["spmm_tiled"],
-            unfused_measures=measured["spmm_unfused"]))
+        if {"spmm_tiled", "spmm_unfused"} <= set(names):
+            records.extend(interphase_delta(
+                pt, fused_measures=measured["spmm_tiled"],
+                unfused_measures=measured["spmm_unfused"]))
     return records
 
 
@@ -500,7 +537,7 @@ def main(argv=None) -> int:
         points = points[:args.points]
 
     t0 = time.perf_counter()
-    records = run_conformance(points, device=device)
+    records = run_conformance(points=points, device=device)
     elapsed = time.perf_counter() - t0
 
     rows = [r.as_row() for r in records]

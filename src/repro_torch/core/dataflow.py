@@ -32,12 +32,21 @@ MovementForm = Callable[[object, object], Tuple[np.ndarray, np.ndarray]]
 
 @dataclass(frozen=True)
 class MovementSpec:
-    """One movement level of a dataflow, as a declarative record."""
+    """One movement level of a dataflow, as a declarative record.
+
+    ``audit_note`` is a unit-audit waiver: when set, the model auditor
+    (:mod:`repro_torch.analysis`) reports this movement's unit findings as
+    *waived* instead of failing ``--strict``.  It exists for paper-verbatim
+    transcriptions whose published forms mix units (the HyGCN Table IV
+    rows); the note must say which table row is being transcribed and why
+    the finding is expected.
+    """
 
     name: str
     hierarchy: str
     form: MovementForm
     role: str = "other"
+    audit_note: str | None = None
 
     def __post_init__(self) -> None:
         if self.role not in MOVEMENT_ROLES:
@@ -65,6 +74,13 @@ class DataflowSpec:
     ``runnable`` is the conformance hook: a zero-argument factory returning
     the kernel analogue (see :mod:`repro_torch.core.conformance`) whose
     traffic is held to these closed forms.
+
+    ``unused_hw`` waives the model auditor's dead-hardware-parameter check
+    for declared Table II fields that no movement form reads, e.g. EnGN's
+    ``M_prime``, which enters only the fitting-factor diagnostic, not any
+    movement.  Every entry is a recorded decision the provenance table
+    surfaces; an *undeclared* dead parameter fails ``python -m
+    repro_torch.analysis --strict``.
     """
 
     name: str
@@ -72,6 +88,7 @@ class DataflowSpec:
     hw_factory: Callable[[], object]
     description: str = ""
     runnable: Callable[[], object] | None = None
+    unused_hw: tuple[str, ...] = ()
 
     def __post_init__(self) -> None:
         names = [m.name for m in self.movements]

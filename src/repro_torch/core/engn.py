@@ -114,6 +114,9 @@ ENGN_SPEC = DataflowSpec(
     hw_factory=EnGNHardwareParams,
     description="EnGN single-array RER dataflow with a high-degree vertex "
                 "cache (Table III).",
+    # M_prime (PE-array columns) enters only fitting_factor (Fig. 6), not
+    # any Table III movement form: a recorded audit waiver.
+    unused_hw=("M_prime",),
 )
 
 

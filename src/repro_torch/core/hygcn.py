@@ -116,12 +116,21 @@ HYGCN_SPEC = DataflowSpec(
         MovementSpec("loadvertL2", "L2-L1", loadvertL2, role="vertex_in"),
         MovementSpec("loadedges", "L2-L1", loadedges, role="edges"),
         MovementSpec("loadweights", "L2-L1", loadweights, role="weights"),
-        MovementSpec("aggregate", "L1-L1", aggregate, role="compute"),
+        MovementSpec("aggregate", "L1-L1", aggregate, role="compute",
+                     audit_note="Table IV verbatim: the aggregation row "
+                                "caps N*Ps*sigma (bits) against Ma (a PE "
+                                "count) scaled by 8.0, and ceils the bits "
+                                "ratio directly; transcribed as published "
+                                "(DESIGN.md §16)."),
         MovementSpec("writeinterphase", "L1-L2", writeinterphase,
                      role="interphase"),
         MovementSpec("combine", "L1-L1", combine, role="compute"),
         MovementSpec("readinterphase", "L2-L1", readinterphase,
-                     role="interphase"),
+                     role="interphase",
+                     audit_note="Table IV verbatim: min(B, Mc) compares "
+                                "bits-per-iteration bandwidth against a "
+                                "systolic-array PE count; transcribed as "
+                                "published (DESIGN.md §16)."),
         MovementSpec("writeL2", "L1-L2", writeL2, role="vertex_out"),
     ),
     hw_factory=HyGCNHardwareParams,

@@ -15,11 +15,84 @@ from typing import Union
 
 import numpy as np
 
-__all__ = ["ParamArray", "GraphTileParams", "EnGNHardwareParams",
+__all__ = ["ParamArray", "GraphTileParams", "RelationalScheduleParams",
+           "CompositionHardwareParams", "EnGNHardwareParams",
            "HyGCNHardwareParams", "TiledSpMMHardwareParams",
-           "AWBGCNHardwareParams", "paper_default_graph"]
+           "AWBGCNHardwareParams", "paper_default_graph", "FieldUnit",
+           "UNIT_DECLARATIONS", "declare_units", "unit_declarations_for"]
 
 ParamArray = Union[int, float, np.ndarray]
+
+
+# ---------------------------------------------------------------------------
+# Unit declarations (read by :mod:`repro_torch.analysis`).
+#
+# Every Table II symbol is declared with a unit tag and the operating
+# envelope the static auditor propagates interval bounds over.  ``bits``
+# and ``bits/iter`` both reduce to the ``bits`` dimension (B is the
+# payload one iteration can move), while counts (``elements`` /
+# ``vertices`` / ``edges`` / ``PEs``) are dimensionless multipliers, so
+# every Table III/IV data-movement form must reduce to bits^1 and every
+# iteration form to bits^0.  A dropped ``sigma`` factor breaks that
+# reduction, which is what the auditor fails on.
+#
+# Graph symbols carry the operating envelope of 10^9 edges / 10^7
+# vertices; hardware symbols default to ``lo=hi=None``, meaning the
+# auditor pins them to the spec's own ``hw_factory()`` defaults (a point
+# interval at the published design point).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FieldUnit:
+    """Unit + envelope declaration of one parameter-record field.
+
+    ``unit`` is one of the Table II tags: ``"bits"``, ``"bits/iter"``,
+    ``"elements"``, ``"vertices"``, ``"edges"``, ``"PEs"``,
+    ``"relations"``, ``"dimensionless"``.  ``lo``/``hi`` bound the field
+    over the audited operating envelope; ``None`` means "pin to the
+    record's default value".
+    """
+
+    unit: str
+    lo: float | None = None
+    hi: float | None = None
+    doc: str = ""
+
+
+#: record type -> {field name -> FieldUnit}.  Extend via :func:`declare_units`.
+UNIT_DECLARATIONS: dict[type, dict[str, FieldUnit]] = {}
+
+
+def declare_units(record_type: type, fields: dict[str, FieldUnit],
+                  *, overwrite: bool = False) -> None:
+    """Register unit declarations for a parameter-record dataclass.
+
+    Dataflow specs whose hardware records are not declared here must call
+    this before :func:`repro_torch.analysis.audit_spec` can trace them.
+    """
+    if record_type in UNIT_DECLARATIONS and not overwrite:
+        raise ValueError(f"unit declarations for {record_type.__name__} "
+                         "already registered (pass overwrite=True)")
+    declared = set(fields)
+    actual = {f.name for f in dataclasses.fields(record_type)}
+    if declared != actual:
+        raise ValueError(
+            f"unit declarations for {record_type.__name__} must cover every "
+            f"field exactly once; missing={sorted(actual - declared)} "
+            f"extra={sorted(declared - actual)}")
+    UNIT_DECLARATIONS[record_type] = dict(fields)
+
+
+def unit_declarations_for(record) -> dict[str, FieldUnit]:
+    """Resolve the declaration table for a record instance (exact type)."""
+    try:
+        return UNIT_DECLARATIONS[type(record)]
+    except KeyError:
+        raise KeyError(
+            f"no unit declarations for parameter record type "
+            f"{type(record).__name__}; call repro_torch.core.notation."
+            f"declare_units({type(record).__name__}, {{...}}) so the "
+            f"analysis auditor can trace specs using it") from None
 
 
 def _f64(x: ParamArray) -> np.ndarray:
@@ -175,3 +248,116 @@ def paper_default_graph(
         L=np.floor(K_arr * high_degree_fraction),
         P=K_arr * edge_factor,
     )
+
+
+# Table II, left column: the graph tile, over the operating envelope of
+# 10^9-edge / 10^7-vertex graphs with feature widths up to 1024 elements.
+declare_units(GraphTileParams, {
+    "N": FieldUnit("elements", 1, 1024, "input feature-vector size"),
+    "T": FieldUnit("elements", 1, 1024, "output feature-vector size"),
+    "K": FieldUnit("vertices", 1, 1e7, "vertices in the tile"),
+    "L": FieldUnit("vertices", 0, 1e7, "high-degree vertices in the tile"),
+    "P": FieldUnit("edges", 0, 1e9, "edges in the tile"),
+})
+
+# Table II, right column (EnGN).
+declare_units(EnGNHardwareParams, {
+    "sigma": FieldUnit("bits", doc="precision of one feature element"),
+    "B": FieldUnit("bits/iter", doc="L2 bank bandwidth"),
+    "B_star": FieldUnit("bits/iter", doc="dedicated L2* cache bandwidth"),
+    "M": FieldUnit("PEs", doc="PE-array rows"),
+    "M_prime": FieldUnit("PEs", doc="PE-array columns"),
+})
+
+# Table II, right column (HyGCN).
+declare_units(HyGCNHardwareParams, {
+    "sigma": FieldUnit("bits", doc="precision of one feature element"),
+    "B": FieldUnit("bits/iter", doc="L2 memory bandwidth"),
+    "Ma": FieldUnit("PEs", doc="aggregation-engine SIMD cores"),
+    "Mc": FieldUnit("PEs", doc="combination-engine systolic PEs"),
+    "gamma": FieldUnit("dimensionless", doc="systolic weight-reuse factor"),
+    "Ps_ratio": FieldUnit("dimensionless",
+                          doc="edges surviving window sliding, / P"),
+})
+
+# The reference's extensions: the block-dense SpMM and AWB-GCN.
+declare_units(TiledSpMMHardwareParams, {
+    "sigma": FieldUnit("bits", doc="precision of one feature element"),
+    "B": FieldUnit("bits/iter", doc="HBM bandwidth"),
+    "Bn": FieldUnit("vertices", doc="destination rows per adjacency block"),
+    "Bk": FieldUnit("vertices", doc="source columns per adjacency block"),
+    "sigma_adj": FieldUnit("bits", doc="precision of one adjacency element"),
+})
+
+declare_units(AWBGCNHardwareParams, {
+    "sigma": FieldUnit("bits", doc="precision of one feature element"),
+    "B": FieldUnit("bits/iter", doc="L2 memory bandwidth"),
+    "M": FieldUnit("PEs", doc="column-product PEs"),
+    "eta": FieldUnit("dimensionless", doc="autotuned balance efficiency"),
+    "rho": FieldUnit("dimensionless", doc="rerouted partial-result fraction"),
+})
+
+
+# ---------------------------------------------------------------------------
+# Composition-layer parameter records: the typed-graph / minibatch closed
+# forms of repro_torch.core.compose.COMPOSITION_FORMS are traced over
+# these, so the relation axis is audited with the same unit algebra,
+# provenance tracking and 2^53 interval envelope as the Table III/IV terms.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RelationalScheduleParams:
+    """Per-tile schedule quantities of the typed / episode evaluations.
+
+    Attributes:
+      R: number of edge relations (types) in the typed graph; 1 for a
+         homogeneous sampled-minibatch episode.
+      H: unique remote (halo / gathered non-seed) source vertices of one
+         tile or episode, the exact deduplicated count the trace measures.
+      K: vertices resident in the tile (partition geometry, shared across
+         relations).
+      W: per-vertex feature elements moved per halo/hand-off vertex (the
+         summed interior widths, ``halo_feature_elems``).
+    """
+
+    R: ParamArray
+    H: ParamArray
+    K: ParamArray
+    W: ParamArray
+
+    def replace(self, **kw: ParamArray) -> "RelationalScheduleParams":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class CompositionHardwareParams:
+    """Architecture-independent hardware knobs of the composition terms.
+
+    Every registered dataflow shares these two Table II symbols; the
+    composition layer charges its halo / hand-off / gather terms with them
+    regardless of which inner dataflow runs the tile.
+    """
+
+    sigma: ParamArray = 4
+    B: ParamArray = 1000
+
+    def replace(self, **kw: ParamArray) -> "CompositionHardwareParams":
+        return dataclasses.replace(self, **kw)
+
+
+# Relation counts span 1-64; halo / vertex counts share the vertex envelope
+# (a tile's unique remote sources are at most V); widths share the
+# feature-element envelope.
+declare_units(RelationalScheduleParams, {
+    "R": FieldUnit("relations", 1, 64, "edge relations in the typed graph"),
+    "H": FieldUnit("vertices", 0, 1e7,
+                   "unique remote / gathered source vertices per tile"),
+    "K": FieldUnit("vertices", 1, 1e7, "vertices resident in the tile"),
+    "W": FieldUnit("elements", 1, 1024,
+                   "halo feature elements moved per vertex"),
+})
+
+declare_units(CompositionHardwareParams, {
+    "sigma": FieldUnit("bits", doc="precision of one feature element"),
+    "B": FieldUnit("bits/iter", doc="L2 memory bandwidth"),
+})

@@ -1,6 +1,6 @@
 """Exact tile schedules from real edge lists (a copy of the reference's
-``repro/core/trace.py``, homogeneous part), with the segment reduce on the
-card.
+``repro/core/trace.py``: homogeneous and typed traces), with the segment
+reduce on the card.
 
 The paper's composition covers a full graph with *uniform* tiles and charges
 halo reloads at the random-partition expected cut ``E * (1 - 1/n_tiles)``.
@@ -26,6 +26,10 @@ has two engines:
 
 Both give bit-identical integers, and :meth:`GraphTrace.schedule_reference`
 keeps the per-capacity ``np.unique`` algorithm as the oracle.
+
+A :class:`TypedGraphTrace` (an edge list whose edges carry a relation id)
+shares one sort across its relations; each relation's trace is a slice of
+it, scheduled by the same two engines.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from ..backend import resolve_device
 
 __all__ = [
     "GraphTrace",
+    "TypedGraphTrace",
     "TraceSchedule",
     "register_trace_dataset",
     "resolve_trace_dataset",
@@ -173,7 +178,7 @@ class TraceSchedule:
             pair_tile, pair_count = self._pair_source()
             # Stable sort: ties in (tile, -count) keep the provider's
             # source-ascending order, matching the np.unique reference.
-            order = np.lexsort((-pair_count, pair_tile))
+            order = np.lexsort((-pair_count, pair_tile))  # lint: allow-trace-lexsort
             pt = pair_tile[order]
             pc = pair_count[order]
             seg_ptr = np.searchsorted(pt, np.arange(self.n_tiles + 1))
@@ -270,6 +275,7 @@ class GraphTrace:
 
     def _init_state(self, fact: Optional[tuple]) -> None:
         self._fact = fact
+        self._csr_senders: Optional[np.ndarray] = None
         self._device_fact: dict[str, tuple[torch.Tensor, ...]] = {}
         self._schedules: "OrderedDict[int, TraceSchedule]" = OrderedDict()
         # Reentrant: schedule() holds it across _pair_factorization().
@@ -343,11 +349,46 @@ class GraphTrace:
         return self.senders.shape[0] == self._n_edges
 
     @property
+    def csr_senders(self) -> np.ndarray:
+        """CSR column array: source vertices in destination-major order
+        (senders ascend within each destination row), built lazily on
+        first access (schedule queries never need it).  Edge-list traces
+        sort a receiver-major composite key; factorization-only traces
+        expand the unique pairs re-sorted receiver-major (the same result:
+        within a (receiver, sender) run the expansion is order-free)."""
+        with self._lock:
+            if self._csr_senders is None:
+                self._csr_senders = self._build_csr_senders()
+            return self._csr_senders
+
+    def _build_csr_senders(self) -> np.ndarray:
+        V = self.n_nodes
+        if self._n_edges == 0:
+            return np.empty(0, dtype=np.int64)
+        if self.has_edge_list:
+            if V <= int((2**63 - 1) ** 0.5):
+                key = np.multiply(self.receivers, V, dtype=np.int64)
+                key += self.senders
+                key.sort()
+                key %= V  # in place: the sorted keys become the columns
+                return key
+            # V^2 would overflow the int64 composite key.
+            order = np.lexsort((self.senders, self.receivers))  # lint: allow-trace-lexsort
+            return np.asarray(self.senders, dtype=np.int64)[order]
+        u_snd, u_rcv, _, mp = self._pair_factorization()
+        # U-sized (unique pairs), not E-sized.
+        order = np.lexsort((u_snd, u_rcv))  # lint: allow-trace-lexsort
+        return np.repeat(np.asarray(u_snd, dtype=np.int64)[order],
+                         np.diff(mp)[order])
+
+    @property
     def nbytes(self) -> int:
         """Host footprint estimate (edge arrays, factorization, cached
         schedules): the quantity the trace-cache budget bounds."""
         n = (self.senders.nbytes + self.receivers.nbytes
              + self.row_ptr.nbytes)
+        if self._csr_senders is not None:
+            n += self._csr_senders.nbytes
         fact = self._fact
         if fact is not None:
             n += sum(a.nbytes for a in fact)
@@ -413,7 +454,7 @@ class GraphTrace:
             else:
                 # Composite keys would overflow int64: stable lexsort path.
                 _bump_stat("factorizations")
-                order = np.lexsort((self.receivers, self.senders))
+                order = np.lexsort((self.receivers, self.senders))  # lint: allow-trace-lexsort
                 snd_s = self.senders[order]
                 rcv_s = self.receivers[order]
                 change = np.empty(E, dtype=bool)
@@ -674,7 +715,7 @@ class GraphTrace:
         remote_pair = (pairs % V) // K != pair_tile
         halo_counts = np.bincount(
             pair_tile[remote_pair], minlength=n_tiles).astype(np.float64)
-        order = np.lexsort((-pair_count, pair_tile))
+        order = np.lexsort((-pair_count, pair_tile))  # lint: allow-trace-lexsort
         ranked_tile = pair_tile[order]
         ranked_count = pair_count[order]
         seg_ptr = np.searchsorted(ranked_tile, np.arange(n_tiles + 1))
@@ -688,11 +729,207 @@ class GraphTrace:
             _ranked_cache=(seg_ptr.astype(np.int64), prefix))
 
 
+class TypedGraphTrace:
+    """A heterogeneous (typed) edge list: ``senders[i] -> receivers[i]``
+    carries relation ``rels[i]`` (an RGCN-style edge type).
+
+    Folding ``rel`` into the composite sort key, ``(rel * V + sender) * V
+    + receiver``, makes one in-place ``np.sort`` produce the unique ``(rel,
+    sender, receiver)`` triples in relation-major, sender-major order, so
+    every relation's unique-pair factorization is a contiguous **slice** of
+    one shared sort.  :meth:`relation` hands each slice to
+    :meth:`GraphTrace.from_factorization` (edge-list-free, no further
+    sort), after which a relation's schedules are the homogeneous engine's:
+    kernel K4 on ``device`` for ``engine="torch"``, the host pass for
+    ``engine="numpy"``.  They are bit-identical to R independently built
+    single-relation traces.
+    """
+
+    def __init__(self, senders, receivers, rels, n_nodes: int,
+                 n_relations: int) -> None:
+        snd = np.asarray(senders)
+        rcv = np.asarray(receivers)
+        rel = np.asarray(rels)
+        if not (snd.ndim == rcv.ndim == rel.ndim == 1
+                and snd.shape == rcv.shape == rel.shape):
+            raise ValueError(
+                f"senders/receivers/rels must be 1-D arrays of equal "
+                f"length, got shapes {snd.shape}, {rcv.shape}, {rel.shape}")
+        if not all(np.issubdtype(a.dtype, np.integer)
+                   for a in (snd, rcv, rel)):
+            raise ValueError("senders/receivers/rels must be integer arrays")
+        n_nodes = int(n_nodes)
+        n_relations = int(n_relations)
+        if n_nodes < 1:
+            raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
+        if n_relations < 1:
+            raise ValueError(f"n_relations must be >= 1, got {n_relations}")
+        if snd.size and (snd.min() < 0 or snd.max() >= n_nodes
+                         or rcv.min() < 0 or rcv.max() >= n_nodes):
+            raise ValueError(
+                f"edge endpoints must lie in [0, {n_nodes})")
+        if rel.size and (rel.min() < 0 or rel.max() >= n_relations):
+            raise ValueError(
+                f"relation ids must lie in [0, {n_relations}); got range "
+                f"[{rel.min()}, {rel.max()}]")
+        self.n_nodes = n_nodes
+        self.n_relations = n_relations
+        self.senders = snd
+        self.receivers = rcv
+        self.rels = rel
+        self._n_edges = int(snd.size)
+        self._fact: Optional[tuple] = None
+        self._relation_traces: dict[int, GraphTrace] = {}
+        # Reentrant: relation() holds it across _typed_factorization().
+        self._lock = threading.RLock()
+
+    # -- basic measures ----------------------------------------------------
+    @property
+    def n_edges(self) -> int:
+        return self._n_edges
+
+    @property
+    def nbytes(self) -> int:
+        """Host footprint (edge arrays, shared factorization, and the
+        per-relation traces carved out of it): the trace-cache unit."""
+        n = self.senders.nbytes + self.receivers.nbytes + self.rels.nbytes
+        fact = self._fact
+        if fact is not None:
+            n += sum(a.nbytes for a in fact)
+        for t in list(self._relation_traces.values()):
+            n += t.nbytes
+        return int(n)
+
+    def clear_schedules(self) -> None:
+        """Drop every per-relation schedule LRU (memory reclaim, or between
+        engines: the LRU is keyed on capacity alone)."""
+        for t in list(self._relation_traces.values()):
+            t.clear_schedules()
+
+    def relation_edge_counts(self) -> np.ndarray:
+        """``(n_relations,)`` int64 edges per relation (exact)."""
+        _, _, _, mp, rel_ptr = self._typed_factorization()
+        return np.diff(mp[rel_ptr])
+
+    # -- the shared typed factorization ------------------------------------
+    def _typed_factorization(self) -> tuple[np.ndarray, np.ndarray,
+                                            np.ndarray, np.ndarray,
+                                            np.ndarray]:
+        """One sort shared by every (relation, capacity) query.
+
+        Returns ``(u_rel, u_snd, u_rcv, mult_prefix, rel_ptr)``: unique
+        ``(rel, sender, receiver)`` triples in relation-major sender-major
+        order, the int64 edge-multiplicity prefix over the triples
+        (length ``U+1``), and ``rel_ptr`` (length ``R+1``) delimiting
+        each relation's contiguous triple range.
+        """
+        with self._lock:
+            return self._typed_factorization_locked()
+
+    def _typed_factorization_locked(self):
+        if self._fact is None:
+            V = self.n_nodes
+            R = self.n_relations
+            E = self._n_edges
+            if E == 0:
+                z = np.zeros(0, dtype=np.int64)
+                self._fact = (z, z, z, np.zeros(1, dtype=np.int64),
+                              np.zeros(R + 1, dtype=np.int64))
+                return self._fact
+            if R * V <= (2**63 - 1) // V:
+                _bump_stat("factorizations")
+                # rel folded into the composite key: one in-place sort
+                # covers every relation (range R*V^2, checked).
+                key = np.multiply(self.rels, V, dtype=np.int64)
+                key += self.senders
+                key *= V
+                key += self.receivers
+                key.sort()
+                change = np.empty(E, dtype=bool)
+                change[0] = True
+                np.not_equal(key[1:], key[:-1], out=change[1:])
+                idx = np.flatnonzero(change)
+                u_key = key[idx]
+                dt = (np.int32 if V <= np.iinfo(np.int32).max else np.int64)
+                u_rcv = (u_key % V).astype(dt, copy=False)
+                u_key //= V
+                u_snd = (u_key % V).astype(dt, copy=False)
+                u_rel = (u_key // V).astype(np.int64, copy=False)
+            else:
+                # R*V^2 would overflow the int64 composite key.
+                _bump_stat("factorizations")
+                order = np.lexsort((self.receivers, self.senders, self.rels))  # lint: allow-trace-lexsort
+                rel_s = self.rels[order]
+                snd_s = self.senders[order]
+                rcv_s = self.receivers[order]
+                change = np.empty(E, dtype=bool)
+                change[0] = True
+                np.logical_or.reduce([rel_s[1:] != rel_s[:-1],
+                                      snd_s[1:] != snd_s[:-1],
+                                      rcv_s[1:] != rcv_s[:-1]],
+                                     out=change[1:])
+                idx = np.flatnonzero(change)
+                u_rel = rel_s[idx].astype(np.int64, copy=False)
+                u_snd = snd_s[idx]
+                u_rcv = rcv_s[idx]
+            mult_prefix = np.empty(idx.size + 1, dtype=np.int64)
+            mult_prefix[:-1] = idx
+            mult_prefix[-1] = E
+            rel_ptr = np.searchsorted(u_rel, np.arange(R + 1)).astype(np.int64)
+            self._fact = (u_rel, u_snd, u_rcv, mult_prefix, rel_ptr)
+        return self._fact
+
+    # -- per-relation traces -----------------------------------------------
+    def relation(self, r: int) -> GraphTrace:
+        """The single-relation :class:`GraphTrace` of relation ``r``.
+
+        Carved from the shared typed factorization: the slice
+        ``rel_ptr[r]:rel_ptr[r+1]`` is already a sender-major unique-pair
+        factorization of relation r's edge multiset, so the trace is
+        built edge-list-free through :meth:`GraphTrace.from_factorization`
+        with its multiplicity prefix rebased: no per-relation sort, no
+        edge list.  Traces (and their per-capacity schedule LRUs) are
+        cached per relation.
+        """
+        r = int(r)
+        if not 0 <= r < self.n_relations:
+            raise ValueError(f"relation must lie in [0, {self.n_relations}), "
+                             f"got {r}")
+        with self._lock:
+            trace = self._relation_traces.get(r)
+            if trace is None:
+                _, u_snd, u_rcv, mp, rel_ptr = self._typed_factorization()
+                lo, hi = int(rel_ptr[r]), int(rel_ptr[r + 1])
+                local_prefix = mp[lo:hi + 1] - mp[lo]
+                trace = GraphTrace.from_factorization(
+                    self.n_nodes, u_snd[lo:hi], u_rcv[lo:hi], local_prefix)
+                self._relation_traces[r] = trace
+            return trace
+
+    def relation_traces(self) -> tuple[GraphTrace, ...]:
+        """All per-relation traces, in relation order (one shared sort)."""
+        return tuple(self.relation(r) for r in range(self.n_relations))
+
+    def relation_schedules(self, tile_vertices, *, engine: str = "torch",
+                           device=None) -> tuple[TraceSchedule, ...]:
+        """One capacity across every relation: ``(R,)`` schedules, each
+        relation's halo and cut counts from K4 on ``device`` for
+        ``engine="torch"`` (CUDA unless ``device="cpu"``).
+
+        All relations share the trace's vertex set, so the partition
+        geometry (``n_tiles``, ``K``, per-tile vertex counts) is common;
+        only the edge/halo/cut counts differ per relation.
+        """
+        return tuple(self.relation(r).schedule(tile_vertices, engine=engine,
+                                               device=device)
+                     for r in range(self.n_relations))
+
+
 # ---------------------------------------------------------------------------
 # Dataset registry: names a scenario file can reference, resolving to the
 # deterministic generators in repro_torch.data.synthetic.
 # ---------------------------------------------------------------------------
-_TRACE_DATASETS: dict[str, Callable[..., GraphTrace]] = {}
+_TRACE_DATASETS: dict[str, Callable[..., Any]] = {}
 _TRACE_CACHE: "OrderedDict[tuple, GraphTrace]" = OrderedDict()
 #: In-process resolved-trace budget; oldest entries evict beyond it (the
 #: most recent trace always stays, even when alone it exceeds the budget).
@@ -793,7 +1030,7 @@ def trace_cache_info() -> dict:
 
 def resolve_trace_dataset(name: str,
                           params: Optional[Mapping[str, Any]] = None,
-                          ) -> GraphTrace:
+                          ) -> "GraphTrace | TypedGraphTrace":
     """Build a dataset, or fetch it from the in-process LRU.
 
     Thread-safe: the whole resolve holds the process-wide cache lock, so
@@ -881,8 +1118,63 @@ def _ring_of_tiles_trace(*, n_nodes, n_tiles) -> GraphTrace:
     return GraphTrace.from_arrays(ga)
 
 
+def _relation_assignment(seed, n_edges: int, n_relations: int) -> np.ndarray:
+    """Deterministic per-edge relation ids (seed-keyed, like synthetic)."""
+    rng = np.random.default_rng(np.random.SeedSequence([int(seed), 0x9e37]))
+    return rng.integers(0, int(n_relations), size=int(n_edges),
+                        dtype=np.int64)
+
+
+def _typed_power_law_trace(*, n_nodes, n_edges, n_relations, seed=0,
+                           alpha=1.6) -> TypedGraphTrace:
+    """The ``power_law`` edge list with seed-keyed random edge types: the
+    same (sender, receiver) multiset as ``power_law`` for identical
+    ``(n_nodes, n_edges, seed, alpha)``."""
+    from ..data import synthetic
+
+    ga = synthetic.power_law_graph(
+        int(seed), n_nodes=int(n_nodes), n_edges=int(n_edges), d_feat=1,
+        alpha=float(alpha), self_loops=False)
+    rels = _relation_assignment(seed, int(n_edges), int(n_relations))
+    return TypedGraphTrace(ga.senders, ga.receivers, rels, int(n_nodes),
+                           int(n_relations))
+
+
+def _typed_blocks_trace(*, n_relations, n_nodes, n_edges, seed=0,
+                        alpha=1.6) -> TypedGraphTrace:
+    """Block-diagonal typed fixture: relation r's edges live entirely in
+    vertex block ``[r*n_nodes, (r+1)*n_nodes)`` (R disjoint power-law
+    graphs under one vertex numbering)."""
+    from ..data import synthetic
+
+    R = int(n_relations)
+    nn = int(n_nodes)
+    snd_parts, rcv_parts, rel_parts = [], [], []
+    for r in range(R):
+        ga = synthetic.power_law_graph(
+            int(seed) * 7919 + r, n_nodes=nn, n_edges=int(n_edges),
+            d_feat=1, alpha=float(alpha), self_loops=False)
+        snd_parts.append(ga.senders.astype(np.int64) + r * nn)
+        rcv_parts.append(ga.receivers.astype(np.int64) + r * nn)
+        rel_parts.append(np.full(int(n_edges), r, dtype=np.int64))
+    return TypedGraphTrace(np.concatenate(snd_parts),
+                           np.concatenate(rcv_parts),
+                           np.concatenate(rel_parts), R * nn, R)
+
+
+def _typed_cora_trace(*, n_relations=3, seed=0, alpha=1.6) -> TypedGraphTrace:
+    """Cora-sized typed graph: Cora's V/E, R edge types assigned from the
+    seed."""
+    return _typed_power_law_trace(
+        n_nodes=CORA_V, n_edges=CORA_E, n_relations=int(n_relations),
+        seed=int(seed), alpha=float(alpha))
+
+
 register_trace_dataset("power_law", _power_law_trace)
 register_trace_dataset("power_law_stream", _power_law_stream_trace)
 register_trace_dataset("cora", _cora_trace)
 register_trace_dataset("molecule", _molecule_trace)
 register_trace_dataset("ring_of_tiles", _ring_of_tiles_trace)
+register_trace_dataset("typed_power_law", _typed_power_law_trace)
+register_trace_dataset("typed_blocks", _typed_blocks_trace)
+register_trace_dataset("typed_cora", _typed_cora_trace)

@@ -1,5 +1,5 @@
 """The Sec. IV golden totals and the registry crosscheck (a copy of the
-reference's ``repro/core/validation.py``, lines 42-170).
+reference's ``repro/core/validation.py``, lines 42-179).
 
 The reference's ``validate_traffic`` and ``measured_collective_bytes`` read
 XLA HLO and have no counterpart here (ROADMAP.md Queue 1 item 10).
@@ -69,7 +69,7 @@ def validate_dataflow_golden(name: str) -> ValidationRecord:
 
 def crosscheck_registry(graph=None, *, conformance: bool = False,
                         conformance_points=None, analysis: bool = False,
-                        device=None) -> dict[str, "ValidationRecord | None"]:
+                        device=None) -> dict[str, object]:
     """Structural sanity over every registered dataflow at one operating point.
 
     Evaluates each spec (finite, non-negative bits/iterations are asserted)
@@ -82,12 +82,12 @@ def crosscheck_registry(graph=None, *, conformance: bool = False,
     raises; passing ones are summarized under ``"<name>::conformance"`` as
     analytical-vs-measured HBM-byte totals.
 
-    ``analysis=True`` (the static model auditor) is not ported yet.
+    With ``analysis=True``, every registered spec is also passed through
+    the static model auditor (:mod:`repro_torch.analysis`): units,
+    symbol provenance, dead hardware parameters and the Sec. IV golden
+    pin.  A strict audit error raises; passing audits are stored under
+    ``"<name>::analysis"`` as :class:`~repro_torch.analysis.SpecAudit`.
     """
-    if analysis:
-        raise ValueError("analysis=True needs the static model auditor, "
-                         "which is not ported to repro_torch yet; see "
-                         "ROADMAP.md Queue 1 item 2")
     from . import registry
     from .notation import paper_default_graph
 
@@ -121,4 +121,14 @@ def crosscheck_registry(graph=None, *, conformance: bool = False,
             records[f"{name}::conformance"] = ValidationRecord(
                 name=f"{name}_conformance_hbm",
                 analytical_bytes=analytical, measured_bytes=measured)
+    if analysis:
+        from ..analysis import audit_spec
+
+        for name in registry.names():
+            audit = audit_spec(registry.get(name))
+            errors = audit.strict_errors()
+            if errors:
+                raise AssertionError(
+                    f"model audit failure for {name}: " + "; ".join(errors))
+            records[f"{name}::analysis"] = audit
     return records

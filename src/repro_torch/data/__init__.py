@@ -1,5 +1,6 @@
 """Seeded Cora-sized inputs for the GNN layer kernels (the trace datasets'
-graph generators are in :mod:`repro_torch.data.synthetic`).
+graph generators are in :mod:`repro_torch.data.synthetic`, the minibatch
+neighbor sampler in :mod:`repro_torch.data.sampler`).
 
 The reference's GCN-Cora model (``configs/gcn_cora.py``) runs on the Cora
 citation graph: 2708 vertices, 10556 directed edges (5278 undirected

@@ -267,10 +267,7 @@ def test_unported_features_name_their_roadmap_item(feature):
     base = {"dataflow": "engn", "graph": {"kind": "trace",
             "dataset": "cora", "N": 30.0, "T": 5.0},
             "composition": {"tile_vertices": 512.0}}
-    if feature in ("hetero", "minibatch"):
-        base["graph"]["kind"] = feature
-    else:
-        base["optimize"] = {"objective": "movement"}
+    base["optimize"] = {"objective": "movement"}
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item"):
         Scenario.from_dict(base)
 
@@ -344,8 +341,7 @@ def test_template_fig3_json_rows_match_the_reference(tmp_path, capsys):
     assert evaluate_scenarios(template("fig3").scenarios).rows() == ref.rows()
 
 
-@pytest.mark.parametrize("name,item", [("rgcn_cora", "item 4a"),
-                                       ("tune_cora", "item 4e")])
+@pytest.mark.parametrize("name,item", [("tune_cora", "item 4e")])
 def test_unported_templates_name_their_roadmap_item(name, item):
     from repro_torch.api import template, template_names
     assert name in template_names()

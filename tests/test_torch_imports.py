@@ -14,10 +14,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 BLOCKED = ("jax", "jaxlib", "repro")
 
-#: Imports every module of the port with a meta-path finder that refuses
-#: jax*, and exactly ``repro`` and ``repro.*`` (``repro_torch`` must load).
-_BLOCKER = r"""
-import importlib, pkgutil, sys
+#: A meta-path finder that refuses jax*, and exactly ``repro`` and
+#: ``repro.*`` (``repro_torch`` must load).
+_REFUSE = r"""
+import importlib, pkgutil, runpy, sys
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -26,13 +26,29 @@ class Refuse:
         return None
 
 sys.meta_path.insert(0, Refuse())
+"""
+
+#: Imports every module of the port with the finder in place.
+_BLOCKER = _REFUSE + r"""
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
 leaked = [m for m in sys.modules if m.startswith("jax") or m == "repro" or m.startswith("repro.")]
 assert not leaked, leaked
-print("imported", len(names), "modules")
+print("imported", len(names), "modules:", " ".join(names))
+"""
+
+#: ``python -m repro_torch.analysis --help`` with the finder in place.
+_ANALYSIS_HELP = _REFUSE + r"""
+sys.argv = ["python -m repro_torch.analysis", "--help"]
+try:
+    runpy.run_module("repro_torch.analysis", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as exc:
+    assert exc.code == 0, exc.code
+leaked = [m for m in sys.modules if m.startswith("jax") or m == "repro" or m.startswith("repro.")]
+assert not leaked, leaked
 """
 
 
@@ -48,6 +64,20 @@ def test_port_imports_with_jax_and_reference_blocked():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+    walked = set(proc.stdout.split())
+    for name in ("audit", "lint", "mutations", "tracer", "units",
+                 "__main__"):
+        assert f"repro_torch.analysis.{name}" in walked, name
+    assert "repro_torch.data.sampler" in walked
+
+
+def test_analysis_cli_help_runs_with_jax_and_reference_blocked():
+    proc = subprocess.run([sys.executable, "-c", _ANALYSIS_HELP], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage: python -m repro_torch.analysis" in proc.stdout
+    assert "--provenance" in proc.stdout and "--strict" in proc.stdout
 
 
 def _imported_roots(path: Path) -> set[str]:

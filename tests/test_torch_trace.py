@@ -381,7 +381,8 @@ def test_ring_and_molecule_generators_match_reference():
 # ---------------------------------------------------------------------------
 def test_dataset_registry_and_cache_keys():
     assert ttrace.trace_dataset_names() == (
-        "cora", "molecule", "power_law", "power_law_stream", "ring_of_tiles")
+        "cora", "molecule", "power_law", "power_law_stream",
+        "ring_of_tiles", "typed_blocks", "typed_cora", "typed_power_law")
     a = ttrace.resolve_trace_dataset("ring_of_tiles",
                                      {"n_nodes": 64, "n_tiles": 4})
     b = ttrace.resolve_trace_dataset("ring_of_tiles",
@@ -390,7 +391,7 @@ def test_dataset_registry_and_cache_keys():
     assert ttrace._canonical_params({"n": 2.0, "x": {"y": [1.0]}}) == (
         jtrace._canonical_params({"n": 2.0, "x": {"y": [1.0]}}))
     with pytest.raises(KeyError, match="unknown trace dataset"):
-        ttrace.resolve_trace_dataset("typed_cora")
+        ttrace.resolve_trace_dataset("power_law_sharded")
     with pytest.raises(ValueError, match="bad parameters"):
         ttrace.resolve_trace_dataset("ring_of_tiles", {"bogus": 1})
     ttrace.clear_trace_cache()
