@@ -137,7 +137,40 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    Times: generation, typed factorization, the torch- and NumPy-engine
    sweeps (host clock), K4 summed over the 64 launches (CUDA events,
    median of 20) beside its byte bound, and ``RelationalGraphModel`` for
-   ``engn``, ``hygcn`` and ``awb_gcn`` over the 16 capacities.
+   ``engn``, ``hygcn`` and ``awb_gcn`` over the 16 capacities;
+18. the design-space tuner: the resolved-trace LRU and the counters are
+   cleared, then ``examples/scenarios/tune_smoke.json`` runs through
+   ``python -m repro_torch.api --tune`` in process (exit 0, both pins, 4
+   K4 launches), the ``tune_cora`` template is evaluated, and the hetero
+   tune of the reference's tests (typed_blocks, R = 2, 24 candidates, 6 K4
+   launches) equals the same tune on the CPU.  At full scale,
+   benchmarks/tune.py's big tune (five dataflows, spill, halo 1, widths
+   64-32-16) runs cold over the 10^7-edge graph at its 16 capacities, 80
+   candidates: exactly 1 trace build, 1 factorization, 16 schedule computes
+   and 16 K4 launches; the result equals the same tune with
+   ``device="cpu"`` (K4's plain version) bit for bit, its best point the
+   ``np.argmin`` over the 80 concrete scenarios evaluated in one call, and
+   its best point and frontier digest the JAX reference's pin
+   (``BIG_TUNE_PIN``).  Times: the cold tune split into generation,
+   factorization, upload and tune, the K4 schedules and the closed forms
+   each rerun alone, the CPU-device tune (host clock), and K4 over its 16
+   launches beside its byte bound (CUDA events);
+19. the serve engine and the disk cache: benchmarks/serve.py's
+   24-scenario pool served cold from 16 client threads (6 K4 launches,
+   every one from the dispatcher thread, each a schedule compute), then its
+   load (1,500 requests of 1-3 scenarios, seed 0, 16 clients, 2 ms window)
+   warm: every served result equal to serial ``evaluate_scenarios`` on the
+   card, each window's evaluations equal to its distinct scenarios' plan
+   groups and tunes, no K4 launch; served scenarios/s, p50 and p99 request
+   latency, the serial loop's scenarios/s and the speedup (host clock).
+   The 80 concrete big-tune scenarios from 16 clients at once against a
+   cold LRU: 1 trace build, 1 factorization, 16 schedule computes and K4
+   launches, results equal to serial.  With ``REPRO_TORCH_TRACE_CACHE`` at
+   a fresh directory, a cold resolve and 16 schedules of the 10^7-edge
+   graph store it; after the LRU is cleared the warm pass has 0 builds, 0
+   factorizations, 16 disk hits, 0 K4 launches and equal schedules (the
+   cache's bytes, cold and warm host times).  Every other phase runs with
+   the disk cache off.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -326,6 +359,28 @@ HETERO_SMOKE_PINS = (67006960.0, 6590008.0, 3476624.0, 2783920.0)
 TYPED_TRACE = {"n_nodes": 1_939_743, "n_edges": 21_111_007,
                "n_relations": 4, "seed": 0}
 TYPED_DATAFLOWS = ("engn", "hygcn", "awb_gcn")
+#: benchmarks/tune.py's big tune (all five dataflows, spill, halo 1, widths
+#: 64-32-16) over ``BIG_TRACE`` at its 16 capacities V/2 ... V/2^16: 80
+#: candidates, exhaustive.
+TUNE_SMOKE = (Path(__file__).resolve().parent / "examples" / "scenarios"
+              / "tune_smoke.json")
+#: The best point and ``frontier_digest`` of that tune, as the JAX
+#: reference's ``repro.core.tune.tune_scenario`` gives them on the CPU (its
+#: NumPy engine) for ``big_tune_dict()``.
+BIG_TUNE_PIN = {
+    "best": {"dataflow": "spmm_tiled", "feasible": True, "halo_dedup": 1.0,
+             "index": 43, "n_tiles": 4099.0, "objective": 4279484160.0,
+             "residency": "spill", "sram_bits": 103936.0,
+             "tile_vertices": 244.0, "total_bits": 4279484160.0,
+             "total_iterations": 2906123.0},
+    "frontier_sha256":
+        "27d0016dc66f626176eddc5522b971fb50a918b6492a9439047784453736515d"}
+#: benchmarks/serve.py's load: its 24-scenario pool over these datasets,
+#: 1,500 requests of 1-3 scenarios from 16 client threads, a 2 ms window,
+#: seed 0.
+SERVE_TRACE_PARAMS = {"n_nodes": 4000.0, "n_edges": 16000.0, "seed": 1.0}
+SERVE_TYPED_PARAMS = {"n_nodes": 2000.0, "n_edges": 12000.0, "seed": 0.0}
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_WINDOW_S, SERVE_SEED = 1500, 16, 0.002, 0
 #: The reference's mutation battery over its five dataflows: drop-sigma and
 #: swap-NT for each, degenerate-minimum for the three whose forms call
 #: ``minimum``.
@@ -764,6 +819,30 @@ def trace_phases(dev, card: str, launches: dict, max_abs: dict,
           f"{statistics.median(sweep['torch']):.4f} s (factorization already on "
           f"the card; its upload took {upload_s:.4f} s); host factorization "
           f"{fact_s:.4f} s; trace path {path_s:.3f} s | {card}")
+
+
+def big_tune_dict() -> dict:
+    """The scenario of benchmarks/tune.py's big tune over ``BIG_TRACE``, as
+    a dict that either package's ``Scenario.from_dict`` takes."""
+    caps = [float(c) for c in pow2_caps(BIG_TRACE["n_nodes"], SWEEP_POINTS)]
+    return {"dataflow": "engn", "label": "tune-big",
+            "graph": {"kind": "trace", "dataset": "power_law_stream",
+                      "params": {k: float(v) for k, v in BIG_TRACE.items()},
+                      "N": 64.0, "T": 16.0},
+            "composition": {"widths": [64.0, 32.0, 16.0],
+                            "tile_vertices": caps[0]},
+            "optimize": {"objective": "movement",
+                         "space": {"dataflow": "all",
+                                   "tile_vertices": caps}}}
+
+
+def frontier_digest(tune: dict) -> str:
+    """SHA-256 of a ``TuneResult.to_dict()``'s frontier (sorted-key JSON;
+    floats print exactly, so equal digests mean equal bits)."""
+    import hashlib
+
+    blob = json.dumps(tune["frontier"], sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()
 
 
 def grid_digest(outputs) -> str:
@@ -1643,11 +1722,471 @@ def dlrm_phases(dev, card: str, launches: dict, max_abs: dict,
     torch.cuda.empty_cache()
 
 
+def big_tune_candidates(Scenario) -> list:
+    """The 80 concrete scenarios of the big tune, in the tuner's canonical
+    order (dataflow-major, capacity innermost)."""
+    from repro_torch.core import registry
+
+    base = big_tune_dict()
+    caps = base.pop("optimize")["space"]["tile_vertices"]
+    out = []
+    for df in registry.names():
+        for cap in caps:
+            d = json.loads(json.dumps(base))
+            d["dataflow"], d["composition"]["tile_vertices"] = df, cap
+            d["label"] = f"tune-big/{df}/tv{cap:g}"
+            out.append(Scenario.from_dict(d))
+    return out
+
+
+def result_records(results) -> list:
+    """Every number of a list of ``ScenarioResult``s (the drift gate)."""
+    return [(r.total_bits, r.total_iterations, r.offchip_bits, r.cache_bits,
+             r.onchip_bits, dict(r.breakdown), dict(r.iteration_breakdown),
+             r.n_tiles) for r in results]
+
+
+def k4_sweep_ms(trace, caps, dev) -> tuple[float, float]:
+    """K4 over a trace's capacities (CUDA events, median of 20 each, summed)
+    and the byte bound of the same work."""
+    from repro_torch.kernels import segment_reduce as sr
+
+    tensors = trace._device_factorization(dev)
+    u, s_idx = tensors[0].shape[0], tensors[1].element_size()
+    k4_ms = bound_ms = 0.0
+    for cap in caps:
+        n_tiles, K = trace._geometry(cap)
+        k4_ms += time_ms(torch, lambda: sr.schedule_counts(
+            *tensors, K, n_tiles, trace.n_edges))
+        bound_ms += 1e3 * (u * (2 * s_idx + 1 + 8) + 16 * n_tiles) \
+            / PEAK_BYTES_PER_S
+    return k4_ms, bound_ms
+
+
+def tune_phase(dev, card: str) -> dict:
+    """Phase 18: the design-space tuner on the card.  Returns the phase's
+    launches and the 80 concrete big-tune scenarios' results (phase 19
+    holds the served ones to them)."""
+    import tempfile
+
+    from repro_torch.api import (Scenario, cli, evaluate_scenarios,
+                                 template)
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.core.tune import tune_scenario
+    from repro_torch.kernels import ops
+
+    k4 = "segment_reduce.schedule_counts"
+    t_phase = time.perf_counter()
+    trace_mod.clear_trace_cache()
+    trace_mod.reset_trace_stats()
+    ops.reset_launches()
+
+    # (a) tune_smoke.json through the front door: 4 capacities of its trace
+    # scenario on K4, its full-graph scenario on the host.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tune_smoke.json"
+        rc = cli.main(["--tune", str(TUNE_SMOKE), "--device", "cuda",
+                       "--json", str(path)])
+        payload = json.loads(path.read_text()) if rc == 0 else None
+    if rc != 0 or [r["expect_ok"] for r in payload["results"]] != [True] * 2:
+        raise AssertionError(f"--tune tune_smoke.json exited {rc}")
+    smoke_launches = ops.LAUNCHES[k4]
+    print(f"# tune_smoke.json: exit 0, both pins held, "
+          f"{smoke_launches} K4 launches")
+    if smoke_launches != 4:
+        raise AssertionError(f"tune_smoke launched K4 {smoke_launches} times")
+
+    # (b) tune_cora, and the hetero tune of tests/test_hetero.py:308 on the
+    # card, held to the same tune on the CPU (plain K4).
+    cora = evaluate_scenarios(template("tune_cora").scenarios,
+                              device=dev).results[0].meta["tune"]
+    hetero = Scenario.hetero(
+        "engn", dataset="typed_blocks",
+        params={"n_nodes": 200, "n_edges": 900, "seed": 3}, n_relations=2,
+        N=[30.0, 20.0], T=16.0, tile_vertices=64,
+        widths=[[30.0, 20.0], 16.0, 5.0],
+        optimize={"objective": "movement",
+                  "space": {"dataflow": ["engn", "hygcn"],
+                            "tile_vertices": [32, 64, 128],
+                            "residency": ["spill", "resident"]}})
+    before = ops.LAUNCHES[k4]
+    het = tune_scenario(hetero, device=dev)
+    het_launches = ops.LAUNCHES[k4] - before
+    trace_mod.resolve_trace_dataset(
+        "typed_blocks", {"n_nodes": 200, "n_edges": 900, "seed": 3,
+                         "n_relations": 2}).clear_schedules()
+    if tune_scenario(hetero, device="cpu").to_dict() != het.to_dict():
+        raise AssertionError("the hetero tune differs from the CPU's")
+    print(f"# tune_cora: best {cora['best']['dataflow']} tile_vertices "
+          f"{cora['best']['tile_vertices']:g} {cora['best']['residency']} "
+          f"objective {cora['best']['objective']!r}, frontier "
+          f"{len(cora['frontier'])} points; hetero tune: "
+          f"{het.n_candidates} candidates, best {het.best.dataflow} "
+          f"tile_vertices {het.best.tile_vertices:g} residency "
+          f"{'+'.join(het.best.residency)}, {het_launches} K4 launches, "
+          "equal to the CPU's tune")
+    if het_launches != 6:
+        raise AssertionError(f"the hetero tune launched K4 {het_launches} "
+                             "times, not 2 relations x 3 capacities")
+
+    # (c) Full scale: benchmarks/tune.py's big tune over BIG_TRACE, cold.
+    trace_mod.clear_trace_cache()
+    trace_mod.reset_trace_stats()
+    before = ops.LAUNCHES[k4]
+    scenario = Scenario.from_dict(big_tune_dict())
+    caps = [int(c) for c in scenario.optimize["space"]["tile_vertices"]]
+    t0 = time.perf_counter()
+    big = trace_mod.resolve_trace_dataset("power_law_stream", BIG_TRACE)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big._pair_factorization()
+    fact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big._device_factorization(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr = tune_scenario(scenario, device=dev)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    stats = trace_mod.trace_cache_info()["stats"]
+    tune_launches = ops.LAUNCHES[k4] - before
+    print(f"# big tune: {tr.n_candidates} candidates ({tr.method}, "
+          f"{tr.n_groups} groups) over V={big.n_nodes} E={big.n_edges}; "
+          f"trace stats {json.dumps(stats, sort_keys=True)}; "
+          f"{tune_launches} K4 launches")
+    if (stats["trace_builds"], stats["factorizations"],
+            stats["schedule_computes"], tune_launches) != (
+                1, 1, len(caps), len(caps)):
+        raise AssertionError(f"big tune: {stats}, {tune_launches} launches")
+    if tr.n_candidates != 5 * len(caps) or tr.method != "exhaustive":
+        raise AssertionError(f"big tune: {tr.n_candidates} {tr.method}")
+    got = tr.to_dict()
+    digest = frontier_digest(got)
+    print(f"# big tune best: {json.dumps(got['best'], sort_keys=True)}; "
+          f"frontier {len(got['frontier'])} points, sha256 {digest}")
+    if (got["best"] != BIG_TUNE_PIN["best"]
+            or digest != BIG_TUNE_PIN["frontier_sha256"]):
+        raise AssertionError(f"big tune differs from the reference's pin "
+                             f"{BIG_TUNE_PIN}")
+
+    # Split: K4's schedules and the closed forms, each rerun alone.
+    big.clear_schedules()
+    t0 = time.perf_counter()
+    big.schedules(caps, device=dev)
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0
+    concrete = big_tune_candidates(Scenario)
+    t0 = time.perf_counter()
+    oracle = evaluate_scenarios(concrete, device=dev)
+    eval_s = time.perf_counter() - t0
+    objs = np.array([r.total_bits for r in oracle.results])
+    best = int(np.argmin(objs))
+    if (best != tr.best.index or objs[best] != tr.best.objective
+            or oracle.n_evaluations != 5):
+        raise AssertionError(f"np.argmin over the {len(concrete)} "
+                             f"scenarios: #{best} {objs[best]!r} vs the "
+                             f"tuner's #{tr.best.index} "
+                             f"{tr.best.objective!r}")
+    # The same tune on the CPU (K4's plain version), bit for bit.
+    big.clear_schedules()
+    before = ops.LAUNCHES[k4]
+    t0 = time.perf_counter()
+    cpu = tune_scenario(scenario, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if cpu.to_dict() != got:
+        raise AssertionError("the CPU-device tune differs from the card's")
+    if ops.LAUNCHES[k4] != before:
+        raise AssertionError("the CPU-device tune launched K4")
+    print(f"# big tune: bit-identical to the CPU-device tune; best = "
+          f"np.argmin over the {len(concrete)} concrete scenarios (#{best}, "
+          f"one evaluate_scenarios call, {oracle.n_evaluations} groups)")
+    k4_ms, bound_ms = k4_sweep_ms(big, caps, dev)
+    cold_s = gen_s + fact_s + upload_s + tune_s
+    print(f"# time big tune (host clock): {cold_s:.3f} s cold = generation "
+          f"{gen_s:.3f} + factorization {fact_s:.3f} + upload {upload_s:.3f} "
+          f"+ tune {tune_s:.3f} s; rerun alone: K4 schedules {sched_s:.4f} "
+          f"s, closed forms over the {len(concrete)} scenarios {eval_s:.4f} "
+          f"s; the CPU-device tune (plain K4) {cpu_s:.3f} s; K4 over the "
+          f"{len(caps)} launches {k4_ms:.4f} ms (CUDA events, median of 20 "
+          f"each), byte bound {bound_ms:.4f} ms "
+          f"({100 * bound_ms / k4_ms:.1f}%) | {card}")
+    print(f"# phase 18 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+    return {"launches": dict(ops.LAUNCHES), "oracle": oracle.results}
+
+
+def serve_pool(Scenario) -> list:
+    """benchmarks/serve.py's 24-scenario pool: tile, full, trace, hetero,
+    minibatch and tune kinds."""
+    from repro_torch.core import registry
+
+    dataflows = list(registry.names())
+    pool = [Scenario.tile(df, K=K, label=f"tile-{df}-{int(K)}",
+                          workload="serve-load")
+            for df in dataflows for K in (256.0, 1024.0, 4096.0)]
+    for df in dataflows[:2]:
+        pool.append(Scenario.full_graph(
+            df, V=2708.0, E=10556.0, N=1433.0, T=7.0,
+            widths=(1433.0, 16.0, 7.0), tile_vertices=512.0,
+            label=f"full-{df}", workload="serve-load"))
+    for df in dataflows[:2]:
+        for cap in (256.0, 1024.0):
+            pool.append(Scenario.trace(
+                df, dataset="power_law", params=SERVE_TRACE_PARAMS,
+                N=64.0, T=16.0, tile_vertices=cap, widths=(64.0, 32.0, 16.0),
+                label=f"trace-{df}-{int(cap)}", workload="serve-load"))
+    pool.append(Scenario.hetero(
+        dataflows[0], dataset="typed_power_law", n_relations=3,
+        params=SERVE_TYPED_PARAMS, N=[30.0, 20.0, 10.0], T=5.0,
+        tile_vertices=512.0, label="hetero-serve", workload="serve-load"))
+    pool.append(Scenario.minibatch(
+        dataflows[1], dataset="power_law", params=SERVE_TRACE_PARAMS,
+        batch_nodes=64, fanout=(4, 4), n_batches=4, N=64.0, T=16.0,
+        label="minibatch-serve", workload="serve-load"))
+    pool.append(Scenario.trace(
+        dataflows[0], dataset="power_law", params=SERVE_TRACE_PARAMS,
+        N=32.0, T=8.0, tile_vertices=512.0,
+        optimize={"objective": "movement",
+                  "space": {"tile_vertices": [256.0, 512.0, 1024.0]}},
+        label="tune-serve", workload="serve-load"))
+    return pool
+
+
+def serve_requests(pool, n_requests: int, seed: int) -> list:
+    """benchmarks/serve.py's duplicate-heavy load: each request samples 1-3
+    pool scenarios."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 4, size=n_requests)
+    return [[pool[i] for i in rng.integers(0, len(pool), size=int(k))]
+            for k in sizes]
+
+
+def serve_from_clients(engine, requests, n_clients: int) -> list:
+    """Each client thread fires an interleaved slice of the requests as
+    fast as the engine takes them, after a common barrier; returns the
+    ``ServeResult``s in request order."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    chunks = [requests[c::n_clients] for c in range(n_clients)]
+    barrier = threading.Barrier(n_clients)
+
+    def client(reqs):
+        barrier.wait()
+        return [engine.submit_future(r) for r in reqs]
+
+    with ThreadPoolExecutor(max_workers=n_clients) as ex:
+        chunk_handles = list(ex.map(client, chunks))
+    handles = [None] * len(requests)
+    for c, hs in enumerate(chunk_handles):
+        for k, h in enumerate(hs):
+            handles[c + k * n_clients] = h
+    return [h.result(timeout=600) for h in handles]
+
+
+def serve_phase(dev, card: str, oracle) -> dict:
+    """Phase 19: the serve engine and the disk cache on the card.  Returns
+    the phase's launches."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.api import (Scenario, ServeEngine, coalesce_scenarios,
+                                 evaluate_scenarios)
+    from repro_torch.core import schedule_cache
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+
+    k4 = "segment_reduce.schedule_counts"
+    t_phase = time.perf_counter()
+    trace_mod.clear_trace_cache()
+    trace_mod.reset_trace_stats()
+    ops.reset_launches()
+
+    # (a) benchmarks/serve.py's load.  First the pool cold, from 16
+    # clients: every schedule comes from K4 on the dispatcher thread.
+    pool = serve_pool(Scenario)
+    threads: list[str] = []
+    kernel = sr.schedule_counts
+
+    def recorded(*args, **kw):
+        threads.append(threading.current_thread().name)
+        return kernel(*args, **kw)
+
+    sr.schedule_counts = recorded
+    try:
+        with ServeEngine(window_s=SERVE_WINDOW_S, device=dev) as eng:
+            cold = serve_from_clients(eng, [[s] for s in pool],
+                                      SERVE_CLIENTS)
+    finally:
+        sr.schedule_counts = kernel
+    stats = trace_mod.trace_cache_info()["stats"]
+    cold_launches = ops.LAUNCHES[k4]
+    print(f"# serve, the pool cold: {len(pool)} requests, "
+          f"{cold_launches} K4 launches from threads {sorted(set(threads))}, "
+          f"{stats['schedule_computes']} schedule computes")
+    if (cold_launches != stats["schedule_computes"]
+            or cold_launches != len(threads) or cold_launches != 6
+            or set(threads) != {"repro-torch-serve"}):
+        raise AssertionError(f"cold serve: {cold_launches} K4 launches, "
+                             f"{stats}, threads {set(threads)}")
+    if result_records([r.results[0] for r in cold]) != result_records(
+            evaluate_scenarios(pool, device=dev).results):
+        raise AssertionError("the cold pool differs from serial evaluation")
+
+    # Then the load, warm, as benchmarks/serve.py runs it.
+    requests = serve_requests(pool, SERVE_REQUESTS, SERVE_SEED)
+    n_scen = sum(len(r) for r in requests)
+    distinct_used = len({s for req in requests for s in req})
+    trace_mod.reset_trace_stats()
+    before = ops.LAUNCHES[k4]
+    t0 = time.perf_counter()
+    serial = [evaluate_scenarios(req, device=dev).results
+              for req in requests]
+    naive_s = time.perf_counter() - t0
+    engine = ServeEngine(window_s=SERVE_WINDOW_S, device=dev)
+    t0 = time.perf_counter()
+    with engine:
+        served = serve_from_clients(engine, requests, SERVE_CLIENTS)
+    served_s = time.perf_counter() - t0
+    metrics = engine.metrics()
+    drift = [i for i, (a, b) in enumerate(zip(serial, served))
+             if result_records(a) != result_records(b.results)]
+    if drift:
+        raise AssertionError(f"served results differ from serial at "
+                             f"requests {drift[:10]}")
+    # Each window's evaluations are its distinct scenarios' plan groups
+    # plus its tuner runs.
+    windows: dict[int, list] = {}
+    for req, sr_ in zip(requests, served):
+        windows.setdefault(sr_.serve["window"], []).append((req, sr_.serve))
+    for w, members in windows.items():
+        serve = members[0][1]
+        distinct, _ = coalesce_scenarios([s for req, _ in members
+                                          for s in req])
+        evals = (len({s.plan_key() for s in distinct if s.optimize is None})
+                 + sum(s.optimize is not None for s in distinct))
+        if (serve["fallback"] or serve["n_requests"] != len(members)
+                or serve["n_distinct_scenarios"] != len(distinct)
+                or serve["n_evaluations"] != evals):
+            raise AssertionError(f"window {w}: {serve} vs {len(members)} "
+                                 f"requests, {len(distinct)} distinct, "
+                                 f"{evals} evaluations")
+    if (metrics["evaluations"] != sum(m[0][1]["n_evaluations"]
+                                      for m in windows.values())
+            or metrics["windows"] != len(windows)
+            or ops.LAUNCHES[k4] != before):
+        raise AssertionError(f"serve metrics {metrics}, {len(windows)} "
+                             "windows, or K4 launched on warm caches")
+    lat = np.array([x.serve["latency_s"] * 1e3 for x in served])
+    naive_rate, served_rate = n_scen / naive_s, n_scen / served_s
+    print(f"# serve load: {SERVE_REQUESTS} requests / {n_scen} scenarios "
+          f"({distinct_used} distinct) from {SERVE_CLIENTS} clients, window "
+          f"{SERVE_WINDOW_S * 1e3:g} ms: bit-identical to serial; "
+          f"{metrics['windows']} windows, {metrics['evaluations']} "
+          f"evaluations = each window's distinct plan groups and tunes "
+          f"(coalesce rate {metrics['coalesce_rate']:.3f}); 0 K4 launches "
+          "(warm)")
+    print(f"# time serve load (host clock): served {served_rate:.1f} "
+          f"scenarios/s ({served_s:.3f} s), request latency p50 "
+          f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} "
+          f"ms; naive serial loop {naive_rate:.1f} scenarios/s "
+          f"({naive_s:.3f} s); speedup {served_rate / naive_rate:.2f}x | "
+          f"{card}")
+
+    # (b) Full scale: 16 clients at once, a cold LRU, the 80 concrete
+    # BIG_TRACE scenarios: single flight.
+    concrete = big_tune_candidates(Scenario)
+    caps = pow2_caps(BIG_TRACE["n_nodes"], SWEEP_POINTS)
+    n_caps = len(caps)
+    trace_mod.clear_trace_cache()
+    trace_mod.reset_trace_stats()
+    before = ops.LAUNCHES[k4]
+    t0 = time.perf_counter()
+    with ServeEngine(window_s=SERVE_WINDOW_S, device=dev) as eng:
+        big = serve_from_clients(eng, [[s] for s in concrete],
+                                 SERVE_CLIENTS)
+        n_windows = eng.metrics()["windows"]
+    big_s = time.perf_counter() - t0
+    stats = trace_mod.trace_cache_info()["stats"]
+    big_launches = ops.LAUNCHES[k4] - before
+    if ((stats["trace_builds"], stats["factorizations"],
+         stats["schedule_computes"], big_launches) != (1, 1, n_caps, n_caps)
+            or result_records([r.results[0] for r in big])
+            != result_records(oracle)):
+        raise AssertionError(f"single flight: {stats}, {big_launches} K4 "
+                             "launches, or results differ from serial")
+    print(f"# serve at full scale: {len(concrete)} BIG_TRACE scenarios from "
+          f"{SERVE_CLIENTS} clients at once in {n_windows} windows, cold: 1 "
+          f"trace build, 1 factorization, {n_caps} schedule computes, "
+          f"{big_launches} K4 launches; bit-identical to serial; "
+          f"{big_s:.3f} s (host clock) | {card}")
+
+    # (c) The disk cache: a cold pass stores the graph and every schedule,
+    # a warm pass after the LRU is cleared loads them and launches nothing.
+    root = tempfile.mkdtemp(prefix="repro-torch-trace-")
+    os.environ["REPRO_TORCH_TRACE_CACHE"] = root
+    try:
+        passes = []
+        for _ in range(2):
+            trace_mod.clear_trace_cache()
+            trace_mod.reset_trace_stats()
+            schedule_cache.reset_cache_stats()
+            before = ops.LAUNCHES[k4]
+            t0 = time.perf_counter()
+            tr = trace_mod.resolve_trace_dataset("power_law_stream",
+                                                 BIG_TRACE)
+            scheds = tr.schedules(caps, device=dev)
+            torch.cuda.synchronize()
+            passes.append((time.perf_counter() - t0, scheds,
+                           trace_mod.trace_cache_info()["stats"],
+                           schedule_cache.cache_stats(),
+                           ops.LAUNCHES[k4] - before))
+        (cold_s, cold_scheds, cold_stats, cold_disk, cold_k4), \
+            (warm_s, warm_scheds, warm_stats, warm_disk, warm_k4) = passes
+        same_schedules(warm_scheds, cold_scheds, "disk vs K4 schedules")
+        if ((cold_stats["trace_builds"], cold_stats["factorizations"],
+             cold_stats["schedule_computes"], cold_k4,
+             cold_disk["counters"]["graph_stores"],
+             cold_disk["counters"]["schedule_stores"])
+                != (1, 1, n_caps, n_caps, 1, n_caps)
+                or (warm_stats["trace_builds"], warm_stats["factorizations"],
+                    warm_stats["schedule_computes"],
+                    warm_stats["schedule_disk_hits"], warm_k4,
+                    warm_disk["counters"]["graph_hits"])
+                != (0, 0, 0, n_caps, 0, 1)):
+            raise AssertionError(f"disk cache: cold {cold_stats} "
+                                 f"{cold_disk['counters']} {cold_k4} K4, "
+                                 f"warm {warm_stats} {warm_disk['counters']} "
+                                 f"{warm_k4} K4")
+        print(f"# disk cache: cold pass 1 build, 1 factorization, {cold_k4} "
+              f"K4 launches, stored 1 graph + {n_caps} schedules "
+              f"({warm_disk['bytes']} B); warm pass 0 builds, 0 "
+              f"factorizations, {n_caps} schedule_disk_hits, 0 K4 launches, "
+              f"schedules bit-identical")
+        print(f"# time disk cache (host clock): cold resolve + {n_caps} "
+              f"schedules {cold_s:.3f} s, warm {warm_s:.4f} s | {card}")
+    finally:
+        trace_mod.clear_trace_cache()
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ["REPRO_TORCH_TRACE_CACHE"] = "0"
+    print(f"# phase 19 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+    return dict(ops.LAUNCHES)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
               file=sys.stderr)
         return 1
+    # The disk cache stays off (phase 19 turns it on for itself): a warm
+    # cache would read phase 8's graph and schedules from disk.
+    import os
+    os.environ["REPRO_TORCH_TRACE_CACHE"] = "0"
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import backend, data, params
     from repro_torch.core import conformance
@@ -1894,6 +2433,10 @@ def main() -> int:
     figure_phases(dev, card, launches)
     analysis_phase(dev, card)
     typed_phases(dev, card, launches)
+    tuned = tune_phase(dev, card)
+    served = serve_phase(dev, card, tuned["oracle"])
+    for kname in launches:
+        launches[kname] += tuned["launches"][kname] + served[kname]
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -1910,7 +2453,8 @@ def main() -> int:
     print(f"# wall time {time.perf_counter() - t_start:.1f} s; K1-K3 times "
           "are sums over the two GCN-Cora layers, f32; K4's over the 16 "
           "capacities of the 10^7-edge sweep (its launches include phase "
-          "17's typed path); K5's one layer of the "
+          "17's typed path and phases 18-19's tunes and serve windows); "
+          "K5's one layer of the "
           "SmolLM-135M prefill, bf16; K6's the 26 tables of one serve_bulk "
           "forward of DLRM-MLPerf, f32")
     print(json.dumps({"kernels": kernels}))

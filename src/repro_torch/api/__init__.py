@@ -10,17 +10,26 @@
   by kernel K4, conformance checks run with kernels K1-K3;
 * :mod:`~repro_torch.api.templates`: the paper's figures as named scenario
   batches, which the ``figN_*`` functions of :mod:`repro_torch.core.sweep`
-  evaluate;
-* ``python -m repro_torch.api --scenario PATH | --template NAME
-  [--device cuda|cpu] [--json [PATH]] [--list]``.
+  evaluate, and ``tune_cora``;
+* :class:`~repro_torch.api.serve.ServeEngine`: concurrent scenario-batch
+  requests coalesced across callers inside a micro-batching window,
+  bit-identical to serial evaluation, with per-request coalesce and cache
+  metrics under ``meta["serve"]``;
+* the design-space tuner (:mod:`repro_torch.core.tune`, re-exported):
+  scenarios with an ``{"optimize": ...}`` block;
+* ``python -m repro_torch.api --scenario PATH | --template NAME | --tune
+  PATH [--serve] [--device cuda|cpu] [--json [PATH]] [--list]``.
 """
 
+from ..core.tune import (InfeasibleBudgetError, TunePoint, TuneResult,
+                         tune_scenario)
 from .planner import (BatchResult, GroupResult, ScenarioResult,
                       coalesce_scenarios, evaluate_groups, evaluate_scenario,
                       evaluate_scenarios)
 from .scenario import (Composition, FULL_GRAPH_FIELDS, HETERO_GRAPH_FIELDS,
                        MINIBATCH_GRAPH_FIELDS, Scenario, TILE_GRAPH_FIELDS,
                        TRACE_GRAPH_FIELDS, load_scenarios)
+from .serve import ServeEngine, ServeError, ServeResult
 from .templates import (TEMPLATES, TemplateBatch, template, template_names,
                         tile_scenarios_from_graph, trace_scenarios_from_graph)
 
@@ -40,10 +49,17 @@ __all__ = [
     "evaluate_scenarios",
     "evaluate_groups",
     "coalesce_scenarios",
+    "ServeEngine",
+    "ServeResult",
+    "ServeError",
     "TemplateBatch",
     "TEMPLATES",
     "template",
     "template_names",
     "tile_scenarios_from_graph",
     "trace_scenarios_from_graph",
+    "InfeasibleBudgetError",
+    "TunePoint",
+    "TuneResult",
+    "tune_scenario",
 ]

@@ -1,6 +1,5 @@
 """Batch planner: evaluate scenario batches with one broadcast call per plan
-(a copy of the reference's ``repro/api/planner.py``; ``optimize`` blocks
-are not ported).
+(a copy of the reference's ``repro/api/planner.py``).
 
 ``evaluate_scenarios`` groups scenarios by :meth:`Scenario.plan_key` and
 evaluates each group in one closed-form call: every numeric leaf (graph
@@ -14,6 +13,8 @@ hetero group's exact schedules come from kernel K4 (for a hetero group, one
 relation), and a ``conformance=True`` scenario's check holds its
 dataflow's kernels to their closed form and runs K1, K2 and K3 against the
 fp32 oracle.  A minibatch group's episode schedule is sampled on the host.
+A scenario with an ``optimize`` block goes through the tuner
+(:func:`repro_torch.core.tune.tune_scenario`) on the same ``device``.
 """
 
 from __future__ import annotations
@@ -74,13 +75,21 @@ class ScenarioResult:
     def expect_failures(self) -> list[str]:
         fails = []
         if self.scenario.expect is not None:
-            got = {"total_bits": self.total_bits,
-                   "total_iterations": self.total_iterations}
+            got: dict[str, Any] = {"total_bits": self.total_bits,
+                                   "total_iterations": self.total_iterations}
+            tune = (self.meta or {}).get("tune")
+            if tune is not None:
+                got["objective"] = tune["best"]["objective"]
+                got["best_dataflow"] = tune["best"]["dataflow"]
+                got["best_tile_vertices"] = tune["best"]["tile_vertices"]
             for key, want in self.scenario.expect.items():
                 have = got.get(key)
-                if have is None or not np.isclose(have, want,
-                                                  rtol=EXPECT_REL_TOL,
-                                                  atol=0.0):
+                if isinstance(want, str) or isinstance(have, str):
+                    if have != want:
+                        fails.append(f"{key}: expected {want!r}, got {have!r}")
+                elif have is None or not np.isclose(have, want,
+                                                    rtol=EXPECT_REL_TOL,
+                                                    atol=0.0):
                     fails.append(f"{key}: expected {want!r}, got {have!r}")
         return fails
 
@@ -101,6 +110,12 @@ class ScenarioResult:
             out["expect_ok"] = self.expect_ok
         if self.conformance is not None:
             out["conformance"] = dict(self.conformance)
+        tune = (self.meta or {}).get("tune")
+        if tune is not None:
+            out["tune"] = tune
+        serve = (self.meta or {}).get("serve")
+        if serve is not None:
+            out["serve"] = dict(serve)
         return out
 
 
@@ -402,10 +417,18 @@ def evaluate_groups(scenarios: Sequence[Scenario], *,
     The sweep engine's path: it needs only each group's stacked
     :class:`~repro_torch.core.terms.ModelOutput`, so no per-scenario result
     is built.  Trace groups count their schedules with K4 on ``device``.
+    Optimize scenarios are refused: they go through
+    :func:`evaluate_scenarios`, which routes them to the tuner.
     """
     scenarios = _checked(scenarios)
     by_key: dict[tuple, list[int]] = {}
     for i, s in enumerate(scenarios):
+        if s.optimize is not None:
+            raise ValueError(
+                f"scenarios[{i}] carries an optimize block; "
+                "evaluate_groups evaluates concrete scenarios only; "
+                "optimize scenarios go through evaluate_scenarios, which "
+                "routes them to the tuner (repro_torch.core.tune)")
         by_key.setdefault(s.plan_key(), []).append(i)
     return tuple(
         GroupResult(dataflow=scenarios[idx[0]].dataflow, plan_key=key,
@@ -424,11 +447,35 @@ def evaluate_scenarios(scenarios: Sequence[Scenario], *, device=None,
     scenarios run at most one conformance check per dataflow per batch
     there: CUDA unless ``device="cpu"``, and without a card the call
     raises rather than run on the CPU.
+
+    Scenarios with an ``optimize`` block go through the tuner
+    (:func:`repro_torch.core.tune.tune_scenario`, on ``device``) instead of
+    a broadcast group: their slot holds the winning configuration's totals
+    and breakdown, with the search record under ``meta["tune"]``.  The
+    tuner's probe batches come back through this function, so its
+    candidates still batch one stacked evaluation per plan group.
     """
-    scenarios = list(scenarios)
-    groups = evaluate_groups(scenarios, device=device)
-    conformance_cache: dict[str, dict] = {}
+    scenarios = _checked(scenarios)
+    plain_idx = [i for i, s in enumerate(scenarios) if s.optimize is None]
+    opt_idx = [i for i, s in enumerate(scenarios) if s.optimize is not None]
+    # evaluate_groups indexes into the plain sublist; translate back to
+    # input positions so GroupResult.indices keep their contract.
+    groups = tuple(
+        dataclasses.replace(g, indices=tuple(plain_idx[i] for i in g.indices))
+        for g in evaluate_groups([scenarios[i] for i in plain_idx],
+                                 device=device))
     slots: list[Optional[ScenarioResult]] = [None] * len(scenarios)
+    if opt_idx:
+        from ..core.tune import tune_scenario
+
+        for i in opt_idx:
+            tr = tune_scenario(scenarios[i], device=device)
+            slots[i] = dataclasses.replace(
+                tr.best_result, scenario=scenarios[i], conformance=None,
+                breakdown=dict(tr.best_result.breakdown),
+                iteration_breakdown=dict(tr.best_result.iteration_breakdown),
+                meta={**dict(tr.best_result.meta), "tune": tr.to_dict()})
+    conformance_cache: dict[str, dict] = {}
     for grp in groups:
         members = [scenarios[i] for i in grp.indices]
         out = grp.output

@@ -33,11 +33,19 @@ Graph kinds
           the tile).
 
 ``conformance=True`` asks for the measured-vs-modeled check of the
-dataflow's kernels (one operating point, the port's harness).  The
-reference's ``optimize`` blocks are not ported yet; one raises a
-``ValueError`` that names the ROADMAP item that brings it.  ``expect``
+dataflow's kernels (one operating point, the port's harness).  ``expect``
 optionally pins ``total_bits`` / ``total_iterations``, so a checked-in
 scenario file is a golden-drift gate.
+
+An ``optimize`` block turns a full-graph, trace or hetero scenario into a
+search request: ``{"optimize": {"objective": "movement", "budget":
+{"sram_bits": ...}, "space": {...}}}`` asks the planner for the
+objective-minimizing (dataflow, tile capacity, residency, halo policy)
+configuration within the space, found by :mod:`repro_torch.core.tune`.
+The block is normalized at construction
+(:func:`repro_torch.core.tune.normalize_optimize`), and such a scenario may
+also pin ``expect.objective`` / ``expect.best_dataflow`` /
+``expect.best_tile_vertices``.
 """
 
 from __future__ import annotations
@@ -56,7 +64,6 @@ __all__ = [
     "TRACE_GRAPH_FIELDS",
     "HETERO_GRAPH_FIELDS",
     "MINIBATCH_GRAPH_FIELDS",
-    "NOT_PORTED",
     "load_scenarios",
 ]
 
@@ -72,18 +79,7 @@ HETERO_GRAPH_FIELDS = ("dataset", "n_relations", "N", "T")
 MINIBATCH_GRAPH_FIELDS = ("dataset", "batch_nodes", "fanout", "n_batches",
                           "N", "T")
 
-#: Reference scenario features the port does not evaluate yet, and the
-#: ROADMAP.md item that brings each.
-NOT_PORTED = {
-    "optimize": "ROADMAP.md Queue 1 item 4e (the design-space tuner)",
-}
-
 _RESIDENCIES = ("spill", "resident")
-
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} scenarios are not ported to repro_torch yet; "
-                      f"see {NOT_PORTED[what]}")
 
 
 def _require_number(value: Any, what: str) -> float:
@@ -425,9 +421,16 @@ class Scenario:
       composition: optional policy (layer widths / residency / tiling).
       conformance: request the measured-vs-modeled check (one operating
         point) for dataflows with a runnable kernel analogue.
-      expect: optional pinned ``total_bits`` / ``total_iterations``.
+      expect: optional pinned totals (``total_bits``,
+        ``total_iterations``; plus ``objective`` / ``best_dataflow`` /
+        ``best_tile_vertices`` for optimize scenarios).
       label / workload: free-form identification carried through results.
-      optimize: not ported yet; a block raises.
+      optimize: optional search block (``objective`` / ``budget`` /
+        ``space`` / ``method``), normalized by
+        :func:`repro_torch.core.tune.normalize_optimize`.  The planner
+        routes such a scenario through the tuner; ``dataflow`` and the
+        composition are the search's base point (axes missing from the
+        space pin to their values).
     """
 
     dataflow: str
@@ -444,8 +447,6 @@ class Scenario:
         if not isinstance(self.dataflow, str) or not self.dataflow:
             raise ValueError(f"dataflow must be a non-empty accelerator "
                              f"name, got {self.dataflow!r}")
-        if self.optimize is not None:
-            raise _not_ported("optimize")
         graph, kind = _normalized_graph(dict(self.graph))
         object.__setattr__(self, "graph", graph)
         object.__setattr__(self, "_graph_kind", kind)
@@ -511,15 +512,62 @@ class Scenario:
                 f"per-relation composition values (arity {arity}) are "
                 f"only meaningful for a hetero scenario, not kind "
                 f"{kind!r}: other graph kinds have no relation axis")
+        if self.optimize is not None:
+            # The schema lives beside the engine that interprets it
+            # (repro_torch.core.tune imports only numpy).
+            from ..core.tune import normalize_optimize
+            opt = normalize_optimize(self.optimize)
+            object.__setattr__(self, "optimize", opt)
+            if kind == "tile":
+                raise ValueError(
+                    "an optimize block needs a full-graph or trace "
+                    "scenario: the search axes (tile capacity, residency, "
+                    "halo policy) are composition-layer knobs with no "
+                    "meaning for a single Table-II tile")
+            if kind == "minibatch":
+                raise ValueError(
+                    "an optimize block cannot attach to a minibatch "
+                    "scenario: its search axes (tile capacity, halo "
+                    "policy) are tiling knobs, and the episode schedule "
+                    "is fixed by the sampler; tune the sampling "
+                    "parameters by sweeping scenarios instead")
+            if self.conformance:
+                raise ValueError(
+                    "optimize and conformance are mutually exclusive on "
+                    "one scenario: run the conformance check on the tuned "
+                    "winner as a concrete scenario instead")
+            space = opt["space"]
+            if kind in ("trace", "hetero"):
+                for h in space.get("halo_dedup", ()):
+                    if h != 1.0:
+                        raise ValueError(
+                            f"space.halo_dedup must stay [1] for a {kind} "
+                            "scenario: the exact schedule already "
+                            "deduplicates remote sources per tile")
+            if ("resident" in space.get("residency", ())
+                    and self.composition.widths is None):
+                raise ValueError(
+                    "space.residency includes 'resident' but the scenario "
+                    "has no layer widths; residency governs inter-layer "
+                    "hand-off, so give composition.widths")
         if self.expect is not None:
             known = {"total_bits", "total_iterations"}
+            if self.optimize is not None:
+                known |= {"objective", "best_dataflow", "best_tile_vertices"}
             unknown = set(self.expect) - known
             if unknown:
                 raise ValueError(f"unknown expect keys {sorted(unknown)}; "
                                  f"expected a subset of {sorted(known)}")
-            object.__setattr__(self, "expect", {
-                k: _require_number(v, f"expect.{k}")
-                for k, v in dict(self.expect).items()})
+            normalized: dict[str, Any] = {}
+            for k, v in dict(self.expect).items():
+                if k == "best_dataflow":
+                    if not isinstance(v, str) or not v:
+                        raise ValueError(f"expect.best_dataflow must be a "
+                                         f"non-empty dataflow name, got {v!r}")
+                    normalized[k] = v
+                else:
+                    normalized[k] = _require_number(v, f"expect.{k}")
+            object.__setattr__(self, "expect", normalized)
 
     # -- constructors -----------------------------------------------------
     @classmethod
@@ -621,12 +669,20 @@ class Scenario:
             (k, tuple(sorted(v.items())) if isinstance(v, Mapping) else v)
             for k, v in sorted(self.graph.items()))
 
+    def _optimize_key(self) -> Optional[str]:
+        """Canonical (sorted-JSON) form of the normalized optimize block."""
+        if self.optimize is None:
+            return None
+        return json.dumps(self.optimize, sort_keys=True,
+                          separators=(",", ":"))
+
     def __hash__(self) -> int:
         expect = (None if self.expect is None
                   else tuple(sorted(self.expect.items())))
         return hash((self.dataflow, self._graph_key(),
                      tuple(sorted(self.hardware.items())), self.composition,
-                     self.conformance, expect, self.label, self.workload))
+                     self.conformance, expect, self.label, self.workload,
+                     self._optimize_key()))
 
     @property
     def graph_kind(self) -> str:
@@ -668,6 +724,11 @@ class Scenario:
                     tuple(sorted(self.graph["params"].items())),
                     self.graph["batch_nodes"], self.graph["fanout"],
                     self.graph["n_batches"], self.graph["seed"])
+        if self.optimize is not None:
+            # A search request never batches with plain scenarios (the
+            # planner routes it through the tuner); two searches share a
+            # key only for identical canonical blocks.
+            key += ("optimize", self._optimize_key())
         return key
 
     # -- serialization ----------------------------------------------------
@@ -687,6 +748,9 @@ class Scenario:
             out["label"] = self.label
         if self.workload:
             out["workload"] = self.workload
+        if self.optimize is not None:
+            # A deep copy through JSON: the caller must not alias our state.
+            out["optimize"] = json.loads(self._optimize_key())
         return out
 
     @classmethod

@@ -9,8 +9,7 @@ reshape the stacked results onto the figure's grid.  A template returns a
 repro_torch.api --template NAME`` can replay them.
 
 ``TEMPLATES`` is the by-name directory served by ``--template`` and
-``--list``.  ``tune_cora`` (the tuner) is listed, and building it raises a
-``ValueError`` that names the ROADMAP item that brings it.
+``--list``.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import numpy as np
 from ..core import registry
 from ..core.notation import GraphTileParams, paper_default_graph
 from ..core.trace import GraphTrace, register_trace_dataset
-from .scenario import Scenario, _not_ported, _trusted_tile
+from .scenario import Scenario, _trusted_tile
 
 __all__ = [
     "TemplateBatch",
@@ -321,9 +320,37 @@ def rgcn_cora(
                                "n_relations": int(n_relations)})
 
 
-def tune_cora(**_kw) -> TemplateBatch:
-    """The reference's auto-tune template (not ported yet)."""
-    raise _not_ported("optimize")
+def tune_cora(
+        tile_vertices: Optional[np.ndarray] = None,
+        widths: Sequence[float] = (1433, 16, 7),
+        V: float = 2708, E: float = 10556,
+        sram_bits: Optional[float] = None) -> TemplateBatch:
+    """The design-space tune of the L-layer GCN-on-Cora workload.
+
+    One optimize scenario searching (all dataflows) x (capacity sweep) x
+    (both residencies): with ``sram_bits`` unset the budget is open and the
+    result carries the movement-vs-SRAM Pareto frontier; with a budget, the
+    cheapest configuration that fits.
+    """
+    caps = np.atleast_1d(_f64(np.array([256, 512, 1024, 2048], np.float64)
+                              if tile_vertices is None else tile_vertices))
+    widths = tuple(float(w) for w in widths)
+    optimize = {
+        "objective": "movement",
+        "space": {"dataflow": "all",
+                  "tile_vertices": [float(c) for c in caps],
+                  "residency": ["spill", "resident"]},
+    }
+    if sram_bits is not None:
+        optimize["budget"] = {"sram_bits": float(sram_bits)}
+    scenario = Scenario.full_graph(
+        registry.names()[0], V=V, E=E, N=widths[0], T=widths[-1],
+        tile_vertices=float(caps[0]), widths=widths,
+        label="tune-cora-gcn", workload="gcn-cora",
+        optimize=optimize)
+    return TemplateBatch(figure="tune_cora", scenarios=(scenario,),
+                         axes={"tile_vertices": caps},
+                         meta={"widths": widths, "optimize": optimize})
 
 
 TEMPLATES: dict[str, Callable[..., TemplateBatch]] = {

@@ -7,7 +7,11 @@ conformance harness of the port.
 * :mod:`.compose` — ``MultiLayerModel``, ``TiledGraphModel`` and
   ``RelationalGraphModel``, and the auditable ``COMPOSITION_FORMS``;
 * :mod:`.trace` — exact edge-list tile schedules of plain and typed
-  traces, counted by kernel K4;
+  traces, counted by kernel K4, and :mod:`.schedule_cache`, their
+  content-addressed disk cache;
+* :mod:`.tune` — the design-space tuner: the movement-minimizing
+  (dataflow, tile capacity, residency, halo policy) under an SRAM budget,
+  and the Pareto frontier;
 * :mod:`.sweep` — the paper's Figures 3-7 and the stacked all-dataflow
   sweep (imported on its own: it is a client of :mod:`repro_torch.api`);
 * :mod:`.validation` — the Sec. IV golden totals and the registry
@@ -40,6 +44,8 @@ from .trace import (GraphTrace, TraceSchedule, TypedGraphTrace,
                     clear_trace_cache, register_trace_dataset,
                     reset_trace_stats, resolve_trace_dataset,
                     trace_cache_info, trace_dataset_names)
+from .tune import (InfeasibleBudgetError, TunePoint, TuneResult,
+                   normalize_optimize, tune_scenario)
 
 __all__ = [
     "DataflowSpec",
@@ -75,6 +81,11 @@ __all__ = [
     "clear_trace_cache",
     "reset_trace_stats",
     "trace_cache_info",
+    "InfeasibleBudgetError",
+    "TunePoint",
+    "TuneResult",
+    "normalize_optimize",
+    "tune_scenario",
     "GraphTileParams",
     "EnGNHardwareParams",
     "HyGCNHardwareParams",

@@ -25,7 +25,11 @@ has two engines:
 * ``"numpy"``: the reference's host pass, kept verbatim.
 
 Both give bit-identical integers, and :meth:`GraphTrace.schedule_reference`
-keeps the per-capacity ``np.unique`` algorithm as the oracle.
+keeps the per-capacity ``np.unique`` algorithm as the oracle.  Datasets
+registered with a ``cache_token`` also persist their factorization and every
+schedule in the content-addressed disk cache
+(:mod:`repro_torch.core.schedule_cache`): a warm process skips the
+generator, the sort and K4.
 
 A :class:`TypedGraphTrace` (an edge list whose edges carry a relation id)
 shares one sort across its relations; each relation's trace is a slice of
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from ..backend import resolve_device
+from . import schedule_cache
 
 __all__ = [
     "GraphTrace",
@@ -70,9 +75,10 @@ _ENGINES = ("torch", "numpy")
 #: Process-wide work counters (observability, not behaviour): edge-list
 #: sorts, schedule computations, schedule-LRU hits and dataset builds.
 _TRACE_STATS = {
-    "factorizations": 0,     # actual sorts
+    "factorizations": 0,     # actual sorts (not disk-cache loads)
     "schedule_computes": 0,  # per-capacity O(U) boundary-flag passes
     "schedule_cache_hits": 0,  # per-trace LRU hits
+    "schedule_disk_hits": 0,   # on-disk schedule_cache hits
     "trace_builds": 0,       # dataset builder invocations (cold resolves)
 }
 
@@ -275,6 +281,12 @@ class GraphTrace:
 
     def _init_state(self, fact: Optional[tuple]) -> None:
         self._fact = fact
+        # (u_snd, u_rcv, mult_prefix) of a disk-cached graph, finished into
+        # ``_fact`` on the first schedule query.
+        self._fact_source: Optional[tuple] = None
+        # (dataset, canonical params, cache token) of a tokened dataset:
+        # the disk-cache identity of its schedules.
+        self._disk_identity: Optional[tuple[str, str, str]] = None
         self._csr_senders: Optional[np.ndarray] = None
         self._device_fact: dict[str, tuple[torch.Tensor, ...]] = {}
         self._schedules: "OrderedDict[int, TraceSchedule]" = OrderedDict()
@@ -336,6 +348,36 @@ class GraphTrace:
             np.cumsum(counts, out=obj.row_ptr[1:])
         obj._init_state(cls._finish_factorization(
             u_snd, u_rcv, mult_prefix[:-1], obj._n_edges))
+        return obj
+
+    @classmethod
+    def _from_cached(cls, d: Mapping[str, Any]) -> "GraphTrace":
+        """Rebuild from a :mod:`repro_torch.core.schedule_cache` graph
+        payload.  Trusted: no validation and no sort.  The arrays may be
+        memory-mapped and nothing here reads them, so a warm resolve costs
+        directory stats and header reads; the factorization is finished on
+        the first schedule query."""
+        has_fact = all(k in d for k in ("fact_u_snd", "fact_u_rcv",
+                                        "fact_mult_prefix"))
+        has_edges = "senders" in d and "receivers" in d
+        if "row_ptr" not in d or not (has_fact or has_edges):
+            return cls(d["senders"], d["receivers"], d["n_nodes"])
+        obj = cls.__new__(cls)
+        obj.n_nodes = int(d["n_nodes"])
+        if has_edges:
+            obj.senders = d["senders"]
+            obj.receivers = d["receivers"]
+            obj._n_edges = int(obj.senders.shape[0])
+        else:
+            obj.senders = np.empty(0, dtype=np.int64)
+            obj.receivers = np.empty(0, dtype=np.int64)
+            obj._n_edges = int(d["n_edges"])
+        obj.row_ptr = d["row_ptr"]
+        obj._init_state(None)
+        obj._csr_senders = d.get("csr_senders")
+        if has_fact:
+            obj._fact_source = (d["fact_u_snd"], d["fact_u_rcv"],
+                                d["fact_mult_prefix"])
         return obj
 
     # -- basic measures ----------------------------------------------------
@@ -431,10 +473,21 @@ class GraphTrace:
         if self._fact is None:
             V = self.n_nodes
             E = self.n_edges
-            if E == 0:
+            if self._fact_source is not None:
+                # Disk-cached (maybe memory-mapped): only the new-sender
+                # mask is left to build, O(U), no sort.
+                u_snd, u_rcv, mp = self._fact_source
+                mp = np.asarray(mp, dtype=np.int64)
+                self._fact = self._finish_factorization(
+                    u_snd, u_rcv, mp[:-1], int(mp[-1]))
+                self._fact_source = None
+            elif E == 0:
                 z = np.zeros(0, dtype=np.int64)
                 self._fact = (z, z, np.zeros(0, dtype=bool),
                               np.zeros(1, dtype=np.int64))
+            elif not self.has_edge_list:
+                raise RuntimeError(
+                    "factorization-only trace lost its factorization")
             elif V <= int((2**63 - 1) ** 0.5):
                 _bump_stat("factorizations")
                 # dtype pinned: int32 edge arrays must not decide the key
@@ -488,8 +541,10 @@ class GraphTrace:
             tensors = self._device_fact.get(key)
             if tensors is None:
                 u_snd, u_rcv, u_new_src, mp = self._pair_factorization()
+                # Disk-cached pairs are read-only maps: torch takes a
+                # writable copy of those.
                 tensors = tuple(
-                    torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    torch.from_numpy(np.require(a, requirements="CW")).to(dev)
                     for a in (u_snd, u_rcv, u_new_src, np.diff(mp)))
                 self._device_fact[key] = tensors
             return tensors
@@ -614,18 +669,51 @@ class GraphTrace:
 
     # -- schedule cache plumbing ------------------------------------------
     def _cached_schedule(self, cap: int) -> Optional[TraceSchedule]:
+        """The LRU's schedule, else the disk cache's, else None."""
         sched = self._schedules.get(cap)
         if sched is not None:
             self._schedules.move_to_end(cap)
             _bump_stat("schedule_cache_hits")
-        return sched
+            return sched
+        return self._schedule_from_disk(cap)
 
-    def _remember_schedule(self, cap: int, sched: TraceSchedule) -> None:
+    def _remember_schedule(self, cap: int, sched: TraceSchedule, *,
+                           to_disk: bool = True) -> None:
         self._schedules[cap] = sched
         self._schedules.move_to_end(cap)
         limit = max(1, int(self.schedule_cache_entries))
         while len(self._schedules) > limit:
             self._schedules.popitem(last=False)
+        if to_disk:
+            self._schedule_to_disk(cap, sched)
+
+    def _disk_key(self, cap: int) -> Optional[str]:
+        """The schedule's disk-cache key, or None when it takes no part."""
+        if self._disk_identity is None:
+            return None
+        if self.n_edges < schedule_cache.min_cached_edges():
+            return None
+        return schedule_cache.schedule_cache_key(*self._disk_identity, cap)
+
+    def _schedule_from_disk(self, cap: int) -> Optional[TraceSchedule]:
+        key = self._disk_key(cap)
+        d = None if key is None else schedule_cache.load_schedule(key)
+        if d is None:
+            return None
+        _bump_stat("schedule_disk_hits")
+        sched = TraceSchedule(
+            n_tiles=d["n_tiles"], capacity=d["capacity"], K=d["K"],
+            vertex_counts=d["vertex_counts"], edge_counts=d["edge_counts"],
+            halo_counts=d["halo_counts"],
+            remote_edge_counts=d["remote_edge_counts"],
+            _pair_source=functools.partial(self._pairs_for, d["K"]))
+        self._remember_schedule(cap, sched, to_disk=False)
+        return sched
+
+    def _schedule_to_disk(self, cap: int, sched: TraceSchedule) -> None:
+        key = self._disk_key(cap)
+        if key is not None:
+            schedule_cache.store_schedule(key, **sched.counts_dict())
 
     def clear_schedules(self) -> None:
         """Drop the per-trace schedule LRU (memory reclaim).
@@ -929,7 +1017,8 @@ class TypedGraphTrace:
 # Dataset registry: names a scenario file can reference, resolving to the
 # deterministic generators in repro_torch.data.synthetic.
 # ---------------------------------------------------------------------------
-_TRACE_DATASETS: dict[str, Callable[..., Any]] = {}
+#: name -> (builder, cache token or None).
+_TRACE_DATASETS: dict[str, tuple[Callable[..., Any], Optional[str]]] = {}
 _TRACE_CACHE: "OrderedDict[tuple, GraphTrace]" = OrderedDict()
 #: In-process resolved-trace budget; oldest entries evict beyond it (the
 #: most recent trace always stays, even when alone it exceeds the budget).
@@ -937,12 +1026,17 @@ _TRACE_CACHE_BUDGET_BYTES = 1 << 30
 
 
 def register_trace_dataset(name: str, builder: Callable[..., GraphTrace], *,
-                           overwrite: bool = False) -> None:
+                           overwrite: bool = False,
+                           cache_token: Optional[str] = None) -> None:
     """Register a named trace dataset builder (kwargs -> GraphTrace).
 
     Builders must be deterministic in their parameters so a serialized
     trace scenario replays bit-identically; anything random is keyed by an
-    explicit ``seed`` parameter.
+    explicit ``seed`` parameter.  ``cache_token`` opts the dataset into the
+    on-disk graph and schedule cache (:mod:`repro_torch.core.
+    schedule_cache`): it is the builder's version stamp, to be bumped
+    whenever its output changes for identical parameters.  Datasets without
+    one never touch the disk.
     """
     if not name or not isinstance(name, str):
         raise ValueError(f"dataset name must be a non-empty string, got {name!r}")
@@ -950,7 +1044,7 @@ def register_trace_dataset(name: str, builder: Callable[..., GraphTrace], *,
         if name in _TRACE_DATASETS and not overwrite:
             raise ValueError(f"trace dataset {name!r} already registered "
                              "(pass overwrite=True to replace)")
-        _TRACE_DATASETS[name] = builder
+        _TRACE_DATASETS[name] = (builder, cache_token)
         # Replacing a builder invalidates traces resolved under the old one.
         for key in [k for k in _TRACE_CACHE if k[0] == name]:
             del _TRACE_CACHE[key]
@@ -1031,32 +1125,67 @@ def trace_cache_info() -> dict:
 def resolve_trace_dataset(name: str,
                           params: Optional[Mapping[str, Any]] = None,
                           ) -> "GraphTrace | TypedGraphTrace":
-    """Build a dataset, or fetch it from the in-process LRU.
+    """Build a dataset, or fetch it from the in-process LRU or the disk.
 
-    Thread-safe: the whole resolve holds the process-wide cache lock, so
-    concurrent resolutions of one key cost exactly one build.
+    Thread-safe: the whole resolve (LRU probe, disk load, builder call,
+    disk store, insert) holds the process-wide cache lock, so concurrent
+    resolutions of one key cost exactly one build.
     """
     params = dict(params or {})
     with _CACHE_LOCK:
         if name not in _TRACE_DATASETS:
             raise KeyError(f"unknown trace dataset {name!r}; "
                            f"registered: {list(trace_dataset_names())}")
+        builder, token = _TRACE_DATASETS[name]
         key = _cache_key(name, params)
         cached = _TRACE_CACHE.get(key)
         if cached is not None:
             _TRACE_CACHE.move_to_end(key)
             return cached
-        _bump_stat("trace_builds")
-        try:
-            trace = _TRACE_DATASETS[name](**params)
-        except TypeError as exc:
-            raise ValueError(
-                f"bad parameters {sorted(params)} for trace dataset "
-                f"{name!r}: {exc}") from exc
+        identity = (name, key[1], token)
+        trace = None
+        if token is not None:
+            payload = schedule_cache.load_graph(
+                schedule_cache.graph_cache_key(*identity))
+            if payload is not None:
+                trace = GraphTrace._from_cached(payload)
+        if trace is None:
+            _bump_stat("trace_builds")
+            try:
+                trace = builder(**params)
+            except TypeError as exc:
+                raise ValueError(
+                    f"bad parameters {sorted(params)} for trace dataset "
+                    f"{name!r}: {exc}") from exc
+            if token is not None:
+                _store_graph(trace, identity)
+        if token is not None:
+            trace._disk_identity = identity
         _TRACE_CACHE[key] = trace
         _TRACE_CACHE.move_to_end(key)
         _evict_to_budget()
         return trace
+
+
+def _store_graph(trace: GraphTrace, identity: tuple[str, str, str]) -> None:
+    """Persist a freshly built tokened trace: its factorization (sorted here
+    once), row pointer and edge list, so a warm process skips the generator
+    and every sort.  ``csr_senders`` goes along only if already built.  With
+    the cache off nothing happens: the sort stays lazy."""
+    if (schedule_cache.cache_root() is None
+            or trace.n_edges < schedule_cache.min_cached_edges()):
+        return
+    u_snd, u_rcv, _, mp = trace._pair_factorization()
+    kw = {}
+    if trace.has_edge_list and trace.n_edges:
+        kw["senders"] = trace.senders
+        kw["receivers"] = trace.receivers
+    if trace._csr_senders is not None:
+        kw["csr_senders"] = trace._csr_senders
+    schedule_cache.store_graph(
+        schedule_cache.graph_cache_key(*identity), n_nodes=trace.n_nodes,
+        n_edges=trace.n_edges, row_ptr=trace.row_ptr, fact_u_snd=u_snd,
+        fact_u_rcv=u_rcv, fact_mult_prefix=mp, **kw)
 
 
 def clear_trace_cache() -> None:
@@ -1170,8 +1299,9 @@ def _typed_cora_trace(*, n_relations=3, seed=0, alpha=1.6) -> TypedGraphTrace:
         seed=int(seed), alpha=float(alpha))
 
 
-register_trace_dataset("power_law", _power_law_trace)
-register_trace_dataset("power_law_stream", _power_law_stream_trace)
+register_trace_dataset("power_law", _power_law_trace, cache_token="v1")
+register_trace_dataset("power_law_stream", _power_law_stream_trace,
+                       cache_token="v1")
 register_trace_dataset("cora", _cora_trace)
 register_trace_dataset("molecule", _molecule_trace)
 register_trace_dataset("ring_of_tiles", _ring_of_tiles_trace)

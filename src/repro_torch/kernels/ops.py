@@ -7,7 +7,9 @@ from the card to the CPU.
 
 ``LAUNCHES`` counts, per kernel, the launches these wrappers made: each
 wrapper adds one right after its kernel launched, and nowhere else, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  The counts are exact
+when several threads launch (the serve engine's dispatcher beside its
+callers): every addition holds a lock.
 
 The aggregate and combine passes stay two launches, never joined under a
 CUDA graph or ``torch.compile``: the pair is the HyGCN inter-phase analogue,
@@ -16,6 +18,7 @@ and one program would remove exactly the traffic it models.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -36,9 +39,19 @@ LAUNCHES = {"edge_aggregate": 0, "edge_aggregate_unfused.aggregate": 0,
             "embedding_bag": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _launched(name: str) -> None:
+    """Add one launch of kernel ``name`` (a read-modify-write: locked)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def gnn_aggregate_combine(adjacency: torch.Tensor, x: torch.Tensor,
@@ -48,7 +61,7 @@ def gnn_aggregate_combine(adjacency: torch.Tensor, x: torch.Tensor,
     if x.device.type == "cuda":
         out = ea.fused_aggregate_combine(adjacency, x, w, block_n=block_n,
                                          block_k=block_k)
-        LAUNCHES["edge_aggregate"] += 1
+        _launched("edge_aggregate")
         return out
     ea.fused_launch_tensors(adjacency, x, w, block_n=block_n, block_k=block_k)
     return ea.fused_aggregate_combine_plain(adjacency, x, w)
@@ -60,7 +73,7 @@ def gnn_aggregate(adjacency: torch.Tensor, x: torch.Tensor, *,
     if x.device.type == "cuda":
         out = eu.aggregate_pass(adjacency, x, block_n=block_n,
                                 block_k=block_k)
-        LAUNCHES["edge_aggregate_unfused.aggregate"] += 1
+        _launched("edge_aggregate_unfused.aggregate")
         return out
     eu.aggregate_launch_tensors(adjacency, x, block_n=block_n,
                                 block_k=block_k)
@@ -72,7 +85,7 @@ def gnn_combine(y_agg: torch.Tensor, w: torch.Tensor, *,
     """Unfused pass 2: Y = Y_agg @ W, reading the spill back (K3 on CUDA)."""
     if y_agg.device.type == "cuda":
         out = eu.combine_pass(y_agg, w, block_n=block_n)
-        LAUNCHES["edge_aggregate_unfused.combine"] += 1
+        _launched("edge_aggregate_unfused.combine")
         return out
     eu.combine_launch_tensors(y_agg, w, block_n=block_n)
     return eu.combine_pass_plain(y_agg, w)
@@ -92,7 +105,7 @@ def schedule_counts(u_snd: torch.Tensor, u_rcv: torch.Tensor,
         out = sr.schedule_counts(u_snd, u_rcv, u_new_src, mult, K, n_tiles,
                                  total)
         if u_rcv.shape[0]:
-            LAUNCHES["segment_reduce.schedule_counts"] += 1
+            _launched("segment_reduce.schedule_counts")
         return out
     return sr.schedule_counts_plain(u_snd, u_rcv, u_new_src, mult, K, n_tiles)
 
@@ -109,7 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = fa.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap, block_q=block_q,
                                  block_k=block_k)
-        LAUNCHES["flash_attention"] += 1
+        _launched("flash_attention")
         return out
     fa.check_attention_operands(q, k, v, window=window, softcap=softcap,
                                 block_q=block_q, block_k=block_k)
@@ -124,6 +137,6 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
     when the table requires grad: K6 has no backward."""
     if table.device.type == "cuda":
         out = eb.embedding_bag(table, indices, out=out)
-        LAUNCHES["embedding_bag"] += 1
+        _launched("embedding_bag")
         return out
     return eb.embedding_bag_plain(table, indices, out=out)

@@ -42,6 +42,7 @@ CAPS = [1000, 500, 250, 125, 62, 31]
 @pytest.fixture(autouse=True)
 def _no_disk_cache(monkeypatch):
     monkeypatch.setenv("REPRO_TRACE_CACHE", "0")
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE", "0")
 
 
 def _assert_same_output(got, expect):
@@ -262,14 +263,19 @@ def test_capacity_sweep_is_one_group_and_round_trips():
     assert again == scen and len(set(again)) == len(CAPS)
 
 
-@pytest.mark.parametrize("feature", sorted(tscenario.NOT_PORTED))
+@pytest.mark.parametrize("feature", ["optimize"])
 def test_unported_features_name_their_roadmap_item(feature):
+    """Every scenario feature of the reference is ported now: the block
+    that used to raise normalizes as the reference's does."""
+    from repro.core.tune import normalize_optimize as j_normalize
+    assert not hasattr(tscenario, "NOT_PORTED")
     base = {"dataflow": "engn", "graph": {"kind": "trace",
             "dataset": "cora", "N": 30.0, "T": 5.0},
             "composition": {"tile_vertices": 512.0}}
-    base["optimize"] = {"objective": "movement"}
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item"):
-        Scenario.from_dict(base)
+    base[feature] = {"objective": "movement"}
+    port = Scenario.from_dict(base)
+    assert port.optimize == j_normalize(base[feature])
+    assert port.to_dict() == JScenario.from_dict(base).to_dict()
 
 
 def test_schema_rejections_match_reference():
@@ -343,17 +349,32 @@ def test_template_fig3_json_rows_match_the_reference(tmp_path, capsys):
 
 @pytest.mark.parametrize("name,item", [("tune_cora", "item 4e")])
 def test_unported_templates_name_their_roadmap_item(name, item):
+    """The template that waited for the tuner (item 4e) builds now, and
+    it is the reference's batch."""
+    from repro.api import template as j_template
     from repro_torch.api import template, template_names
     assert name in template_names()
-    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
-        template(name)
+    port, ref = template(name), j_template(name)
+    assert [s.to_dict() for s in port.scenarios] == [
+        s.to_dict() for s in ref.scenarios]
+    assert port.meta == ref.meta
 
 
 def test_dataflows_flag_names_its_roadmap_item(capsys):
     from repro_torch.api import cli
     assert cli.main(["--template", "fig3", "--dataflows", "engn",
                      "--device", "cpu"]) == 2
-    assert "ROADMAP.md Queue 1 item 4f" in capsys.readouterr().err
+    assert "ROADMAP.md Queue 1 item 4g" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--workload", "gcn-cora"],
+                                  ["--shape", "full"]],
+                         ids=["workload", "shape"])
+def test_bridge_flags_name_their_roadmap_item(capsys, flag):
+    from repro_torch.api import cli
+    assert cli.main(["--template", "fig3", *flag, "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "ROADMAP.md Queue 1 item 4g" in err and flag[0] in err
 
 
 @pytest.fixture

@@ -6,8 +6,7 @@ must be the same edge lists; every per-relation schedule, every relational
 term and every scenario total of the port must equal the reference's bit
 for bit (``np.array_equal``, never ``isclose``).  On the CPU the torch
 engine runs K4's plain version, which must equal the NumPy engine.  The
-sharded (ROADMAP item 4b) and tuner (item 4e) cases of the reference's
-battery wait for their items.
+sharded case of the reference's battery waits for ROADMAP item 4b.
 """
 
 import json
@@ -480,7 +479,7 @@ def test_hetero_and_minibatch_validation_rejections():
         Scenario(dataflow="engn", graph=mb_graph,
                  composition=Composition(widths=(4.0, 4.0),
                                          tile_vertices=64.0))
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 4e"):
+    with pytest.raises(ValueError, match="minibatch"):
         Scenario(dataflow="engn", graph=mb_graph,
                  optimize={"objective": "movement"})
     with pytest.raises(ValueError, match="unknown graph kind"):
@@ -489,6 +488,51 @@ def test_hetero_and_minibatch_validation_rejections():
         evaluate_scenarios([Scenario.hetero(
             "engn", dataset="cora", n_relations=1, N=1.0, T=1.0,
             tile_vertices=64)], device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The tuner: per-relation residency search vs brute force
+# ---------------------------------------------------------------------------
+def test_tune_hetero_per_relation_residency_matches_brute_force():
+    import itertools
+
+    from repro.core.tune import tune_scenario as j_tune_scenario
+    from repro_torch.core.tune import tune_scenario
+
+    params = {"n_nodes": 200, "n_edges": 900, "seed": 3}
+    base = Scenario.hetero(
+        "engn", dataset="typed_blocks", params=params,
+        n_relations=2, N=[30.0, 20.0], T=16.0, tile_vertices=64,
+        widths=[[30.0, 20.0], 16.0, 5.0],
+        optimize={"objective": "movement",
+                  "space": {"dataflow": ["engn", "hygcn"],
+                            "tile_vertices": [32, 64, 128],
+                            "residency": ["spill", "resident"]}})
+    res = tune_scenario(base, device="cpu")
+    assert res.method == "exhaustive"
+    assert res.n_candidates == 2 * (2 ** 2) * 3  # the residency axis is 2^R
+
+    best = (np.inf, None)
+    for df in ("engn", "hygcn"):
+        for rr in itertools.product(("spill", "resident"), repeat=2):
+            for tv in (32, 64, 128):
+                s = Scenario.hetero(
+                    df, dataset="typed_blocks", params=params,
+                    n_relations=2, N=[30.0, 20.0], T=16.0,
+                    tile_vertices=tv,
+                    widths=[[30.0, 20.0], 16.0, 5.0], residency=list(rr))
+                r = evaluate_scenarios([s], device="cpu").results[0]
+                if r.total_bits < best[0]:
+                    best = (r.total_bits, (df, float(tv), rr))
+    assert res.best.total_bits == best[0]
+    assert (res.best.dataflow, res.best.tile_vertices,
+            res.best.residency) == best[1]
+    # Per-relation residency serializes as a JSON list, not a tuple.
+    d = res.best.to_dict()["residency"]
+    assert isinstance(d, (str, list))
+    # and the whole search record is the reference's
+    ref = j_tune_scenario(JScenario.from_dict(base.to_dict()))
+    assert res.to_dict() == ref.to_dict()
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,9 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "__main__"):
         assert f"repro_torch.analysis.{name}" in walked, name
     assert "repro_torch.data.sampler" in walked
+    for name in ("repro_torch.core.tune", "repro_torch.core.schedule_cache",
+                 "repro_torch.api.serve"):
+        assert name in walked, name
 
 
 def test_analysis_cli_help_runs_with_jax_and_reference_blocked():

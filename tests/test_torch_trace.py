@@ -39,8 +39,10 @@ def _pow2_caps(V):
 
 @pytest.fixture(autouse=True)
 def _no_disk_cache(monkeypatch):
-    """The reference's datasets never touch the on-disk cache here."""
+    """Neither package's datasets touch an on-disk cache unless a test
+    points one at its ``tmp_path``."""
     monkeypatch.setenv("REPRO_TRACE_CACHE", "0")
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE", "0")
 
 
 @pytest.fixture
@@ -413,6 +415,159 @@ def test_from_factorization_and_guards_match_reference():
         ttrace.GraphTrace([0, 5], [1, 2], 4)
     with pytest.raises(ValueError, match="whole number"):
         port.schedule(2.5, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The content-addressed disk cache (twins of the reference's four tests, the
+# keys held to the reference's, and the two packages' roots kept apart).
+# ---------------------------------------------------------------------------
+def test_disk_cache_round_trip(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE_MIN_EDGES", "0")
+    params = {"n_nodes": 700, "n_edges": 4200, "seed": 9, "alpha": 1.4}
+    ttrace.clear_trace_cache()
+    ttrace.reset_trace_stats()
+    t1 = ttrace.resolve_trace_dataset("power_law", params)
+    s1 = t1.schedule(128, device="cpu")
+    # one graph part-directory and one schedule npz
+    assert len(list(tmp_path.rglob("*.graph"))) == 1
+    assert len(list(tmp_path.rglob("*.npz"))) == 1
+    ttrace.clear_trace_cache()
+    t2 = ttrace.resolve_trace_dataset("power_law", params)
+    assert t2 is not t1
+    np.testing.assert_array_equal(t2.senders, t1.senders)
+    np.testing.assert_array_equal(t2.receivers, t1.receivers)
+    np.testing.assert_array_equal(t2.row_ptr, t1.row_ptr)
+    # the schedule comes from disk (no K4 pass, no sort) and still answers
+    # cache-hit queries through the lazily rebuilt pair provider
+    s2 = t2.schedule(128, device="cpu")
+    stats = ttrace.trace_cache_info()["stats"]
+    assert stats == {"factorizations": 1, "schedule_computes": 1,
+                     "schedule_cache_hits": 0, "schedule_disk_hits": 1,
+                     "trace_builds": 1}
+    assert s2.counts_dict().keys() == s1.counts_dict().keys()
+    for f, v in s1.counts_dict().items():
+        np.testing.assert_array_equal(s2.counts_dict()[f], v)
+        assert np.asarray(s2.counts_dict()[f]).dtype == np.asarray(v).dtype
+    np.testing.assert_array_equal(s2.cache_hit_fraction(0.1),
+                                  s1.cache_hit_fraction(0.1))
+    ref = t2.schedule_reference(128)
+    for f in COUNT_FIELDS:
+        np.testing.assert_array_equal(getattr(s2, f), getattr(ref, f))
+    # a new capacity on the disk-loaded graph: K4's pass over the stored
+    # factorization equals the reference engine's schedule
+    s3 = t2.schedule(64, device="cpu")
+    expect = jtrace.resolve_trace_dataset("power_law", params).schedule(64)
+    for f in COUNT_FIELDS:
+        np.testing.assert_array_equal(getattr(s3, f), getattr(expect, f))
+    assert ttrace.trace_cache_info()["stats"]["factorizations"] == 1
+    ttrace.clear_trace_cache()
+
+
+def test_disk_cache_disabled_and_tokenless(tmp_path, monkeypatch):
+    from repro_torch.core import schedule_cache
+    params = {"n_nodes": 400, "n_edges": 2000, "seed": 1}
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE", "0")
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE_MIN_EDGES", "0")
+    ttrace.clear_trace_cache()
+    ttrace.resolve_trace_dataset("power_law", params).schedule(64,
+                                                               device="cpu")
+    assert schedule_cache.cache_root() is None
+    # token-less datasets never write entries, even with the cache on
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE", str(tmp_path))
+    ttrace.clear_trace_cache()
+    ttrace.resolve_trace_dataset(
+        "ring_of_tiles", {"n_nodes": 400, "n_tiles": 4}).schedule(
+            64, device="cpu")
+    assert list(tmp_path.rglob("*.npz")) == []
+    assert list(tmp_path.rglob("*.graph")) == []
+    ttrace.clear_trace_cache()
+
+
+def test_disk_cache_min_edges_threshold(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE_MIN_EDGES", "5000")
+    ttrace.clear_trace_cache()
+    ttrace.resolve_trace_dataset(
+        "power_law", {"n_nodes": 300, "n_edges": 1000, "seed": 0}).schedule(
+            64, device="cpu")
+    assert list(tmp_path.rglob("*.npz")) == []
+    assert list(tmp_path.rglob("*.graph")) == []
+    ttrace.clear_trace_cache()
+
+
+def test_disk_cache_corrupt_entry_is_a_miss(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_TRACE_CACHE_MIN_EDGES", "0")
+    params = {"n_nodes": 500, "n_edges": 2500, "seed": 2}
+    ttrace.clear_trace_cache()
+    t1 = ttrace.resolve_trace_dataset("power_law", params)
+    s1 = t1.schedule(100, device="cpu")
+    for f in tmp_path.rglob("*.npz"):
+        f.write_bytes(b"not an npz")
+    for f in tmp_path.rglob("*.graph/*"):
+        f.write_bytes(b"garbage")  # torn npy parts and a torn meta.json
+    ttrace.clear_trace_cache()
+    ttrace.reset_trace_stats()
+    t2 = ttrace.resolve_trace_dataset("power_law", params)  # rebuilds
+    np.testing.assert_array_equal(t2.senders, t1.senders)
+    s2 = t2.schedule(100, device="cpu")  # the torn schedule is a miss
+    assert ttrace.trace_cache_info()["stats"]["trace_builds"] == 1
+    assert ttrace.trace_cache_info()["stats"]["schedule_computes"] == 1
+    for f in COUNT_FIELDS:
+        np.testing.assert_array_equal(getattr(s2, f), getattr(s1, f))
+    # the damaged entries were dropped and stored again, clean
+    ttrace.clear_trace_cache()
+    t3 = ttrace.resolve_trace_dataset("power_law", params)
+    np.testing.assert_array_equal(np.asarray(t3.row_ptr), t1.row_ptr)
+    t3.schedule(100, device="cpu")
+    assert ttrace.trace_cache_info()["stats"]["schedule_disk_hits"] == 1
+    ttrace.clear_trace_cache()
+
+
+def test_disk_cache_keys_match_reference(tmp_path, monkeypatch):
+    """The same dataset, parameters and token give the same keys in both
+    packages, and each package, left at its defaults, writes them under its
+    own root: neither reads the other's entries."""
+    from repro.core import schedule_cache as jcache
+    from repro_torch.core import schedule_cache as tcache
+    for params in ({"n_nodes": 600, "n_edges": 3000, "seed": 4},
+                   {"n_nodes": 600.0, "n_edges": 3000.0, "seed": 4.0,
+                    "alpha": 1.6}):
+        canonical = ttrace._canonical_params(params)
+        assert canonical == jtrace._canonical_params(params)
+        assert tcache.graph_cache_key("power_law", canonical, "v1") == \
+            jcache.graph_cache_key("power_law", canonical, "v1")
+        for cap in (1, 64, 600):
+            assert tcache.schedule_cache_key(
+                "power_law", canonical, "v1", cap) == \
+                jcache.schedule_cache_key("power_law", canonical, "v1", cap)
+    assert tcache.schedule_cache_key("power_law", "{}", "v1", 8) != \
+        tcache.schedule_cache_key("power_law", "{}", "v2", 8)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("REPRO_TRACE_CACHE")
+    monkeypatch.delenv("REPRO_TORCH_TRACE_CACHE")
+    for var in ("REPRO_TRACE_CACHE_MIN_EDGES",
+                "REPRO_TORCH_TRACE_CACHE_MIN_EDGES"):
+        monkeypatch.setenv(var, "0")
+    params = {"n_nodes": 600, "n_edges": 3000, "seed": 4}
+    for mod in (ttrace, jtrace):
+        mod.clear_trace_cache()
+    ttrace.resolve_trace_dataset("power_law", params).schedule(
+        64, device="cpu")
+    jtrace.resolve_trace_dataset("power_law", params).schedule(64)
+    port_root = tmp_path / ".cache" / "repro-torch-trace"
+    ref_root = tmp_path / ".cache" / "repro-trace"
+    assert tcache.cache_root() == port_root
+    assert jcache.cache_root() == ref_root
+    listing = {root: sorted(str(p.relative_to(root))
+                            for p in root.rglob("*")
+                            if p.suffix in (".graph", ".npz"))
+               for root in (port_root, ref_root)}
+    assert len(listing[port_root]) == 2
+    assert listing[port_root] == listing[ref_root]
+    for mod in (ttrace, jtrace):
+        mod.clear_trace_cache()
 
 
 # ---------------------------------------------------------------------------
