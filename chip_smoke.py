@@ -53,9 +53,11 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    factorization and of the whole sweep under each engine;
 9. K5 (flash attention) against its plain version, f32 and bf16: the
    reference test grid, GQA at rep 3 (SmolLM's) and rep 4, softcap 50
-   (gemma2's), head dims 16-256, s < 128, and the serving path's own shape
-   (B = 8, S = 1920, H = 9, Hk = 3, D = 64), all through the counted
-   wrapper; bf16 cases are also held element by element to one bf16 step;
+   (gemma2's), head dims 16-256, s < 128, gemma2-2b's attention with a
+   window that bites (B 1, S 8192, H 8, Hk 4, D 256, window 4096, softcap
+   50), and the serving path's own shape (B = 8, S = 1920, H = 9, Hk = 3,
+   D = 64), all through the counted wrapper; bf16 cases are also held
+   element by element to one bf16 step;
 10. the serving path: SmolLM-135M at full width and depth (30 layers,
    d 576), bf16, seeded weights.  The counters are zeroed, then one prefill
    of 8 prompts of 1920 seeded tokens (``max_seq`` 2048, the published
@@ -170,7 +172,54 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    graph store it; after the LRU is cleared the warm pass has 0 builds, 0
    factorizations, 16 disk hits, 0 K4 launches and equal schedules (the
    cache's bytes, cold and warm host times).  Every other phase runs with
-   the disk cache off.
+   the disk cache off;
+20. gemma2-2b served at full width and depth through the architecture
+   registry (``get_arch("gemma2-2b").make_config()``: 26 layers, d 2304, 8
+   heads, 4 kv heads, head dim 256, d_ff 9216, vocab 256,000, a 4096-token
+   window on the local half of the stack, soft-caps 50 and 30; bf16,
+   weights drawn on the card from seed 0) at the ``prefill_32k`` shape cut
+   to B 8 (``GEMMA2_BATCH``).  After one warm-up prefill the counters are
+   zeroed, then one prefill of 8 x 32,768 seeded tokens (``max_seq``
+   32,800) and 32 greedy decode steps run through ``make_prefill_step``
+   and ``make_serve_step``; the counters are read right after, and K5 must
+   have launched exactly 26 times, all in the prefill.  Prefill time and
+   tokens/s, decode step p50 and p99, peak device memory (at most 70 GB),
+   and the device time of one prefill and of 8 decode steps by kind under
+   ``torch.profiler``.  A further prefill keeps the q, k, v its first local
+   and first global layer hand K5, and its caches must hold them exactly
+   (the ring: slot p % 4096 holds position p of the last 4096).  The
+   served logits (the prefill's and the 32 decode steps') are held to one
+   causal pass of the prefill path over the 32,800 fed tokens at the bf16
+   tolerance, 3e-2.  In f32, at full width and vocab with the depth cut
+   to 4 layers (2 pattern groups): the prefill logits on the card (K5)
+   match the CPU's (plain version) at B 1, S 256; and a prefill of 3,968
+   tokens followed by 256 decode steps to 4,224, which wrap the 4,096-slot
+   ring, matches ``forward`` over the whole 4,224 tokens (whose K5 applies
+   the window) at every step, all to 1e-4;
+21. K5 on the served prefill's own q, k, v per layer kind (B 8, S 32,768,
+   H 8, Hk 4, D 256, softcap 50; local window 4096 and global), held
+   through the counted wrapper to its plain version computed one batch
+   entry and one kv head group at a time (bf16 tolerance and the one-step
+   element gate), and timed with CUDA events, median of 20, beside its
+   bound (operations at the bf16 rate over the key positions the window
+   admits) and its share of one prefill; K5 and its plain version at
+   phase 9's windowed gemma2 case (S 8192).  The library time is PyTorch's
+   compiled ``flex_attention`` (soft-cap ``score_mod``, causal and window
+   block mask, ``enable_gqa``) on the same inputs, or the error it raised;
+22. the workload bridges on the card: ``python -m repro_torch.api
+   --workload gemma2-2b --workload dlrm-mlperf`` and ``--workload gcn-cora
+   --shape full_graph_sm --shape molecule`` run in process with ``--device
+   cuda`` and ``--device cpu`` (results equal bit for bit); the trace
+   reading of gcn-cora's ``full_graph_sm`` and ``molecule`` cells
+   (``to_scenarios(graph_kind="trace")``, every dataflow) and of its
+   ``ogb_products`` cell (a seeded ``power_law`` graph at V 2,449,029, E
+   61,859,140) is evaluated on the card, its schedules counted by K4, and
+   held to the same batch on the CPU bit for bit; the counters are zeroed
+   before and read after, and K4 must have launched.  Host times of the
+   ogb_products graph's generation, factorization and evaluation, and K4's
+   time at its capacity beside its byte bound.  The grid of
+   ``workload_scenarios()`` over all ten architectures is held to a
+   SHA-256 pinned from the JAX reference.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -258,9 +307,14 @@ KERNELS = {
 ATTN_TOLERANCE = {"f32": 2e-5, "bf16": 3e-2}
 #: One bf16 step relative to the value: 7 stored significand bits.
 BF16_STEP = 2.0 ** -7
+#: gemma2-2b's attention where its window bites: (b, s, h, hk, d, block,
+#: causal, window, softcap).  The plain version holds a (1, 8, 8192, 8192)
+#: f32 score matrix, 2.1 GB.
+GEMMA2_WINDOW_CASE = (1, 8192, 8, 4, 256, 128, True, 4096, 50.0)
 #: K5's cases (b, s, h, hk, d, block, causal, window, softcap): the
 #: reference test grid (tests/test_kernels.py:84-99, block_q = block_k
-#: here), GQA at rep 3 and rep 4, softcap 50, gemma2's head dim 256, s < 128,
+#: here), GQA at rep 3 and rep 4, softcap 50, gemma2's head dim 256 (at S
+#: 512 and at S 8192 with its own 4096-token window, which bites), s < 128,
 #: an odd head dim with a ragged last q block, and a non-causal window.
 ATTN_CASES = (
     (2, 128, 2, 2, 64, 64, True, None, None),
@@ -271,6 +325,7 @@ ATTN_CASES = (
     (2, 128, 8, 2, 32, 64, True, None, None),
     (1, 128, 2, 2, 32, 64, True, None, 50.0),
     (1, 512, 8, 4, 256, 128, True, 200, 50.0),
+    GEMMA2_WINDOW_CASE,
     (2, 48, 3, 1, 16, 48, True, None, None),
     (2, 96, 4, 2, 48, 96, True, 40, None),
     (2, 128, 4, 2, 32, 64, False, 40, None),
@@ -288,6 +343,30 @@ PEAK_BF16_OPS_PER_S = 989e12
 #: kv heads, head dim 256, softcap 50) over a 4096-token causal prefill
 #: (its local window is 4096) at B = 2: (b, s, h, hk, d, softcap).
 GEMMA2_ATTENTION = (2, 4096, 8, 4, 256, 50.0)
+#: The gemma2-2b serving cell: the repo's ``prefill_32k`` shape (S 32,768)
+#: with its batch cut from 32 to 8, then 32 greedy decode steps.  At B 32
+#: the 13 global layers' KV cache alone is 13 x 32 x 32,768 x 4 x 256 x 2 B
+#: x 2 = 55.8 GB, the local layers' rings add 7.0 GB and the weights 5.2
+#: GB, and each (32, 32,768, 9,216) FFN temporary 19.3 GB more: it does not
+#: fit one 80 GB card.  B 8 is the largest power of two under the peak
+#: limit: at B 4 the cell peaked at 23.31 GB (5.23 GB of weights), so B 8
+#: takes about 41 GB and B 16 about 78 GB; phase 20 prints the projection
+#: from its own peak.
+#: reduced: batch (prefill_32k, 32 -> 8).
+GEMMA2_BATCH, GEMMA2_STEPS = 8, 32
+#: The cell's peak device memory must stay below this (headroom on 80 GB).
+GEMMA2_PEAK_LIMIT = 70e9
+#: The served bf16 logits against a recomputation through the prefill
+#: path: the repo's bf16 tolerance (tests/test_kernels.py), relative to the
+#: largest logit; the two paths round the same bf16 activations in another
+#: order through 26 layers.
+GEMMA2_DECODE_TOLERANCE = 3e-2
+#: The f32 checks: full width and vocab, depth cut to 4 layers (2 pattern
+#: groups); card vs CPU prefill at B 1, S 256; a prefill of 3,968 tokens and
+#: 256 decode steps to 4,224 (past the 4,096-slot ring) against ``forward``
+#: over all 4,224.
+GEMMA2_CHECK_LAYERS, GEMMA2_CHECK_PROMPT = 4, 256
+GEMMA2_RING_PROMPT, GEMMA2_RING_STEPS = 3968, 256
 #: K6's cases (v, d, b, hot): the reference test grid
 #: (tests/test_kernels.py:148-152), D = 100 (f32 vector loads, bf16 single
 #: loads) and D = 30 (single loads in both), bags of 37 (tails of the
@@ -348,6 +427,12 @@ FIGURE_REPEATS = 20
 #: this pin to it).
 RGCN_CORA_DIGEST = (
     "bac5dcea8ce91f4f38a12f9d76b3a568794b534cd0c92bed7c9448abe51f9c9a")
+#: ``grid_digest`` of the workload bridges' evaluated groups over all ten
+#: architectures (``workload_scenarios()``, every shape and dataflow, 50
+#: groups), as the JAX reference gives them on the CPU
+#: (tests/test_torch_configs.py holds this pin to it).
+BRIDGE_DIGEST = (
+    "978cd27d5b9ba88940a78c2987f93a2d11bbd3693b31b8a54e8123e78791d915")
 #: The repo's typed front-door batch: three hetero dataflows and one
 #: sampled-minibatch episode set, each with a pinned total.
 HETERO_SMOKE = (Path(__file__).resolve().parent / "examples" / "scenarios"
@@ -388,10 +473,14 @@ MUTANTS = 13
 DESIGN = Path(__file__).resolve().parent / "DESIGN.md"
 
 
-def k5_work(b: int, s: int, h: int, hk: int, d: int) -> tuple[int, int]:
+def k5_work(b: int, s: int, h: int, hk: int, d: int,
+            window=None) -> tuple[int, int]:
     """Bytes and operations of one causal bf16 K5 call: q, k, v read once
-    and o written once; the causal triangle's q·k and p·v."""
-    return 2 * b * s * d * (2 * h + 2 * hk), 2 * d * s * (s + 1) * b * h
+    and o written once; q·k and p·v over the key positions the causal mask
+    and the window admit (row i sees min(i + 1, window) keys)."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return 2 * b * s * d * (2 * h + 2 * hk), 4 * d * pairs * b * h
 
 
 def ptxas_rows(log: str, pattern: str, name) -> list[str]:
@@ -2178,6 +2267,521 @@ def serve_phase(dev, card: str, oracle) -> dict:
     return dict(ops.LAUNCHES)
 
 
+def flex_library(q, k, v, window, cap):
+    """The library call for K5's gemma2 function: PyTorch's compiled
+    ``flex_attention`` with a tanh soft-cap ``score_mod``, a causal (and
+    windowed) block mask built once outside the call, and ``enable_gqa``,
+    on (B, H, S, D) views of the same inputs.  Returns a thunk giving
+    (B, S, H, D); its kernels compile on the first call, into ``build/``."""
+    import os
+
+    # Inductor's and Triton's caches go under the checkout's build/ (torch
+    # sets the first to a default when it loads inductor, so it is set here).
+    build = Path(__file__).resolve().parent / "build"
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(build / "inductor")
+    os.environ["TRITON_CACHE_DIR"] = str(build / "triton")
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    inductor_config.compile_threads = 1  # no pool of compile workers
+    s = q.shape[1]
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = ki <= qi
+        return keep if window is None else keep & (qi - ki < window)
+
+    mask = create_block_mask(mask_mod, None, None, s, s, device=q.device)
+    call = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def run():
+        with torch.inference_mode():
+            return call(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                        enable_gqa=True).transpose(1, 2)
+
+    return run
+
+
+def flex_time(q, k, v, window, cap, expect) -> str:
+    """The time of :func:`flex_library` and its error against ``expect``,
+    as printed; a library that cannot run gives the error it raised."""
+    try:
+        run = flex_library(q, k, v, window, cap)
+        err = rel_err(run(), expect)
+        ms = time_ms(torch, run)
+    except Exception as exc:  # the library's failure is recorded, not ours
+        first = (str(exc).strip().splitlines() or [""])[0][:240]
+        return (f"no library time (flex_attention failed: "
+                f"{type(exc).__name__}: {first})")
+    return (f"library {ms:.4f} ms (flex_attention, max rel err {err:.3e} "
+            "to the plain version)")
+
+
+def k5_sliced_check(q, k, v, window, cap) -> tuple:
+    """K5 through the counted wrapper on a whole (B, S, H, D) input, held to
+    its plain version computed one batch entry and one kv head's query
+    group at a time (a (1, H/Hk, S, S) f32 score matrix each, 8.6 GB at
+    gemma2's S 32,768).  Returns (kernel output, plain output)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    with torch.inference_mode():
+        got = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=cap)
+        expect = torch.empty_like(got)
+        rep = q.shape[2] // k.shape[2]
+        for bi in range(q.shape[0]):
+            for g in range(k.shape[2]):
+                heads = slice(g * rep, (g + 1) * rep)
+                expect[bi:bi + 1, :, heads] = fa.flash_attention_plain(
+                    q[bi:bi + 1, :, heads], k[bi:bi + 1, :, g:g + 1],
+                    v[bi:bi + 1, :, g:g + 1], window=window, softcap=cap)
+    torch.cuda.synchronize()
+    return got, expect
+
+
+def gemma2_phases(dev, card: str, launches: dict) -> None:
+    """Phases 20-21: gemma2-2b served at full width and depth through the
+    registry, its checks, and K5 held and timed at the cell's shape.  Adds
+    the served prefill's K5 launches to ``launches``."""
+    from dataclasses import replace
+
+    from repro_torch import backend, params
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+
+    k5 = "flash_attention"
+    backend.full_fp32()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    # 20. The cell: the registry's published config at prefill_32k, B cut.
+    cfg = get_arch("gemma2-2b").make_config()
+    shape = LM_SHAPES["prefill_32k"].params
+    b, s = GEMMA2_BATCH, shape["seq"]
+    max_seq = s + GEMMA2_STEPS
+    t0 = time.perf_counter()
+    model = params.draw_transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters drawn, "
+                             f"{cfg.param_count()} in the config")
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                              device=dev)
+    prefill = tr.make_prefill_step(cfg, max_seq=max_seq)
+    serve = tr.make_serve_step(cfg, max_seq)
+    print(f"# gemma2 set-up: {cfg.name} {cfg.n_layers} layers d "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads "
+          f"x {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+          f"pattern {cfg.window_pattern}, softcaps {cfg.attn_softcap} / "
+          f"{cfg.final_softcap}, {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB {cfg.dtype}) drawn on the card in "
+          f"{draw_s:.3f} s; cell prefill_32k (S {s}) with B cut "
+          f"{shape['batch']} -> {b}, max_seq {max_seq}; one warm-up prefill")
+    prefill(model, prompts)  # cuBLAS handles and plans; not counted
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    logits, cache = prefill(model, prompts)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_ms = start.elapsed_time(end)
+    per_prefill = ops.LAUNCHES[k5]
+    token = logits.argmax(-1, keepdim=True)
+    generated, served_logits, step_s = [token], [logits], []
+    for step in range(GEMMA2_STEPS):
+        t0 = time.perf_counter()
+        step_logits, cache = serve(model, cache, token, s + step)
+        token = step_logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        generated.append(token)
+        served_logits.append(step_logits)
+    served = ops.LAUNCHES[k5]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# gemma2 serving launches: {json.dumps({k5: served})} "
+          f"({per_prefill} in the prefill)")
+    if per_prefill != cfg.n_layers or served != cfg.n_layers:
+        raise AssertionError(f"K5 launched {per_prefill} times in the "
+                             f"gemma2 prefill and {served} in all; expected "
+                             f"{cfg.n_layers}, one per layer")
+    launches[k5] += served
+    out = torch.cat(generated, dim=1)
+    for name, t in (("prefill logits", logits),
+                    ("last decode logits", step_logits)):
+        if t.shape != (b, cfg.vocab) or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"gemma2 {name}: shape {tuple(t.shape)} "
+                                 "or not finite")
+    if out.shape != (b, GEMMA2_STEPS + 1) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"gemma2 generated tokens {tuple(out.shape)}")
+    shapes = {k: tuple(v.shape) for k, v in cache.items()}
+    if shapes != {f"{n}{i}": e for i, e in enumerate(tr.cache_shapes(
+            cfg, b, max_seq)) for n in "kv"}:
+        raise AssertionError(f"gemma2 cache shapes {shapes}")
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    weight_bytes = n_params * 2
+    print(f"# gemma2 serving: prefill of {b} x {s} tokens "
+          f"{prefill_s * 1e3:.3f} ms host clock, {prefill_ms:.3f} ms CUDA "
+          f"events, {b * s / prefill_s:.0f} prefill tokens/s; "
+          f"{GEMMA2_STEPS} decode steps: p50 "
+          f"{percentile(step_s, 50) * 1e3:.3f} ms, p99 "
+          f"{percentile(step_s, 99) * 1e3:.3f} ms per step ({b} tokens); "
+          f"KV caches {cache_bytes / 1e9:.2f} GB {json.dumps(shapes)}; peak "
+          f"device memory {peak / 1e9:.2f} GB (limit "
+          f"{GEMMA2_PEAK_LIMIT / 1e9:.0f}); at B {2 * b} the same parts "
+          f"(weights once, the rest per sequence) would peak at "
+          f"{(weight_bytes + 2 * (peak - weight_bytes)) / 1e9:.2f} GB | "
+          f"{card}")
+    if peak > GEMMA2_PEAK_LIMIT:
+        raise AssertionError(f"gemma2 cell peak memory {peak} B")
+    del logits, step_logits, cache
+    torch.cuda.empty_cache()
+    # Where the device time goes: one more prefill and 8 decode steps under
+    # torch.profiler, outside the counted run.
+    pre_kinds = device_time_by_kind(lambda: prefill(model, prompts), "K5",
+                                    "flash_wgmma_kernel")
+    # One more prefill keeps what its first local and first global layer
+    # hand K5 (the cell's own q, k, v), and its caches are held to them:
+    # slot p % window of the ring holds position p for the last window
+    # positions, and the global cache holds all S, zero past it.
+    kinds = {"local": cfg.window_pattern[0], "global": None}
+    captured = {}
+    counted = ops.flash_attention
+
+    def keep(q, k, v, **kw):
+        if len(captured) < len(kinds):
+            captured[list(kinds)[len(captured)]] = (q, k, v)
+        return counted(q, k, v, **kw)
+
+    ops.flash_attention = keep
+    try:
+        _, cache = prefill(model, prompts)
+    finally:
+        ops.flash_attention = counted
+    window = kinds["local"]
+    ring = torch.arange(s - window, s, device=dev)
+    ring_ok = all(torch.equal(cache[f"{n}0"][0][:, ring % window],
+                              t[:, ring])
+                  for n, t in zip("kv", captured["local"][1:]))
+    global_ok = all(torch.equal(cache[f"{n}1"][0][:, :s], t)
+                    and not bool(cache[f"{n}1"][0][:, s:].any())
+                    for n, t in zip("kv", captured["global"][1:]))
+    print(f"# gemma2 caches after a {s}-token prefill: the {window}-slot "
+          f"ring holds positions {s - window}..{s - 1} at slot p % {window}"
+          f" {'exactly' if ring_ok else 'NOT'}; the {max_seq}-slot global "
+          f"cache holds positions 0..{s - 1} "
+          f"{'exactly, zero past them' if global_ok else 'NOT'}")
+    if not (ring_ok and global_ok):
+        raise AssertionError("gemma2 prefill caches disagree with the keys "
+                             "and values K5 was given")
+    token = generated[0]
+
+    def decode_steps():
+        nonlocal cache, token
+        for step in range(PROFILED_STEPS):
+            lg, cache = serve(model, cache, token, s + step)
+            token = lg.argmax(-1, keepdim=True)
+
+    dec_kinds = device_time_by_kind(decode_steps, "K5", "flash_wgmma_kernel")
+    del cache
+    torch.cuda.empty_cache()
+    step_ms = 1e3 * percentile(step_s, 50)
+    for label, kinds_ms, host_ms, n in (
+            ("prefill", pre_kinds, prefill_ms, 1),
+            ("decode step", dec_kinds, step_ms, PROFILED_STEPS)):
+        busy = sum(kinds_ms.values()) / n
+        parts = ", ".join(f"{k} {v / n:.3f} ms" for k, v in kinds_ms.items())
+        print(f"# where the time goes, gemma2 {label} (torch.profiler device"
+              f" time{'' if n == 1 else f', mean of {n} steps'}): {parts}; "
+              f"device busy {busy:.3f} ms of {host_ms:.3f} ms "
+              f"({100 * busy / host_ms:.1f}%, the rest idle) | {card}")
+    # The served logits against a recomputation: forward's causal pass (K5
+    # on every layer) over the prompts and the 32 tokens fed to the decode
+    # steps, zero-padded to K5's 128-row blocks (causal, so the padding
+    # changes no earlier position), with the head on the served positions
+    # only (forward's logits at this size would take 134 GB).
+    fed = torch.cat([prompts, out[:, :GEMMA2_STEPS]], dim=1)
+    padded = torch.nn.functional.pad(fed, (0, -fed.shape[1] % 128))
+    with torch.inference_mode():
+        again = tr._logits(cfg, model, tr._prefill_layers(
+            cfg, model, padded)[:, s - 1:s + GEMMA2_STEPS])
+    got = torch.stack(served_logits, dim=1)
+    err = rel_err(got, again)
+    agree = int((again.argmax(-1) == out).sum())
+    print(f"# gemma2 bf16 served logits (the prefill's and {GEMMA2_STEPS} "
+          f"decode steps', B {b}) vs one causal pass over the {fed.shape[1]}"
+          f" fed tokens (padded to {padded.shape[1]}): max rel err "
+          f"{err:.3e} (tolerance {GEMMA2_DECODE_TOLERANCE:.0e}); greedy "
+          f"tokens agree at {agree} of {out.numel()}")
+    if not err < GEMMA2_DECODE_TOLERANCE:
+        raise AssertionError(f"gemma2 served logits: {err}")
+    # How far each bf16 path lies from the same positions of batch row 0
+    # computed in f32 (the drawn weights widened; K5's f32 kernel).
+    model.float()
+    with torch.inference_mode():
+        exact = tr._logits(cfg, model, tr._prefill_layers(
+            cfg, model, padded[:1])[:, s - 1:s + GEMMA2_STEPS])
+    print(f"# gemma2 batch row 0 against the same {GEMMA2_STEPS + 1} "
+          f"positions in f32: served (bf16 decode) max rel err "
+          f"{rel_err(got[:1], exact):.3e}, prefill path (bf16 K5) "
+          f"{rel_err(again[:1], exact):.3e}")
+    del model, prompts, again, got, served_logits, exact
+    torch.cuda.empty_cache()
+
+    # The f32 checks at full width and vocab, depth cut to 4 layers.
+    cfg32 = replace(cfg, n_layers=GEMMA2_CHECK_LAYERS, dtype="float32")
+    model32 = params.draw_transformer(cfg32, seed=0, device=dev)
+    n_ring = GEMMA2_RING_PROMPT + GEMMA2_RING_STEPS
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, n_ring)))
+    gpu_tokens = tokens.to(dev)
+    lg_card, _ = tr.make_prefill_step(cfg32)(
+        model32, gpu_tokens[:, :GEMMA2_CHECK_PROMPT])
+    lg_card = lg_card.cpu()
+    full = tr.forward(cfg32, model32, gpu_tokens)
+    prefill32 = tr.make_prefill_step(cfg32, max_seq=n_ring)
+    serve32 = tr.make_serve_step(cfg32, n_ring)
+    lg, cache = prefill32(model32, gpu_tokens[:, :GEMMA2_RING_PROMPT])
+    errs = {f"prefill {GEMMA2_RING_PROMPT} vs forward": rel_err(
+        lg, full[:, GEMMA2_RING_PROMPT - 1])}
+    worst = (0.0, None)
+    for pos in range(GEMMA2_RING_PROMPT, n_ring):
+        lg, cache = serve32(model32, cache, gpu_tokens[:, pos:pos + 1], pos)
+        worst = max(worst, (rel_err(lg, full[:, pos]), pos))
+    errs[f"decode {GEMMA2_RING_PROMPT}..{n_ring - 1} through the "
+         f"{cfg.window_pattern[0]}-slot ring vs forward over {n_ring} "
+         f"(worst at pos {worst[1]})"] = worst[0]
+    del full, cache, lg
+    model32.cpu()
+    lg_cpu, _ = tr.make_prefill_step(cfg32)(
+        model32, tokens[:, :GEMMA2_CHECK_PROMPT])
+    errs[f"card (K5) vs CPU (plain) prefill B=1 S={GEMMA2_CHECK_PROMPT}"] = (
+        rel_err(lg_card, lg_cpu))
+    for name, err in errs.items():
+        print(f"# gemma2 f32 {GEMMA2_CHECK_LAYERS} layers d {cfg.d_model} "
+              f"vocab {cfg.vocab}: {name} max rel err {err:.3e} (tolerance "
+              f"{SERVE_TOLERANCE:.0e})")
+        if not err < SERVE_TOLERANCE:
+            raise AssertionError(f"gemma2 f32 {name}: {err}")
+    del model32
+    torch.cuda.empty_cache()
+    print(f"# phase 20 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+
+    # 21. K5 on the cell's own q, k, v per layer kind: held to its plain
+    # version slice by slice, timed beside its bound and the library's
+    # flex_attention; then phase 9's windowed gemma2 case.
+    t_phase = time.perf_counter()
+    h, hk, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.attn_softcap
+    rows = {}
+    for kind, window in kinds.items():
+        q, k, v = captured.pop(kind)
+        got, expect = k5_sliced_check(q, k, v, window, cap)
+        err, outside = rel_err(got, expect), beyond_bf16_step(got, expect)
+        label = (f"gemma2-2b {kind} layer B={b} S={s} H={h} Hk={hk} D={d} "
+                 f"window={window} softcap {cap} bf16")
+        print(f"# check {k5} {label} (the served prefill's own q, k, v; "
+              f"plain version per batch entry and kv head group): max rel "
+              f"err {err:.3e} (tolerance {ATTN_TOLERANCE['bf16']:.0e}), max "
+              f"abs err {abs_err(got, expect):.3e}, {outside} elements "
+              "beyond one bf16 step")
+        if not err < ATTN_TOLERANCE["bf16"] or outside:
+            raise AssertionError(f"K5 disagrees with its plain version at "
+                                 f"{label}: {err}, {outside} elements "
+                                 "beyond one bf16 step")
+        del got
+        nbytes, nops = k5_work(b, s, h, hk, d, window)
+        bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+        ops_ms = 1e3 * nops / PEAK_BF16_OPS_PER_S
+        with torch.inference_mode():
+            ms = time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, window=window, softcap=cap))
+        lib = flex_time(q, k, v, window, cap, expect)
+        rows[kind] = {"ms": ms, "bound_ms": max(bytes_ms, ops_ms)}
+        print(f"# time {k5} {label}: kernel {ms:.4f} ms "
+              f"({nops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * rows[kind]['bound_ms'] / ms:.1f}% of the bound), "
+              f"bound {rows[kind]['bound_ms']:.4f} ms ({nops} op over the "
+              f"admitted keys at the bf16 tensor-core rate; {nbytes} B take "
+              f"{bytes_ms:.4f} ms); {lib}; no plain time (it runs slice by "
+              f"slice here) | {card}")
+        del q, k, v, expect
+        torch.cuda.empty_cache()
+    per_prefill_ms = cfg.n_groups * sum(r["ms"] for r in rows.values())
+    bound_ms = cfg.n_groups * sum(r["bound_ms"] for r in rows.values())
+    print(f"# time {k5} gemma2-2b, one prefill's {cfg.n_layers} layers: "
+          f"{cfg.n_groups} x ({rows['local']['ms']:.4f} + "
+          f"{rows['global']['ms']:.4f}) = {per_prefill_ms:.3f} ms, "
+          f"{100 * per_prefill_ms / prefill_ms:.1f}% of the prefill "
+          f"({prefill_ms:.3f} ms); bound {bound_ms:.3f} ms | {card}")
+    cb, cs, ch, chk, cd, _, _, cw, ccap = GEMMA2_WINDOW_CASE
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(cb, cs, n, cd, generator=gen).to(
+        dev, torch.bfloat16) for n in (ch, chk, chk))
+    nbytes, nops = k5_work(cb, cs, ch, chk, cd, cw)
+    bound = 1e3 * max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_OPS_PER_S)
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, window=cw,
+                                                   softcap=ccap))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+        q, k, v, window=cw, softcap=ccap), reps=5)
+    expect = fa.flash_attention_plain(q, k, v, window=cw, softcap=ccap)
+    lib = flex_time(q, k, v, cw, ccap, expect)
+    print(f"# time {k5} gemma2-2b windowed check case B={cb} S={cs} H={ch} "
+          f"Hk={chk} D={cd} window={cw} softcap {ccap} bf16: kernel "
+          f"{ms:.4f} ms ({100 * bound / ms:.1f}% of the bound), plain "
+          f"{plain_ms:.4f} ms (median of 5), bound {bound:.4f} ms, {lib} | "
+          f"{card}")
+    del q, k, v, expect
+    torch.cuda.empty_cache()
+    print(f"# phase 21 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+
+
+def bridge_phase(dev, card: str, launches: dict) -> None:
+    """Phase 22: the workload bridges on the card, held to the CPU and to
+    the reference's pin.  Adds the phase's launches to ``launches``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.api import cli, evaluate_groups, evaluate_scenarios
+    from repro_torch.configs import (GNN_SHAPES, REGISTRY, get_arch,
+                                     workload_scenarios)
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.kernels import ops
+
+    k4 = "segment_reduce.schedule_counts"
+    t_phase = time.perf_counter()
+    trace_mod.clear_trace_cache()
+    ops.reset_launches()
+    # (a) The front door's bridges, on the card and on the CPU.
+    runs = {"gemma2-2b + dlrm-mlperf": ["--workload", "gemma2-2b",
+                                        "--workload", "dlrm-mlperf"],
+            "gcn-cora full_graph_sm + molecule": [
+                "--workload", "gcn-cora", "--shape", "full_graph_sm",
+                "--shape", "molecule"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, argv in runs.items():
+            payloads = {}
+            for device in ("cuda", "cpu"):
+                path = Path(tmp) / f"{device}.json"
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as rows:
+                    rc = cli.main(argv + ["--device", device, "--json",
+                                          str(path)])
+                host_s = time.perf_counter() - t0
+                if rc != 0:
+                    raise AssertionError(f"--workload {label} on {device} "
+                                         f"exited {rc}")
+                payloads[device] = json.loads(path.read_text())
+            same = payloads["cuda"]["results"] == payloads["cpu"]["results"]
+            n_rows = len(rows.getvalue().splitlines()) - 3
+            print(f"# bridge {' '.join(argv)}: exit 0 on cuda and cpu, "
+                  f"{n_rows} CSV rows, {payloads['cuda']['n_scenarios']} "
+                  f"scenarios in {payloads['cuda']['n_evaluations']} "
+                  f"evaluations, {'bit-identical' if same else 'DIFFERENT'}"
+                  f" on both devices; {host_s:.3f} s host clock on the CPU "
+                  f"| {card}")
+            if not same:
+                raise AssertionError(f"--workload {label}: card and CPU "
+                                     "rows differ")
+    # (b) The trace reading of gcn-cora's cells, through to_scenarios.
+    arch = get_arch("gcn-cora")
+
+    def card_and_cpu(scens, label):
+        before = ops.LAUNCHES[k4]
+        t0 = time.perf_counter()
+        res = evaluate_scenarios(scens, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        n_k4 = ops.LAUNCHES[k4] - before
+        for sc in scens:  # the schedule LRU is blind to the device
+            trace_mod.resolve_trace_dataset(
+                sc.graph["dataset"], sc.graph["params"]).clear_schedules()
+        t0 = time.perf_counter()
+        ref = evaluate_scenarios(scens, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        same = result_records(res.results) == result_records(ref.results)
+        print(f"# bridge {label} trace: {len(scens)} scenarios, {n_k4} K4 "
+              f"launches, {'bit-identical' if same else 'DIFFERENT'} to "
+              f"the CPU; {card_s:.3f} s on the card, {cpu_s:.3f} s on the "
+              f"CPU (host clock) | {card}")
+        if not same:
+            raise AssertionError(f"trace bridge {label}: card and CPU "
+                                 "differ")
+        if n_k4 < 1:
+            raise AssertionError(f"trace bridge {label}: K4 never launched")
+        for r in res.results:
+            if not (np.isfinite(r.total_bits) and r.total_bits > 0):
+                raise AssertionError(f"{r.scenario.label}: {r.total_bits}")
+        return card_s
+
+    card_and_cpu(arch.to_scenarios(shapes=("full_graph_sm", "molecule"),
+                                   graph_kind="trace"),
+                 "gcn-cora full_graph_sm + molecule")
+    # The realistic-size bridge: ogb_products' V and E.
+    scens = arch.to_scenarios(shapes=("ogb_products",), graph_kind="trace")
+    graph = scens[0].graph
+    trace_mod.reset_trace_stats()
+    t0 = time.perf_counter()
+    big = trace_mod.resolve_trace_dataset(graph["dataset"], graph["params"])
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    U = big._pair_factorization()[0].size
+    fact_s = time.perf_counter() - t0
+    p = GNN_SHAPES["ogb_products"].params
+    if (big.n_nodes, big.n_edges) != (p["n_nodes"], p["n_edges"]):
+        raise AssertionError(f"ogb_products trace V={big.n_nodes} "
+                             f"E={big.n_edges}")
+    eval_s = card_and_cpu(scens, "gcn-cora ogb_products")
+    stats = trace_mod.trace_cache_info()["stats"]
+    cap = scens[0].composition.tile_vertices
+    k4_ms, k4_bound = k4_sweep_ms(big, [int(cap)], dev)
+    print(f"# bridge ogb_products set-up: {graph['dataset']} "
+          f"V={big.n_nodes} E={big.n_edges} U={U}, generated in "
+          f"{gen_s:.3f} s, factorized in {fact_s:.3f} s, evaluated (5 "
+          f"dataflows, capacity {cap:g}) in {eval_s:.3f} s on the card "
+          f"(host clock); trace work {json.dumps(stats, sort_keys=True)}; K4"
+          f" at the capacity {k4_ms:.4f} ms (CUDA events, median of 20) "
+          f"beside its byte bound {k4_bound:.4f} ms | {card}")
+    del big
+    trace_mod.clear_trace_cache()
+    # (c) Every architecture's grid against the reference's pin.
+    t0 = time.perf_counter()
+    groups = evaluate_groups(workload_scenarios(), device=dev)
+    grid_s = time.perf_counter() - t0
+    digest = grid_digest([(g.output, len(g.indices)) for g in groups])
+    print(f"# bridge grid: workload_scenarios() over {len(REGISTRY)} "
+          f"architectures, "
+          f"{sum(len(g.indices) for g in groups)} scenarios in "
+          f"{len(groups)} evaluations, {grid_s:.3f} s (host clock), sha256 "
+          f"{digest} ("
+          f"{'= pin' if digest == BRIDGE_DIGEST else 'PIN ' + BRIDGE_DIGEST}"
+          f") | {card}")
+    if digest != BRIDGE_DIGEST:
+        raise AssertionError("the bridges' grid differs from the "
+                             "reference's")
+    phase = dict(ops.LAUNCHES)
+    print(f"# bridge phase launches: {json.dumps(phase)}; phase 22 took "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    for kname, count in phase.items():
+        launches[kname] += count
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -2437,6 +3041,8 @@ def main() -> int:
     served = serve_phase(dev, card, tuned["oracle"])
     for kname in launches:
         launches[kname] += tuned["launches"][kname] + served[kname]
+    gemma2_phases(dev, card, launches)
+    bridge_phase(dev, card, launches)
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -2453,9 +3059,10 @@ def main() -> int:
     print(f"# wall time {time.perf_counter() - t_start:.1f} s; K1-K3 times "
           "are sums over the two GCN-Cora layers, f32; K4's over the 16 "
           "capacities of the 10^7-edge sweep (its launches include phase "
-          "17's typed path and phases 18-19's tunes and serve windows); "
-          "K5's one layer of the "
-          "SmolLM-135M prefill, bf16; K6's the 26 tables of one serve_bulk "
+          "17's typed path, phases 18-19's tunes and serve windows and "
+          "phase 22's trace bridges); K5's one layer of the SmolLM-135M "
+          "prefill, bf16 (its launches: the SmolLM prefill's and the "
+          "gemma2-2b prefill's); K6's the 26 tables of one serve_bulk "
           "forward of DLRM-MLPerf, f32")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,8 +17,11 @@
   metrics under ``meta["serve"]``;
 * the design-space tuner (:mod:`repro_torch.core.tune`, re-exported):
   scenarios with an ``{"optimize": ...}`` block;
-* ``python -m repro_torch.api --scenario PATH | --template NAME | --tune
-  PATH [--serve] [--device cuda|cpu] [--json [PATH]] [--list]``.
+* ``python -m repro_torch.api --scenario PATH | --template NAME |
+  --workload ARCH [--shape SHAPE] [--dataflows A,B] | --tune PATH
+  [--serve] [--device cuda|cpu] [--json [PATH]] [--list]``; workload
+  configs join through :meth:`repro_torch.configs.base.ArchDef.
+  to_scenarios`, the paper's tile language for each architecture.
 """
 
 from ..core.tune import (InfeasibleBudgetError, TunePoint, TuneResult,
@@ -28,7 +31,8 @@ from .planner import (BatchResult, GroupResult, ScenarioResult,
                       evaluate_scenarios)
 from .scenario import (Composition, FULL_GRAPH_FIELDS, HETERO_GRAPH_FIELDS,
                        MINIBATCH_GRAPH_FIELDS, Scenario, TILE_GRAPH_FIELDS,
-                       TRACE_GRAPH_FIELDS, load_scenarios)
+                       TRACE_GRAPH_FIELDS, dump_scenarios, load_scenarios,
+                       scenarios_to_dicts)
 from .serve import ServeEngine, ServeError, ServeResult
 from .templates import (TEMPLATES, TemplateBatch, template, template_names,
                         tile_scenarios_from_graph, trace_scenarios_from_graph)
@@ -42,6 +46,8 @@ __all__ = [
     "HETERO_GRAPH_FIELDS",
     "MINIBATCH_GRAPH_FIELDS",
     "load_scenarios",
+    "dump_scenarios",
+    "scenarios_to_dicts",
     "ScenarioResult",
     "GroupResult",
     "BatchResult",

@@ -6,8 +6,13 @@ Evaluates scenario batches and prints one CSV row per scenario:
   bare list); repeatable;
 * ``--template fig3`` — a named template (:mod:`repro_torch.api.templates`:
   the paper's Figures 3-7, ``comparison``, ``cora_end_to_end``,
-  ``cora_trace``, ``rgcn_cora``, ``tune_cora``); repeatable.  ``--list``
-  names them all.
+  ``cora_trace``, ``rgcn_cora``, ``tune_cora``); repeatable;
+* ``--workload gcn-cora`` — a workload config's tile-language bridge
+  (``ArchDef.to_scenarios``, :mod:`repro_torch.configs`); repeatable, and
+  narrowed by ``--shape`` (repeatable) and ``--dataflows A,B``.
+
+``--list`` names the dataflows, templates, trace datasets and workload
+bridges.
 
 ``--tune batch.json`` runs the design-space tuner instead: every scenario
 of the batch must carry an ``{"optimize": ...}`` block, and one tuned row
@@ -23,12 +28,11 @@ Trace and hetero scenarios (and the tuner's probes) count their exact
 schedules with kernel K4, and ``conformance=True`` scenarios run their
 kernels' check (K1-K3), on ``--device`` (``cuda`` by default; ``cpu`` runs
 the plain versions).  ``--json [PATH]`` also writes the results as JSON.
-The reference's workload bridges (``--workload``, ``--shape``,
-``--dataflows``) are not ported; each raises, naming its ROADMAP item.
 
 Exit status: 2 on a schema error (an unknown optimize axis, a negative
-budget, an infeasible budget, a tune batch mixed with other sources, a
-bridge not ported) or a missing card, 1 on any ``expect`` golden-drift
+budget, an infeasible budget, a tune batch mixed with other sources, an
+unknown workload or shape, ``--shape`` / ``--dataflows`` without
+``--workload``) or a missing card, 1 on any ``expect`` golden-drift
 mismatch or failed conformance check, else 0.
 """
 
@@ -48,11 +52,9 @@ from .templates import template, template_names
 
 __all__ = ["main", "build_scenarios"]
 
-#: Where the reference's workload bridges come to the port.
-BRIDGES_ITEM = "ROADMAP.md Queue 1 item 4g"
-
 
 def _print_listing() -> None:
+    from ..configs import all_archs
     from ..core import registry
     from ..core.trace import trace_dataset_names
 
@@ -71,21 +73,31 @@ def _print_listing() -> None:
     print("\ntrace datasets ({'kind': 'trace', 'dataset': NAME, ...}):")
     for name in trace_dataset_names():
         print(f"  {name}")
+    print("\nworkload bridges (--workload NAME [--shape SHAPE]):")
+    for arch in all_archs():
+        shapes = [s for s in arch.shapes if s not in arch.skips]
+        print(f"  {arch.name:20} [{arch.family}] shapes: {', '.join(shapes)}")
 
 
 def build_scenarios(args: argparse.Namespace) -> list[Scenario]:
-    for flag, given in (("--workload", args.workload),
-                        ("--shape", args.shape),
-                        ("--dataflows", args.dataflows)):
-        if given:
-            raise ValueError(f"{flag} belongs to the workload bridges, which "
-                             "are not ported to repro_torch yet; see "
-                             f"{BRIDGES_ITEM}")
+    if (args.shape or args.dataflows) and not args.workload:
+        raise ValueError("--shape/--dataflows only filter --workload "
+                         "bridges; they would be silently ignored for "
+                         "--scenario/--template sources")
     scenarios: list[Scenario] = []
     for path in args.scenario or ():
         scenarios.extend(load_scenarios(path))
     for name in args.template or ():
         scenarios.extend(template(name).scenarios)
+    if args.workload:
+        from ..configs import get_arch
+
+        dataflows = (tuple(args.dataflows.split(",")) if args.dataflows
+                     else None)
+        shapes = tuple(args.shape) if args.shape else None
+        for name in args.workload:
+            scenarios.extend(get_arch(name).to_scenarios(
+                shapes=shapes, dataflows=dataflows))
     return scenarios
 
 
@@ -93,8 +105,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.api",
         description="Evaluate declarative scenario batches (tile, full, "
-                    "trace, hetero and minibatch graph kinds) in broadcast "
-                    "closed form.")
+                    "trace, hetero and minibatch graph kinds, and workload "
+                    "bridges) in broadcast closed form.")
     ap.add_argument("--scenario", action="append", metavar="PATH",
                     help="scenario batch JSON file (repeatable)")
     ap.add_argument("--template", action="append", metavar="NAME",
@@ -104,16 +116,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "carry an {'optimize': ...} block; prints one "
                          "tuned row per scenario")
     ap.add_argument("--workload", action="append", metavar="ARCH",
-                    help=f"workload config bridge (not ported yet: "
-                         f"{BRIDGES_ITEM})")
+                    help="workload config bridge (a repro_torch.configs "
+                         "name; repeatable)")
     ap.add_argument("--shape", action="append", metavar="SHAPE",
-                    help=f"restrict --workload to these shapes (not ported "
-                         f"yet: {BRIDGES_ITEM})")
+                    help="restrict --workload to these shapes (repeatable)")
     ap.add_argument("--dataflows", default=None, metavar="A,B,C",
-                    help=f"comma-separated dataflows for --workload (not "
-                         f"ported yet: {BRIDGES_ITEM})")
+                    help="comma-separated dataflows for --workload "
+                         "(default: all registered)")
     ap.add_argument("--list", action="store_true",
-                    help="list dataflows, templates and trace datasets")
+                    help="list dataflows, templates, trace datasets and "
+                         "workload bridges")
     ap.add_argument("--serve", action="store_true",
                     help="evaluate through the coalescing serve engine "
                          "(one concurrent request per scenario)")
@@ -134,7 +146,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     if args.list:
         _print_listing()
-        if not (args.scenario or args.template or args.tune):
+        if not (args.scenario or args.template or args.workload
+                or args.tune):
             return 0
     try:
         resolve_device(args.device)
@@ -149,8 +162,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         scenarios = build_scenarios(args)
         if not scenarios:
             ap.print_usage(sys.stderr)
-            raise ValueError("no scenarios given (use --scenario/--template, "
-                             "or --list)")
+            raise ValueError("no scenarios given (use --scenario/--template/"
+                             "--workload, or --list)")
         if args.serve:
             res, serve_metrics = _serve_batch(args, scenarios)
         else:

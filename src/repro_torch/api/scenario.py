@@ -64,6 +64,8 @@ __all__ = [
     "TRACE_GRAPH_FIELDS",
     "HETERO_GRAPH_FIELDS",
     "MINIBATCH_GRAPH_FIELDS",
+    "scenarios_to_dicts",
+    "dump_scenarios",
     "load_scenarios",
 ]
 
@@ -812,6 +814,17 @@ def _trusted_tile(dataflow: str, graph: Mapping[str, float],
     set_(s, "optimize", None)
     set_(s, "_graph_kind", "tile")
     return s
+
+
+def scenarios_to_dicts(scenarios: Sequence[Scenario]) -> dict:
+    return {"scenarios": [s.to_dict() for s in scenarios]}
+
+
+def dump_scenarios(scenarios: Sequence[Scenario], path: str) -> None:
+    """Write a scenario batch file: ``{"scenarios": [...]}``."""
+    with open(path, "w") as f:
+        json.dump(scenarios_to_dicts(scenarios), f, indent=2, sort_keys=True)
+        f.write("\n")
 
 
 def load_scenarios(path: str) -> list[Scenario]:

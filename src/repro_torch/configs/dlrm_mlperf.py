@@ -5,8 +5,9 @@
 a cut, as the reference's does."""
 
 from ..models.dlrm import CRITEO_1TB_VOCABS, DLRMConfig
+from .base import ArchDef, RECSYS_SHAPES
 
-__all__ = ["make_config", "make_smoke_config"]
+__all__ = ["make_config", "make_smoke_config", "ARCH"]
 
 
 def make_config(**kw) -> DLRMConfig:
@@ -20,3 +21,14 @@ def make_smoke_config(**kw) -> DLRMConfig:
         name="dlrm-smoke", n_dense=13, n_sparse=26, embed_dim=16,
         vocab_sizes=tuple(min(v, 128) for v in CRITEO_1TB_VOCABS),
         bot_mlp=(32, 16), top_mlp=(64, 32, 1), **kw)
+
+
+ARCH = ArchDef(name="dlrm-mlperf", family="recsys",
+               make_config=make_config, make_smoke_config=make_smoke_config,
+               shapes=RECSYS_SHAPES,
+               notes="Tables row-sharded over the model axis (vocab-parallel "
+                     "lookup + psum baseline; all-to-all is the §Perf "
+                     "optimization).  Scenario bridge (§5): a batch is a "
+                     "tile of K = batch example-vertices each gathering "
+                     "n_sparse embedding rows (P = 26K edges, N = 128); "
+                     "combination is the dot interaction + top MLP (T = 1).")

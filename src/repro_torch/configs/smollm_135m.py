@@ -4,8 +4,9 @@ head 64, d_ff 1536, vocab 49152, tied embeddings (llama-arch small);
 depth."""
 
 from ..models.transformer import TransformerConfig
+from .base import ArchDef, LM_SHAPES
 
-__all__ = ["make_config", "make_smoke_config"]
+__all__ = ["make_config", "make_smoke_config", "ARCH"]
 
 
 def make_config(**kw) -> TransformerConfig:
@@ -22,3 +23,15 @@ def make_smoke_config(**kw) -> TransformerConfig:
         name="smollm-smoke",
         n_layers=3, d_model=36, n_heads=3, n_kv_heads=3, d_head=12,
         d_ff=96, vocab=256, dtype="float32", **kw)
+
+
+ARCH = ArchDef(
+    name="smollm-135m", family="lm",
+    make_config=make_config, make_smoke_config=make_smoke_config,
+    shapes=LM_SHAPES,
+    skips={"long_500k": "pure full-attention arch; 500k decode requires "
+                        "sub-quadratic attention (DESIGN.md §5)"},
+    notes="9 heads < tp=16: context-parallel attention path.  Scenario "
+          "bridge: full-causal attention, so the banded-graph window is "
+          "W = seq (P = K^2 per tile).",
+)

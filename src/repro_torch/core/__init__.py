@@ -22,7 +22,7 @@ conformance harness of the port.
 """
 
 from . import registry
-from .awb_gcn import AWB_GCN_SPEC
+from .awb_gcn import AWBGCNModel, AWB_GCN_SPEC
 from .compose import (COMPOSITION_FORMS, FullGraphParams, MultiLayerModel,
                       RESIDENCY_POLICIES, RelationalGraphModel,
                       TiledGraphModel, tile_working_set_bits)
@@ -34,10 +34,12 @@ from .engn import ENGN_SPEC, EnGNModel
 from .hygcn import HYGCN_SPEC, HyGCNModel
 from .notation import (AWBGCNHardwareParams, CompositionHardwareParams,
                        EnGNHardwareParams, GraphTileParams,
-                       HyGCNHardwareParams, RelationalScheduleParams,
-                       TiledSpMMHardwareParams, paper_default_graph)
-from .spmm_tiled import SPMM_TILED_SPEC
-from .spmm_unfused import SPMM_UNFUSED_SPEC
+                       HyGCNHardwareParams, PAPER_DEFAULT_ENGN,
+                       PAPER_DEFAULT_GRAPH, PAPER_DEFAULT_HYGCN,
+                       RelationalScheduleParams, TiledSpMMHardwareParams,
+                       paper_default_graph)
+from .spmm_tiled import SPMM_TILED_SPEC, TiledSpMMModel
+from .spmm_unfused import SPMM_UNFUSED_SPEC, UnfusedSpMMModel
 from .terms import (AcceleratorModel, CACHE_CLASSES, L1_CLASSES, L2_CLASSES,
                     ModelOutput, MovementTerm, tabulate)
 from .trace import (GraphTrace, TraceSchedule, TypedGraphTrace,
@@ -55,6 +57,9 @@ __all__ = [
     "registry",
     "EnGNModel",
     "HyGCNModel",
+    "TiledSpMMModel",
+    "UnfusedSpMMModel",
+    "AWBGCNModel",
     "ENGN_SPEC",
     "HYGCN_SPEC",
     "SPMM_TILED_SPEC",
@@ -94,6 +99,9 @@ __all__ = [
     "RelationalScheduleParams",
     "CompositionHardwareParams",
     "paper_default_graph",
+    "PAPER_DEFAULT_GRAPH",
+    "PAPER_DEFAULT_ENGN",
+    "PAPER_DEFAULT_HYGCN",
     "AcceleratorModel",
     "ModelOutput",
     "MovementTerm",

@@ -13,11 +13,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from .dataflow import DataflowSpec, MovementSpec
+from .dataflow import DataflowSpec, MovementSpec, SpecModel
 from .notation import AWBGCNHardwareParams, GraphTileParams
 from .terms import ceil, minimum
 
-__all__ = ["AWB_GCN_SPEC"]
+__all__ = ["AWB_GCN_SPEC", "AWBGCNModel"]
 
 
 def _f64(x) -> np.ndarray:
@@ -93,3 +93,8 @@ AWB_GCN_SPEC = DataflowSpec(
                 "balancing (MICRO 2020), in the paper's movement-level style.",
 )
 
+
+class AWBGCNModel(SpecModel):
+    """Class-API adapter for the AWB-GCN-style dataflow."""
+
+    spec = AWB_GCN_SPEC

@@ -18,8 +18,10 @@ import numpy as np
 __all__ = ["ParamArray", "GraphTileParams", "RelationalScheduleParams",
            "CompositionHardwareParams", "EnGNHardwareParams",
            "HyGCNHardwareParams", "TiledSpMMHardwareParams",
-           "AWBGCNHardwareParams", "paper_default_graph", "FieldUnit",
-           "UNIT_DECLARATIONS", "declare_units", "unit_declarations_for"]
+           "AWBGCNHardwareParams", "paper_default_graph",
+           "PAPER_DEFAULT_GRAPH", "PAPER_DEFAULT_ENGN", "PAPER_DEFAULT_HYGCN",
+           "FieldUnit", "UNIT_DECLARATIONS", "declare_units",
+           "unit_declarations_for"]
 
 ParamArray = Union[int, float, np.ndarray]
 
@@ -248,6 +250,12 @@ def paper_default_graph(
         L=np.floor(K_arr * high_degree_fraction),
         P=K_arr * edge_factor,
     )
+
+
+#: Section IV default operating point: N=30, T=5, B=1000, sigma=4, P=10K.
+PAPER_DEFAULT_GRAPH = paper_default_graph()
+PAPER_DEFAULT_ENGN = EnGNHardwareParams()
+PAPER_DEFAULT_HYGCN = HyGCNHardwareParams()
 
 
 # Table II, left column: the graph tile, over the operating envelope of

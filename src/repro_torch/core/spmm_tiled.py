@@ -35,11 +35,11 @@ from __future__ import annotations
 import numpy as np
 
 from ..kernels.edge_aggregate import ACC_ELEMS
-from .dataflow import DataflowSpec, MovementSpec
+from .dataflow import DataflowSpec, MovementSpec, SpecModel
 from .notation import GraphTileParams, TiledSpMMHardwareParams
 from .terms import ceil
 
-__all__ = ["SPMM_TILED_SPEC", "SPMM_TILED_CTA_SPEC", "feature_chunks"]
+__all__ = ["SPMM_TILED_SPEC", "TiledSpMMModel", "SPMM_TILED_CTA_SPEC", "feature_chunks"]
 
 
 def _f64(x) -> np.ndarray:
@@ -187,3 +187,9 @@ SPMM_TILED_CTA_SPEC = DataflowSpec(
                 "buffer.",
     runnable=_runnable_analogue,
 )
+
+
+class TiledSpMMModel(SpecModel):
+    """Class-API adapter for the tiled-SpMM baseline."""
+
+    spec = SPMM_TILED_SPEC

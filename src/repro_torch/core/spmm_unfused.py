@@ -17,7 +17,7 @@ harness holds it to ``spmm_unfused_cta``.
 
 from __future__ import annotations
 
-from .dataflow import DataflowSpec, MovementSpec
+from .dataflow import DataflowSpec, MovementSpec, SpecModel
 from .notation import GraphTileParams, TiledSpMMHardwareParams
 from .spmm_tiled import (_blocks, _f64, accumulate, combinefuse,
                          loadadjblocks, loadadjblocks_cta, loadvertblocks,
@@ -25,7 +25,7 @@ from .spmm_tiled import (_blocks, _f64, accumulate, combinefuse,
                          writeout)
 from .terms import ceil
 
-__all__ = ["SPMM_UNFUSED_SPEC", "SPMM_UNFUSED_CTA_SPEC"]
+__all__ = ["SPMM_UNFUSED_SPEC", "UnfusedSpMMModel", "SPMM_UNFUSED_CTA_SPEC"]
 
 
 def writeinterphase(g: GraphTileParams, hw: TiledSpMMHardwareParams):
@@ -86,3 +86,9 @@ SPMM_UNFUSED_CTA_SPEC = _unfused_spec(
     "Unfused two-pass block-dense SpMM as the H100 kernels K2 + K3 run it: "
     "the aggregate round-trips through device memory between two launches.",
     loadadjblocks_cta, loadvertblocks_cta, loadweights_cta)
+
+
+class UnfusedSpMMModel(SpecModel):
+    """Class-API adapter for the unfused two-pass baseline."""
+
+    spec = SPMM_UNFUSED_SPEC

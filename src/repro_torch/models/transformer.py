@@ -12,13 +12,14 @@ Prefill attention is ``kernels.ops.flash_attention`` on every layer (K5 on
 CUDA tensors, its plain version on CPU tensors); decode attention is plain
 PyTorch (:mod:`.attention`).  Every entry runs under
 ``torch.inference_mode()``: K5 has no backward.  MoE layers, training and
-the sharded and context-parallel paths are not ported.
+the sharded and context-parallel paths are not ported: an MoE config
+constructs and counts its parameters, but building its model raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +29,7 @@ from ..backend import resolve_device
 from ..kernels import ops
 from . import attention as attn_lib
 from .common import apply_rope, rms_norm, rope_freqs, softcap
+from .moe import MoEConfig
 
 __all__ = ["TransformerConfig", "DecoderLayer", "Transformer", "LAYER_KEYS",
            "forward", "make_prefill_step", "make_serve_step", "cache_shapes",
@@ -39,8 +41,16 @@ LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up",
               "w_down")
 
 
+#: Where the MoE layer comes to the port.
+MOE_ITEM = "ROADMAP.md Queue 1 item 8d"
+
+
 @dataclass(frozen=True)
 class TransformerConfig:
+    """One decoder-only architecture.  The reference's training-memory and
+    chunked-attention knobs (``remat``, ``q_chunk``) have no field here:
+    nothing in the port trains, and K5 takes no chunking."""
+
     name: str
     n_layers: int
     d_model: int
@@ -49,7 +59,7 @@ class TransformerConfig:
     d_head: int
     d_ff: int
     vocab: int
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     # Repeating per-layer window pattern; None entries are global-causal.
     # gemma2: (4096, None).  Its length must divide n_layers.
     window_pattern: tuple[Optional[int], ...] = (None,)
@@ -60,10 +70,6 @@ class TransformerConfig:
     tie_embeddings: bool = True
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported (ROADMAP Queue 1 "
-                "item 8); only dense configs run")
         if self.n_layers % len(self.window_pattern):
             raise ValueError(f"{self.name}: window pattern "
                              f"{self.window_pattern} does not divide "
@@ -83,11 +89,28 @@ class TransformerConfig:
     def param_count(self) -> int:
         d, H, Hk, dh = self.d_model, self.n_heads, self.n_kv_heads, self.d_head
         attn = d * (H * dh) + 2 * d * (Hk * dh) + (H * dh) * d
-        per_layer = attn + 2 * d + 3 * d * self.d_ff
+        per_layer = attn + 2 * d  # + norms
+        if self.moe is not None:
+            m = self.moe
+            per_layer += d * m.n_experts + 3 * m.n_experts * d * m.d_ff_expert
+            if m.dense_residual_d_ff:
+                per_layer += 3 * d * m.dense_residual_d_ff
+        else:
+            per_layer += 3 * d * self.d_ff
         total = self.n_layers * per_layer + self.vocab * d + d
         if not self.tie_embeddings:
             total += self.vocab * d
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of n_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        d = self.d_model
+        expert_all = 3 * m.n_experts * d * m.d_ff_expert
+        expert_act = 3 * m.top_k * d * m.d_ff_expert
+        return self.param_count() - self.n_layers * (expert_all - expert_act)
 
 
 def _weight(*shape, device, dtype) -> nn.Parameter:
@@ -118,11 +141,17 @@ class DecoderLayer(nn.Module):
 
 class Transformer(nn.Module):
     """The weights of a dense config, in one dtype on one device; layer
-    ``g * P + i`` runs pattern entry ``i``'s window.
-    :func:`repro_torch.params.load_transformer` fills them."""
+    ``g * P + i`` runs pattern entry ``i``'s window.  They are zeros until
+    :func:`repro_torch.params.load_transformer` fills them or
+    :func:`repro_torch.params.draw_transformer` draws them from a seed.  An
+    MoE config raises: its layer is not ported."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported ({MOE_ITEM}); only "
+                "dense configs build a model")
         self.cfg = cfg
         kw = {"device": device, "dtype": dtype}
         self.embed = _weight(cfg.vocab, cfg.d_model, **kw)

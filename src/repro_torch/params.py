@@ -10,7 +10,9 @@ The reference transformer keeps ``{"embed": (V, d), "final_norm": (d,),
 ``"unembed": (d, V)`` when embeddings are not tied).
 :func:`transformer_params` makes seeded numpy weights in that layout and
 :func:`load_transformer` turns it, or the reference's own ``init_params``
-output converted with ``np.asarray``, into the port's module.
+output converted with ``np.asarray``, into the port's module.  A
+full-size model is drawn on the card instead, by :func:`draw_transformer`:
+gemma2-2b's 2.6 B weights would take 10.4 GB of f32 host arrays.
 
 The reference DLRM keeps ``{"tables": [(V_t, d) per feature], "bot": {"w",
 "b"}, "top": {"w", "b"}}``.  :func:`dlrm_params` makes seeded numpy weights
@@ -34,7 +36,8 @@ from .models.dlrm import DLRM, DLRMConfig
 from .models.transformer import LAYER_KEYS, Transformer, TransformerConfig
 
 __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
-           "load_transformer", "dlrm_params", "load_dlrm"]
+           "load_transformer", "draw_transformer", "dlrm_params",
+           "load_dlrm"]
 
 
 def gcn_params(dims: Sequence[int], seed: int = 0) -> dict:
@@ -132,6 +135,31 @@ def load_transformer(params_np: dict, cfg: TransformerConfig, *,
                 _put(getattr(layer, key),
                     np.asarray(params_np["blocks"][i][key])[g],
                     f"blocks[{i}][{key!r}][{g}]")
+    return model
+
+
+def draw_transformer(cfg: TransformerConfig, seed: int = 0, *,
+                     device=None,
+                     dtype: Optional[torch.dtype] = None) -> Transformer:
+    """The port's module with seeded weights drawn in place on ``device``
+    (CUDA by default), in ``dtype`` (the config's compute dtype by
+    default), with the reference's initializers: LeCun-normal matrices
+    (std ``1/sqrt(fan_in)``, ``fan_in`` the first dimension of the
+    ``(in, out)`` layout), 0.02-normal embeddings, zero norm scales.
+
+    The draw comes from a ``torch.Generator`` on the device seeded with
+    ``seed``, in the order of the module's parameters, so it repeats on one
+    device but differs from :func:`transformer_params`'s numpy draw.
+    """
+    model = Transformer(cfg, device=resolve_device(device),
+                        dtype=dtype or cfg.compute_dtype)
+    gen = torch.Generator(device=model.embed.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name == "embed":
+                p.normal_(0.0, 0.02, generator=gen)
+            elif p.dim() == 2:
+                p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
     return model
 
 

@@ -361,20 +361,35 @@ def test_unported_templates_name_their_roadmap_item(name, item):
 
 
 def test_dataflows_flag_names_its_roadmap_item(capsys):
+    """The bridges are ported: ``--dataflows`` without ``--workload`` is
+    refused as the reference refuses it (it would be silently ignored)."""
     from repro_torch.api import cli
     assert cli.main(["--template", "fig3", "--dataflows", "engn",
                      "--device", "cpu"]) == 2
-    assert "ROADMAP.md Queue 1 item 4g" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "only filter --workload" in err and "ROADMAP" not in err
 
 
 @pytest.mark.parametrize("flag", [["--workload", "gcn-cora"],
                                   ["--shape", "full"]],
                          ids=["workload", "shape"])
 def test_bridge_flags_name_their_roadmap_item(capsys, flag):
+    """The bridges are ported: ``--workload`` joins a template batch with
+    the reference's rows; ``--shape`` alone is refused as the reference
+    refuses it."""
+    from repro.api import template as j_template
+    from repro.configs import get_arch as j_get_arch
     from repro_torch.api import cli
-    assert cli.main(["--template", "fig3", *flag, "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md Queue 1 item 4g" in err and flag[0] in err
+    rc = cli.main(["--template", "fig3", *flag, "--device", "cpu"])
+    out, err = capsys.readouterr()
+    assert "ROADMAP" not in err
+    if flag[0] == "--shape":
+        assert rc == 2 and "only filter --workload" in err
+        return
+    assert rc == 0
+    ref = j_evaluate(list(j_template("fig3").scenarios)
+                     + j_get_arch("gcn-cora").to_scenarios())
+    assert f"# {len(ref.results)} scenarios in {ref.n_evaluations} " in out
 
 
 @pytest.fixture

@@ -13,6 +13,11 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 BLOCKED = ("jax", "jaxlib", "repro")
+#: The registry's modules: every architecture's config and the bridges.
+CONFIG_MODULES = ("base", "scenarios", "arctic_480b", "dlrm_mlperf",
+                  "equiformer_v2", "gatedgcn", "gcn_cora", "gemma2_2b",
+                  "granite_3_2b", "meshgraphnet", "qwen3_moe_30b_a3b",
+                  "smollm_135m")
 
 #: A meta-path finder that refuses jax*, and exactly ``repro`` and
 #: ``repro.*`` (``repro_torch`` must load).
@@ -72,6 +77,11 @@ def test_port_imports_with_jax_and_reference_blocked():
     for name in ("repro_torch.core.tune", "repro_torch.core.schedule_cache",
                  "repro_torch.api.serve"):
         assert name in walked, name
+    for name in CONFIG_MODULES:
+        assert f"repro_torch.configs.{name}" in walked, name
+    for name in ("moe", "gnn", "gnn.gcn", "gnn.gatedgcn", "gnn.meshgraphnet",
+                 "gnn.equiformer_v2"):
+        assert f"repro_torch.models.{name}" in walked, name
 
 
 def test_analysis_cli_help_runs_with_jax_and_reference_blocked():
@@ -97,6 +107,17 @@ def _imported_roots(path: Path) -> set[str]:
     ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_imports_jax_or_the_reference(path):
     assert not _imported_roots(path) & set(BLOCKED)
+
+
+def test_ast_scan_covers_the_registry_and_model_configs():
+    """The scan above walks every file of the registry and of the MoE and
+    GNN config modules."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for name in CONFIG_MODULES + ("__init__",):
+        assert f"configs/{name}.py" in scanned, name
+    for name in ("moe", "gnn/__init__", "gnn/gcn", "gnn/gatedgcn",
+                 "gnn/meshgraphnet", "gnn/equiformer_v2"):
+        assert f"models/{name}.py" in scanned, name
 
 
 def _run_smoke(cwd: Path):

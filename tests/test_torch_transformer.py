@@ -4,8 +4,10 @@ Weights come from the reference's ``init_params``, converted with
 ``np.asarray`` and loaded with ``params.load_transformer``; tokens are
 seeded numpy ids.  Everything runs in f32 on the CPU, where prefill
 attention takes K5's plain version.  Configs: the reference tests' tiny
-``DENSE`` and ``GEMMA`` (windowed entries, soft-caps) and SmolLM-135M's
-full widths at 2 layers.
+``DENSE`` and ``GEMMA`` (windowed entries, soft-caps), SmolLM-135M's
+full widths at 2 layers, and gemma2-2b's full widths (d 2304, 8 heads, 4
+kv heads, head dim 256, d_ff 9216, both soft-caps) at 2 layers, one
+(local, global) pattern group.
 
 Tolerance: 1e-4 relative to the largest logit, the reference's own
 (``tests/test_transformer.py``): fp32 products, exponentials and norms in
@@ -22,13 +24,16 @@ import pytest
 import torch
 
 from repro.configs import base as jbase
+from repro.configs import gemma2_2b as jgemma2
+from repro.configs import granite_3_2b as jgranite
 from repro.configs import smollm_135m as jsmollm
 from repro.models import common as jcommon
 from repro.models import transformer as jtr
 from repro.models.moe import MoEConfig
 from repro_torch import params
-from repro_torch.configs import base, smollm_135m
+from repro_torch.configs import base, gemma2_2b, granite_3_2b, smollm_135m
 from repro_torch.models import common, transformer as tr
+from repro_torch.models.moe import MoEConfig as TMoEConfig
 
 DENSE = jtr.TransformerConfig(name="tiny-dense", n_layers=4, d_model=32,
                               n_heads=4, n_kv_heads=2, d_head=8, d_ff=64,
@@ -40,9 +45,17 @@ GEMMA = jtr.TransformerConfig(name="tiny-gemma", n_layers=4, d_model=32,
                               dtype="float32", q_chunk=8)
 SMOLLM_2L = replace(jsmollm.make_config(), name="smollm-135m-2l", n_layers=2,
                     dtype="float32")
-#: (config, batch, prompt length); SmolLM at a prompt of 64.
-CASES = {"tiny-dense": (DENSE, 2, 16), "tiny-gemma": (GEMMA, 2, 16),
-         "smollm-135m-2l": (SMOLLM_2L, 2, 64)}
+#: gemma2-2b at its full widths and 2 layers, with two cuts so that the
+#: CPU run stays small and still crosses the ring caches: the vocab 256,000
+#: -> 8,192 and the local window 4,096 -> 16, so a 32-token prompt rolls
+#: the ring and 8 decode steps overwrite it.
+GEMMA2_2L = replace(jgemma2.make_config(), name="gemma2-2b-2l", n_layers=2,
+                    vocab=8192, window_pattern=(16, None), dtype="float32")
+#: (config, batch, prompt length, decode steps); SmolLM at a prompt of 64,
+#: gemma2 at 32 with 8 steps.
+CASES = {"tiny-dense": (DENSE, 2, 16, 4), "tiny-gemma": (GEMMA, 2, 16, 4),
+         "smollm-135m-2l": (SMOLLM_2L, 2, 64, 4),
+         "gemma2-2b-2l": (GEMMA2_2L, 2, 32, 8)}
 TOL = 1e-4
 
 
@@ -53,20 +66,25 @@ def _rel(a, b) -> float:
 
 def _port_cfg(jcfg) -> tr.TransformerConfig:
     names = {f.name for f in fields(tr.TransformerConfig)}
-    return tr.TransformerConfig(**{f.name: getattr(jcfg, f.name)
-                                   for f in fields(jcfg) if f.name in names})
+    kw = {f.name: getattr(jcfg, f.name) for f in fields(jcfg)
+          if f.name in names}
+    if jcfg.moe is not None:
+        kw["moe"] = TMoEConfig(**{f.name: getattr(jcfg.moe, f.name)
+                                  for f in fields(jcfg.moe)})
+    return tr.TransformerConfig(**kw)
 
 
 @cache
 def _build(name):
     """Reference params, the port's module holding them, and tokens (read
     only: no test changes them)."""
-    jcfg, b, s = CASES[name]
+    jcfg, b, s, steps = CASES[name]
     jparams = jtr.init_params(jcfg, jax.random.key(0))
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
     cfg = _port_cfg(jcfg)
     model = params.load_transformer(np_params, cfg, device="cpu")
-    tokens = np.random.default_rng(1).integers(0, jcfg.vocab, (b, s + 4))
+    tokens = np.random.default_rng(1).integers(0, jcfg.vocab,
+                                               (b, s + steps))
     return jcfg, jparams, cfg, model, tokens
 
 
@@ -86,22 +104,23 @@ def test_forward_matches_reference(name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_prefill_and_decode_continuation_match_reference(name):
-    """Prefill logits and every cache entry, then 4 decode steps from the
-    prefilled cache, each step's logits."""
+    """Prefill logits and every cache entry, then 4 decode steps (8 for
+    gemma2, through its ring) from the prefilled cache, each step's
+    logits."""
     jcfg, jparams, cfg, model, tokens = _build(name)
-    s = CASES[name][2]
-    jpre = jax.jit(jtr.make_prefill_step(jcfg, max_seq=s + 4))
-    jserve = jax.jit(jtr.make_serve_step(jcfg, s + 4))
+    s, steps = CASES[name][2:]
+    jpre = jax.jit(jtr.make_prefill_step(jcfg, max_seq=s + steps))
+    jserve = jax.jit(jtr.make_serve_step(jcfg, s + steps))
     jlg, jcache = jpre(jparams, jnp.asarray(tokens[:, :s]))
-    lg, cache = tr.make_prefill_step(cfg, max_seq=s + 4)(
+    lg, cache = tr.make_prefill_step(cfg, max_seq=s + steps)(
         model, torch.as_tensor(tokens[:, :s]))
     assert _rel(lg, jlg) < TOL
     assert set(cache) == set(jcache)
     for key in cache:
         assert tuple(cache[key].shape) == jcache[key].shape
         assert _rel(cache[key], jcache[key]) < TOL, key
-    serve = tr.make_serve_step(cfg, s + 4)
-    for i in range(s, s + 4):
+    serve = tr.make_serve_step(cfg, s + steps)
+    for i in range(s, s + steps):
         jlg, jcache = jserve(jparams, jcache, jnp.asarray(tokens[:, i:i + 1]),
                              jnp.asarray(i, jnp.int32))
         lg, cache = serve(model, cache, torch.as_tensor(tokens[:, i:i + 1]),
@@ -114,7 +133,7 @@ def test_decode_matches_forward(name):
     """Decode from an empty cache reproduces the forward's last logits (the
     reference's test_decode_matches_forward)."""
     _, _, cfg, model, tokens = _build(name)
-    b, s = CASES[name][1:]
+    b, s = CASES[name][1:3]
     t = torch.as_tensor(tokens[:, :s])
     logits = tr.forward(cfg, model, t)
     cache = tr.init_cache(cfg, b, s, device="cpu")
@@ -128,7 +147,7 @@ def test_prefill_matches_decode_and_continues():
     """The reference's test of the same name, on the port alone: the ring
     caches of the windowed entries continue decode as the full caches do."""
     _, _, cfg, model, tokens = _build("tiny-gemma")
-    b, s = CASES["tiny-gemma"][1:]
+    b, s = CASES["tiny-gemma"][1:3]
     t = torch.as_tensor(tokens)
     serve = tr.make_serve_step(cfg, s + 4)
     cache_d = tr.init_cache(cfg, b, s + 4, device="cpu")
@@ -232,13 +251,23 @@ def test_load_refuses_wrong_shapes():
 
 
 def test_moe_config_raises():
+    """An MoE config constructs and counts its parameters as the
+    reference's does; building its model raises, naming the item the MoE
+    layer waits for."""
     jmoe = jtr.TransformerConfig(
         name="tiny-moe", n_layers=2, d_model=32, n_heads=4, n_kv_heads=4,
         d_head=8, d_ff=64, vocab=128,
-        moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32),
+        moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32,
+                      dense_residual_d_ff=16),
         dtype="float32")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        _port_cfg(jmoe)
+    cfg = _port_cfg(jmoe)
+    assert cfg.param_count() == jmoe.param_count()
+    assert cfg.active_param_count() == jmoe.active_param_count()
+    with pytest.raises(NotImplementedError, match="MoE.*item 8d"):
+        tr.Transformer(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE.*item 8d"):
+        params.load_transformer(params.transformer_params(
+            replace(cfg, moe=None), 0), cfg, device="cpu")
 
 
 @pytest.mark.parametrize("make", ["make_config", "make_smoke_config"])
@@ -248,6 +277,58 @@ def test_smollm_configs_match_reference(make):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert cfg.compute_dtype == (torch.bfloat16 if make == "make_config"
                                  else torch.float32)
+
+
+@pytest.mark.parametrize("make", ["make_config", "make_smoke_config"])
+@pytest.mark.parametrize("port,ref", [(gemma2_2b, jgemma2),
+                                      (granite_3_2b, jgranite)],
+                         ids=["gemma2-2b", "granite-3-2b"])
+def test_lm_configs_match_reference(port, ref, make):
+    """The twin of test_smollm_configs_match_reference for gemma2-2b and
+    granite-3-2b: every field, and the parameter counts.  The reference's
+    training knobs ``remat`` and ``q_chunk`` have no port field."""
+    cfg, jcfg = getattr(port, make)(), getattr(ref, make)()
+    for f in fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert {f.name for f in fields(cfg)} == (
+        {f.name for f in fields(jcfg)} - {"remat", "q_chunk"})
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+
+
+def test_gemma2_seeded_draw_on_the_cpu():
+    """``draw_transformer`` fills every weight from a seeded generator with
+    the reference's initializers, and repeats for the same seed."""
+    cfg = replace(gemma2_2b.make_config(), n_layers=2, d_model=64, d_ff=96,
+                  vocab=512, dtype="float32")
+    model = params.draw_transformer(cfg, seed=3, device="cpu")
+    again = params.draw_transformer(cfg, seed=3, device="cpu")
+    other = params.draw_transformer(cfg, seed=4, device="cpu")
+    for (name, p), q, r in zip(model.named_parameters(), again.parameters(),
+                               other.parameters()):
+        assert torch.equal(p, q), name
+        if p.dim() == 1:
+            assert not p.any(), name
+            continue
+        assert not torch.equal(p, r), name
+        std = 0.02 if name == "embed" else p.shape[0] ** -0.5
+        assert abs(float(p.std()) / std - 1) < 0.1, name
+        assert abs(float(p.mean())) < 4 * std / p.numel() ** 0.5, name
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    assert model.embed.dtype == torch.float32 and not model.embed.requires_grad
+
+
+def test_gemma2_published_config_counts():
+    """gemma2-2b as the registry publishes it: 2,614 M parameters, 5.23 GB
+    of bf16 weights."""
+    cfg = gemma2_2b.make_config()
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_head, cfg.d_ff, cfg.vocab) == (26, 2304, 8, 4, 256, 9216,
+                                                 256000)
+    assert cfg.window_pattern == (4096, None) and cfg.n_groups == 13
+    assert cfg.param_count() == jgemma2.make_config().param_count()
+    assert round(cfg.param_count() / 1e6) == 2614
+    assert round(2 * cfg.param_count() / 1e9, 2) == 5.23
 
 
 def test_lm_shapes_match_reference():
