@@ -116,7 +116,8 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    registered dataflows and the composition forms strict-clean, HyGCN's 4
    Table IV findings and EnGN's ``M_prime`` waived; the kernel specs
    ``spmm_tiled_cta`` / ``spmm_unfused_cta`` clean; the lint of
-   ``src/repro_torch/core`` clean; every mutant of the battery caught),
+   ``src/repro_torch/core`` and ``src/repro_torch/distributed`` clean;
+   every mutant of the battery caught),
    the provenance table equal to ``DESIGN.md``'s committed appendix, the
    harness on the card passing its preflight with phase 4's 204 records
    (equal to the records with the gate bypassed), and a ``drop-sigma``
@@ -219,7 +220,39 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    ogb_products graph's generation, factorization and evaluation, and K4's
    time at its capacity beside its byte bound.  The grid of
    ``workload_scenarios()`` over all ten architectures is held to a
-   SHA-256 pinned from the JAX reference.
+   SHA-256 pinned from the JAX reference;
+23. the sharded trace pipeline (``repro_torch.distributed.trace_shard``):
+   the counters are zeroed, then the drift gate holds the sharded
+   factorization of phase 7's 10^7-edge graph at 1 and 4 shards and
+   ``default_shard_count()`` to the single-host one (values, order,
+   dtypes); one ``power_law_sharded`` scenario through the front door on
+   the card equals the same scenario on ``power_law_stream``, with
+   ``meta["trace"]["edge_list_free"]`` true; benchmarks/trace_scale.py's
+   10^8-edge row (V 10^7, seed 0, alpha 1.6; no cut) is built
+   edge-list-free and K4 schedules its 16 capacities V/2 ... V/2^16 (16
+   launches), bit-identical to ``engine="sharded"`` in all four fields;
+   at phase 17's ogbn-mag size ``typed_sharded_schedule_counts`` equals
+   K4's counts relation by relation (64 launches); the counters are read
+   right after.  Host times of generation and sort, exchange and
+   factorization, the CSR, the sharded and K4 sweeps; the shard count, U
+   and peak RSS; K4 per capacity (CUDA events, median of 20) beside its
+   byte bound, its share of it and its route;
+24. the GNN models, f32: the counters are zeroed, then GCN, GatedGCN,
+   MeshGraphNet and EquiformerV2 at their published configs
+   (``get_arch(name).make_config``, ``d_in`` the shape's ``d_feat``;
+   seeded weights from ``params.gnn_params``) run forward and loss on the
+   card and on the CPU with the same weights, on ``full_graph_sm`` (a
+   seeded 2,708-node, 10,556-edge power-law graph, 1,433 features) and on
+   ``molecule`` (128 graphs of 30 nodes and 64 edges, ``molecule_batch``,
+   per-graph readout; EquiformerV2's Wigner blocks from the positions),
+   held at 1e-4 relative and finite; then GCN at ``ogb_products`` whole
+   (phase 22's 61,859,140 seeded edges plus one self-loop per vertex,
+   2,449,029 nodes, 100 features, 47 classes): logits card vs CPU at
+   1e-4, forward time (CUDA events, median of 5) beside its byte bound,
+   peak device memory and the device time by kind under
+   ``torch.profiler``; the reckoning of why the other three models do not
+   fit that shape on one card.  The counters are read right after and
+   must all be 0: the reference's GNN models reach no Pallas kernel.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -471,6 +504,18 @@ SERVE_REQUESTS, SERVE_CLIENTS, SERVE_WINDOW_S, SERVE_SEED = 1500, 16, 0.002, 0
 #: ``minimum``.
 MUTANTS = 13
 DESIGN = Path(__file__).resolve().parent / "DESIGN.md"
+#: The sharded trace pipeline: the drift gate's shard counts (with
+#: ``default_shard_count()``) over ``BIG_TRACE``, and benchmarks/
+#: trace_scale.py's 10^8-edge row (V = E / 10, its --edge-factor), no cut.
+SHARD_COUNTS = (1, 4)
+HUGE_TRACE = {"n_nodes": 10_000_000, "n_edges": 100_000_000, "seed": 0,
+              "alpha": 1.6}
+#: The GNN models' class counts per shape (the reference's
+#: src/repro/launch/steps.py:46; ogbn-products has 47), and their card vs
+#: CPU tolerance: the repo's model tolerance, relative to the largest
+#: output.
+GNN_N_CLASSES = {"full_graph_sm": 7, "ogb_products": 47, "molecule": 10}
+GNN_TOLERANCE = 1e-4
 
 
 def k5_work(b: int, s: int, h: int, hk: int, d: int,
@@ -1073,7 +1118,8 @@ def analysis_phase(dev, card: str) -> None:
         if errors:
             raise AssertionError(f"audit {name}: {errors}")
     violations = lint_paths()
-    print(f"# lint src/repro_torch/core: {len(violations)} violation(s)")
+    print(f"# lint src/repro_torch/core and src/repro_torch/distributed: "
+          f"{len(violations)} violation(s)")
     if violations:
         raise AssertionError("; ".join(str(v) for v in violations))
     t0 = time.perf_counter()
@@ -1281,10 +1327,12 @@ def percentile(samples, q: float) -> float:
                                              - 1))]
 
 
-def device_time_by_kind(fn, kernel: str, fragment: str) -> dict:
+def device_time_by_kind(fn, kernel: str, fragment) -> dict:
     """Device time in ms of the work ``fn`` runs, by kind, from
-    ``torch.profiler``: the port's ``kernel`` (names holding ``fragment``),
-    cuBLAS matrix products, copies and fills, every other kernel."""
+    ``torch.profiler``: ``kernel`` (names holding ``fragment``, or any of a
+    tuple of fragments), cuBLAS matrix products, copies and fills, every
+    other kernel."""
+    fragments = (fragment,) if isinstance(fragment, str) else fragment
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1297,7 +1345,8 @@ def device_time_by_kind(fn, kernel: str, fragment: str) -> dict:
         if event.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = event.name.lower()
-        kind = (kernel if fragment in name else "cuBLAS products"
+        kind = (kernel if any(f in name for f in fragments)
+                else "cuBLAS products"
                 if any(w in name for w in ("nvjet", "gemm", "xmma", "cutlass"))
                 else "copies" if "memcpy" in name or "memset" in name
                 else "other kernels")
@@ -2651,9 +2700,10 @@ def gemma2_phases(dev, card: str, launches: dict) -> None:
           "clock)")
 
 
-def bridge_phase(dev, card: str, launches: dict) -> None:
+def bridge_phase(dev, card: str, launches: dict) -> tuple:
     """Phase 22: the workload bridges on the card, held to the CPU and to
-    the reference's pin.  Adds the phase's launches to ``launches``."""
+    the reference's pin.  Adds the phase's launches to ``launches`` and
+    returns the ogb_products graph's (senders, receivers) for phase 24."""
     import contextlib
     import io
     import tempfile
@@ -2758,6 +2808,7 @@ def bridge_phase(dev, card: str, launches: dict) -> None:
           f"(host clock); trace work {json.dumps(stats, sort_keys=True)}; K4"
           f" at the capacity {k4_ms:.4f} ms (CUDA events, median of 20) "
           f"beside its byte bound {k4_bound:.4f} ms | {card}")
+    ogb_edges = (big.senders, big.receivers)
     del big
     trace_mod.clear_trace_cache()
     # (c) Every architecture's grid against the reference's pin.
@@ -2780,6 +2831,389 @@ def bridge_phase(dev, card: str, launches: dict) -> None:
           f"{time.perf_counter() - t_phase:.1f} s (host clock)")
     for kname, count in phase.items():
         launches[kname] += count
+    return ogb_edges
+
+
+def sharded_phase(dev, card: str, launches: dict) -> None:
+    """Phase 23: the sharded trace pipeline, with K4 scheduling its 10^8-edge
+    graph.  Adds the phase's launches to ``launches``."""
+    from repro_torch.api import Scenario, evaluate_scenarios
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.distributed import trace_shard
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_reduce as sr
+
+    k4 = "segment_reduce.schedule_counts"
+    t_phase = time.perf_counter()
+    trace_mod.clear_trace_cache()
+    ops.reset_launches()
+    n_default = trace_shard.default_shard_count()
+    # (a) The drift gate at 10^7 edges: every shard count's factorization
+    # equals the single-host one (values, order, dtypes).
+    single = trace_mod.resolve_trace_dataset("power_law_stream", BIG_TRACE)
+    u_snd, u_rcv, _, mp = single._pair_factorization()
+    drift = {}
+    for n_shards in SHARD_COUNTS + (n_default,):
+        t0 = time.perf_counter()
+        fact = trace_shard.sharded_power_law_factorization(
+            **BIG_TRACE, n_shards=n_shards)
+        drift[n_shards] = (trace_shard.factorization_drift(
+            fact, (u_snd, u_rcv, mp)), time.perf_counter() - t0)
+    print(f"# sharded drift gate: power_law_stream V={single.n_nodes} "
+          f"E={single.n_edges} U={u_snd.size}; "
+          + "; ".join(f"{n} shards {errs} in {s:.3f} s"
+                      for n, (errs, s) in drift.items())
+          + f" (host clock) | {card}")
+    if any(errs for errs, _ in drift.values()):
+        raise AssertionError(f"sharded factorization drift: {drift}")
+
+    # (b) The front door: one power_law_sharded scenario on the card equals
+    # the same scenario on power_law_stream.
+    kw = dict(params=BIG_TRACE, N=30.0, T=5.0, tile_vertices=float(
+        pow2_caps(BIG_TRACE["n_nodes"], 8)[-1]))
+    before = ops.LAUNCHES[k4]
+    res = {ds: evaluate_scenarios([Scenario.trace("engn", dataset=ds, **kw)],
+                                  device=dev).results[0]
+           for ds in ("power_law_sharded", "power_law_stream")}
+    front_k4 = ops.LAUNCHES[k4] - before
+    a, b = res["power_law_sharded"], res["power_law_stream"]
+    if (result_records([a]) != result_records([b])
+            or a.meta["trace"]["edge_list_free"] is not True
+            or b.meta["trace"]["edge_list_free"] is not False):
+        raise AssertionError(f"front door: {a.total_bits} vs "
+                             f"{b.total_bits}, {a.meta} vs {b.meta}")
+    print(f"# sharded front door: engn at capacity {kw['tile_vertices']:g}, "
+          f"power_law_sharded total_bits {a.total_bits!r} == "
+          f"power_law_stream's, meta {json.dumps(a.meta['trace'])}; "
+          f"{front_k4} K4 launches")
+    if front_k4 < 1:
+        raise AssertionError("the front door launched no K4")
+    del single, fact
+    trace_mod.clear_trace_cache()
+
+    # (c) The 10^8-edge row, no cut: K4 schedules its 16 capacities, held to
+    # the sharded engine bit for bit.
+    stats: dict = {}
+    t0 = time.perf_counter()
+    huge = trace_shard.build_power_law_trace(**HUGE_TRACE, stats=stats)
+    build_s = time.perf_counter() - t0
+    U = int(stats["n_unique_pairs"])
+    caps = pow2_caps(huge.n_nodes, SWEEP_POINTS)
+    t0 = time.perf_counter()
+    huge._device_factorization(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    before = ops.LAUNCHES[k4]
+    t0 = time.perf_counter()
+    k4_scheds = huge.schedules(caps, engine="torch", device=dev)
+    torch.cuda.synchronize()
+    k4_sweep_s = time.perf_counter() - t0
+    sweep_k4 = ops.LAUNCHES[k4] - before
+    huge.clear_schedules()
+    t0 = time.perf_counter()
+    sharded_scheds = huge.schedules(caps, engine="sharded")
+    sharded_s = time.perf_counter() - t0
+    same_schedules(k4_scheds, sharded_scheds,
+                   "10^8 edges: K4 vs the sharded engine")
+    print(f"# sharded 10^8: power_law_sharded V={huge.n_nodes} "
+          f"E={huge.n_edges} U={U}, {stats['n_shards']} shards "
+          f"({stats['n_generation_shards']} generating), edge-list-free "
+          f"{not huge.has_edge_list}; {sweep_k4} K4 launches for "
+          f"{len(caps)} capacities {caps}; every schedule field "
+          "bit-identical to the sharded engine")
+    if sweep_k4 != len(caps) or huge.has_edge_list:
+        raise AssertionError(f"K4 launches {sweep_k4} for {len(caps)} "
+                             "capacities")
+    print(f"# time sharded 10^8 (host clock): generation and sort "
+          f"{stats['t_generate_sort_s']:.3f} s, exchange and factorization "
+          f"{stats['t_exchange_factorize_s']:.3f} s, CSR "
+          f"{stats['t_csr_s']:.3f} s (build {build_s:.3f} s); upload "
+          f"{upload_s:.3f} s; sharded NumPy sweep {sharded_s:.3f} s, K4 "
+          f"sweep {k4_sweep_s:.3f} s; peak RSS "
+          f"{stats['rss_exchange_factorize_kb'] / 2**20:.2f} GiB after "
+          f"factorization, {stats['rss_csr_kb'] / 2**20:.2f} GiB after the "
+          f"CSR | {card}")
+    tensors = huge._device_factorization(dev)
+    s_idx = tensors[1].element_size()
+    k4_tot = bound_tot = 0.0
+    for cap in caps:
+        n_tiles, K = huge._geometry(cap)
+        ms = time_ms(torch, lambda: sr.schedule_counts(
+            *tensors, K, n_tiles, huge.n_edges))
+        nbytes = U * (2 * s_idx + 1 + 8) + 16 * n_tiles
+        bound = 1e3 * nbytes / PEAK_BYTES_PER_S
+        k4_tot += ms
+        bound_tot += bound
+        print(f"# time {k4} 10^8 cap={cap} (n_tiles={n_tiles}, "
+              f"{sr.k4_route(U, n_tiles, huge.n_edges).describe()}): "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({nbytes} B, "
+              f"{100 * bound / ms:.1f}%) | {card}")
+    print(f"# time {k4} 10^8, the {len(caps)} capacities: {k4_tot:.4f} ms, "
+          f"bound {bound_tot:.4f} ms ({100 * bound_tot / k4_tot:.1f}%) "
+          f"| {card}")
+    del huge, tensors, k4_scheds, sharded_scheds
+    torch.cuda.empty_cache()
+
+    # (d) Typed counts: the sharded per-relation counts equal K4's.
+    t0 = time.perf_counter()
+    typed = trace_mod.resolve_trace_dataset("typed_power_law", TYPED_TRACE)
+    rels = typed.relation_traces()
+    typed_s = time.perf_counter() - t0
+    caps = pow2_caps(typed.n_nodes, SWEEP_POINTS)
+    before = ops.LAUNCHES[k4]
+    k4_typed = [rel.schedules(caps, device=dev) for rel in rels]
+    typed_k4 = ops.LAUNCHES[k4] - before
+    t0 = time.perf_counter()
+    for i, cap in enumerate(caps):
+        n_tiles, K = rels[0]._geometry(cap)
+        halo, remote = trace_shard.typed_sharded_schedule_counts(
+            typed, K, n_tiles)
+        for r in range(typed.n_relations):
+            s = k4_typed[r][i]
+            if not (np.array_equal(halo[r], s.halo_counts.astype(np.int64))
+                    and np.array_equal(remote[r], s.remote_edge_counts
+                                       .astype(np.int64))):
+                raise AssertionError(f"typed sharded counts differ from "
+                                     f"K4's: relation {r}, cap {cap}")
+    typed_sharded_s = time.perf_counter() - t0
+    print(f"# sharded typed: typed_power_law V={typed.n_nodes} "
+          f"E={typed.n_edges} R={typed.n_relations}; "
+          f"typed_sharded_schedule_counts equal K4's ({typed_k4} launches) "
+          f"per relation at {len(caps)} capacities; set-up {typed_s:.3f} s, "
+          f"sharded counts {typed_sharded_s:.3f} s (host clock) | {card}")
+    if typed_k4 != typed.n_relations * len(caps):
+        raise AssertionError(f"typed K4 launches {typed_k4}")
+    del typed, rels, k4_typed
+    trace_mod.clear_trace_cache()
+    phase = dict(ops.LAUNCHES)
+    print(f"# sharded phase launches: {json.dumps(phase)}; phase 23 took "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    for kname, count in phase.items():
+        launches[kname] += count
+
+
+def gnn_graph(name: str, shape: str, cfg, seed: int = 0) -> dict:
+    """A seeded graph of one GNN shape for one model, as numpy fields of a
+    ``GraphBatch``: ``full_graph_sm`` a Cora-sized power-law graph
+    (self-loops for all but EquiformerV2, as the reference's trainer draws
+    it), ``molecule`` ``molecule_batch``'s 128 graphs with graph ids and a
+    per-graph readout; edge features, regression targets and positions
+    seeded; EquiformerV2's Wigner blocks from the positions."""
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.data import synthetic
+    from repro_torch.data.wigner import rotation_to_z, wigner_stack
+
+    p = GNN_SHAPES[shape].params
+    rng = np.random.default_rng(seed + 1)
+    n_classes = getattr(cfg, "n_classes", 1)
+    if shape == "molecule":
+        b = synthetic.molecule_batch(seed, 0, batch=p["batch"],
+                                     n_nodes=p["n_nodes"],
+                                     n_edges=p["n_edges"], d_feat=p["d_feat"])
+        B, n = p["batch"], p["n_nodes"]
+        off = (np.arange(B) * n)[:, None]
+        kw = dict(node_feat=b["node_feat"].reshape(B * n, -1),
+                  senders=(b["senders"] + off).ravel().astype(np.int32),
+                  receivers=(b["receivers"] + off).ravel().astype(np.int32),
+                  graph_ids=np.repeat(np.arange(B), n).astype(np.int32),
+                  n_graphs=B,
+                  labels=rng.integers(0, n_classes, B).astype(np.int32))
+        pos = b["positions"].reshape(B * n, 3)
+        target = b["labels"]
+    else:
+        ga = synthetic.power_law_graph(
+            seed, n_nodes=p["n_nodes"], n_edges=p["n_edges"],
+            d_feat=p["d_feat"], n_classes=n_classes,
+            self_loops=name != "equiformer-v2")
+        kw = dict(node_feat=ga.node_feat, senders=ga.senders,
+                  receivers=ga.receivers, labels=ga.labels)
+        pos = rng.standard_normal((ga.n_nodes, 3))
+        target = rng.standard_normal((1, 1)).astype(np.float32)
+    E, N = kw["senders"].size, kw["node_feat"].shape[0]
+    if name in ("gatedgcn", "meshgraphnet"):
+        kw["edge_feat"] = rng.standard_normal(
+            (E, cfg.d_edge_in)).astype(np.float32)
+    if name == "meshgraphnet":
+        kw["labels"] = rng.standard_normal((N, cfg.d_out)).astype(np.float32)
+    if name == "equiformer-v2":
+        if np.any(kw["senders"] == kw["receivers"]):
+            raise AssertionError(f"{shape}: EquiformerV2's edges hold a "
+                                 "self-loop, which has no edge frame")
+        vecs = pos[kw["senders"]] - pos[kw["receivers"]]
+        kw["wigner"] = wigner_stack(np.stack([rotation_to_z(v) for v in vecs]),
+                                    cfg.l_max, m_max=cfg.m_max)
+        kw["positions"] = pos.astype(np.float32)
+        kw["labels"] = target
+    return kw
+
+
+def gnn_phase(dev, card: str, ogb_edges: tuple) -> None:
+    """Phase 24: the four GNN models at their published configs on the
+    card, held to the CPU; GCN at ogb_products' full size.  The models run
+    no hand-written kernel, as the reference's run no Pallas kernel: the
+    counters are zeroed before and must read 0 after."""
+    from repro_torch import params
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import (GraphBatch, equiformer_v2, gatedgcn,
+                                        gcn, meshgraphnet)
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    loaders = {"gcn-cora": (params.load_gcn, gcn.loss_fn),
+               "gatedgcn": (params.load_gatedgcn, gatedgcn.loss_fn),
+               "meshgraphnet": (params.load_meshgraphnet,
+                                meshgraphnet.loss_fn),
+               "equiformer-v2": (params.load_equiformer_v2,
+                                 equiformer_v2.loss_fn)}
+    cpu = torch.device("cpu")
+    for name, (load, loss_fn) in loaders.items():
+        for shape in ("full_graph_sm", "molecule"):
+            mk = {"d_in": GNN_SHAPES[shape].params["d_feat"]}
+            if name in ("gcn-cora", "gatedgcn"):
+                mk["n_classes"] = GNN_N_CLASSES[shape]
+                if shape == "molecule":
+                    mk["readout"] = "graphs"
+            cfg = get_arch(name).make_config(**mk)
+            t0 = time.perf_counter()
+            arrays = gnn_graph(name, shape, cfg)
+            graph_s = time.perf_counter() - t0
+            weights = params.gnn_params(cfg, seed=0)
+            out = []
+            with torch.no_grad():
+                for d in (dev, cpu):  # the card's run first
+                    model = load(weights, cfg, device=d)
+                    g = GraphBatch(**arrays).to(d)
+                    t0 = time.perf_counter()
+                    y = model(g)
+                    loss, _ = loss_fn(model, g)
+                    if d.type == "cuda":
+                        torch.cuda.synchronize()
+                    out.append((y.cpu(), float(loss),
+                                time.perf_counter() - t0))
+                    if len(out) == 1:
+                        card_ms = time_ms(torch, lambda: model(g), reps=5)
+                    del model, g
+            (y, loss, card_s), (y_cpu, loss_cpu, cpu_s) = out
+            err = rel_err(y, y_cpu)
+            loss_err = abs(loss - loss_cpu) / max(abs(loss_cpu), 1e-30)
+            n_params = sum(np.asarray(a).size for a in
+                           _leaves(weights))
+            print(f"# gnn {name} {shape}: N={arrays['node_feat'].shape[0]} "
+                  f"E={arrays['senders'].size}, {n_params} parameters, "
+                  f"output {tuple(y.shape)}, loss {loss!r}; card vs CPU: "
+                  f"output {err:.3e}, loss {loss_err:.3e} (tolerance "
+                  f"{GNN_TOLERANCE:.0e}); forward {card_ms:.4f} ms on the "
+                  f"card (CUDA events, median of 5), forward and loss "
+                  f"{card_s:.3f} s card / {cpu_s:.3f} s CPU, graph "
+                  f"{graph_s:.3f} s (host clock) | {card}")
+            if not (bool(torch.isfinite(y).all()) and np.isfinite(loss)):
+                raise AssertionError(f"{name} {shape}: not finite")
+            if not (err < GNN_TOLERANCE and loss_err < GNN_TOLERANCE):
+                raise AssertionError(f"{name} {shape}: card vs CPU {err}, "
+                                     f"loss {loss_err}")
+
+    # GCN at ogb_products, whole: phase 22's seeded edges with one
+    # self-loop per vertex, as power_law_graph(self_loops=True) appends.
+    p = GNN_SHAPES["ogb_products"].params
+    V, n_classes = p["n_nodes"], GNN_N_CLASSES["ogb_products"]
+    cfg = get_arch("gcn-cora").make_config(d_in=p["d_feat"],
+                                           n_classes=n_classes)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(22)
+    loops = np.arange(V, dtype=np.int32)
+    arrays = dict(
+        node_feat=rng.standard_normal((V, p["d_feat"]), dtype=np.float32),
+        senders=np.concatenate([ogb_edges[0], loops]),
+        receivers=np.concatenate([ogb_edges[1], loops]),
+        labels=rng.integers(0, n_classes, V).astype(np.int32))
+    graph_s = time.perf_counter() - t0
+    E = arrays["senders"].size
+    weights = params.gnn_params(cfg, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model = params.load_gcn(weights, cfg, device=dev)
+        g = GraphBatch(**arrays).to(dev)
+        t0 = time.perf_counter()
+        logits = model(g)
+        loss, metrics = gcn.loss_fn(model, g)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        fwd_ms = time_ms(torch, lambda: model(g), reps=5)
+        kinds = device_time_by_kind(lambda: model(g), "gathers and scatters",
+                                    ("index", "gather", "scatter"))
+        peak = torch.cuda.max_memory_allocated()
+        logits, loss = logits.cpu(), float(loss)
+        del model, g
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = params.load_gcn(weights, cfg, device=cpu)
+        g = GraphBatch(**arrays).to(cpu)
+        expect = model(g)
+        # loss_fn's own formula on the logits, without a second forward.
+        loss_cpu = float(gcn.masked_cross_entropy(expect, g.labels,
+                                                  g.nmask())[0])
+        cpu_s = time.perf_counter() - t0
+        del model, g
+    err = rel_err(logits, expect)
+    loss_err = abs(loss - loss_cpu) / max(abs(loss_cpu), 1e-30)
+    nbytes = (arrays["node_feat"].nbytes + 2 * 8 * E
+              + 4 * V * n_classes + sum(np.asarray(a).nbytes
+                                        for a in _leaves(weights)))
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    msg_bytes = 4 * E * (cfg.d_hidden + n_classes)
+    busy = sum(kinds.values())
+    print(f"# gnn gcn-cora ogb_products: V={V} E={E} (phase 22's edges and "
+          f"{V} self-loops), d_feat {p['d_feat']}, {n_classes} classes, no "
+          f"cut; logits {tuple(logits.shape)}, loss {loss!r}, acc "
+          f"{float(metrics['acc'])!r}; card vs CPU: logits {err:.3e}, loss "
+          f"{loss_err:.3e} (tolerance {GNN_TOLERANCE:.0e}) | {card}")
+    print(f"# time gnn gcn-cora ogb_products: forward {fwd_ms:.3f} ms (CUDA "
+          f"events, median of 5; first forward and loss {first_s:.3f} s, "
+          f"CPU forward and loss {cpu_s:.3f} s, graph {graph_s:.3f} s, host "
+          f"clock), byte bound {bound_ms:.4f} ms ({nbytes} B at "
+          f"{PEAK_BYTES_PER_S:.3g} B/s, {100 * bound_ms / fwd_ms:.1f}%); the "
+          f"layers' gathered messages {msg_bytes / 1e9:.2f} GB; peak device "
+          f"memory {peak / 1e9:.2f} GB; device time by kind: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in kinds.items())
+          + f" (busy {busy:.3f} ms) | {card}")
+    if not (bool(torch.isfinite(logits).all()) and np.isfinite(loss)):
+        raise AssertionError("ogb_products logits not finite")
+    if not (err < GNN_TOLERANCE and loss_err < GNN_TOLERANCE):
+        raise AssertionError(f"ogb_products card vs CPU {err}, loss "
+                             f"{loss_err}")
+    # The cuts: the other three models' per-layer edge tensors at
+    # ogb_products' E, in f32.
+    E0 = p["n_edges"]
+    mgn = get_arch("meshgraphnet").make_config()
+    ggcn = get_arch("gatedgcn").make_config()
+    eqv = get_arch("equiformer-v2").make_config()
+    wig = sum(eqv.m_dim(l) * (2 * l + 1) for l in range(eqv.l_max + 1))
+    print(f"# gnn cut at ogb_products (E={E0}, f32; the card holds 80 GB): "
+          f"meshgraphnet's edge-MLP input E x {3 * mgn.d_hidden} = "
+          f"{4 * E0 * 3 * mgn.d_hidden / 1e9:.1f} GB; gatedgcn's edge state "
+          f"E x {ggcn.d_hidden} = {4 * E0 * ggcn.d_hidden / 1e9:.1f} GB per "
+          f"tensor, five such a layer (e, C e, D h gathered, E h gathered, "
+          f"B h gathered) = {5 * 4 * E0 * ggcn.d_hidden / 1e9:.1f} GB; "
+          f"equiformer-v2's Wigner blocks E x {wig} = "
+          f"{4 * E0 * wig / 1e9:.1f} GB and its messages E x {eqv.L2} x "
+          f"{eqv.d_hidden} = {4 * E0 * eqv.L2 * eqv.d_hidden / 1e12:.2f} TB")
+    phase = dict(ops.LAUNCHES)
+    print(f"# gnn phase launches: {json.dumps(phase)} (the reference's GNN "
+          f"models reach no Pallas kernel); phase 24 took "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    if any(phase.values()):
+        raise AssertionError(f"the GNN models launched kernels: {phase}")
+
+
+def _leaves(tree) -> list:
+    """The arrays of a nested dict / list of arrays."""
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in _leaves(v)]
+    return [tree]
 
 
 def main() -> int:
@@ -3042,7 +3476,9 @@ def main() -> int:
     for kname in launches:
         launches[kname] += tuned["launches"][kname] + served[kname]
     gemma2_phases(dev, card, launches)
-    bridge_phase(dev, card, launches)
+    ogb_edges = bridge_phase(dev, card, launches)
+    sharded_phase(dev, card, launches)
+    gnn_phase(dev, card, ogb_edges)
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -3059,11 +3495,11 @@ def main() -> int:
     print(f"# wall time {time.perf_counter() - t_start:.1f} s; K1-K3 times "
           "are sums over the two GCN-Cora layers, f32; K4's over the 16 "
           "capacities of the 10^7-edge sweep (its launches include phase "
-          "17's typed path, phases 18-19's tunes and serve windows and "
-          "phase 22's trace bridges); K5's one layer of the SmolLM-135M "
-          "prefill, bf16 (its launches: the SmolLM prefill's and the "
-          "gemma2-2b prefill's); K6's the 26 tables of one serve_bulk "
-          "forward of DLRM-MLPerf, f32")
+          "17's typed path, phases 18-19's tunes and serve windows, "
+          "phase 22's trace bridges and phase 23's sharded path); K5's "
+          "one layer of the SmolLM-135M prefill, bf16 (its launches: the "
+          "SmolLM prefill's and the gemma2-2b prefill's); K6's the 26 "
+          "tables of one serve_bulk forward of DLRM-MLPerf, f32")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

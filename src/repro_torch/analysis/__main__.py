@@ -154,7 +154,7 @@ def main(argv=None) -> int:
         "dataflows": {name: audits[name].as_dict()
                       for name in sorted(audits)},
         "lint": {
-            "roots": ["src/repro_torch/core"],
+            "roots": ["src/repro_torch/core", "src/repro_torch/distributed"],
             "violations": [v.as_dict() for v in violations],
         },
         "mutation_battery": {

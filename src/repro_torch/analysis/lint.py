@@ -75,9 +75,10 @@ class LintViolation:
 
 
 def default_lint_roots() -> tuple[Path, ...]:
-    """``src/repro_torch/core`` of this checkout."""
+    """``src/repro_torch/core`` and ``src/repro_torch/distributed`` of this
+    checkout."""
     pkg = Path(__file__).resolve().parents[1]
-    return (pkg / "core",)
+    return (pkg / "core", pkg / "distributed")
 
 
 def _is_trace_path(path: str) -> bool:

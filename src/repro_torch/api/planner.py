@@ -497,9 +497,12 @@ def evaluate_scenarios(scenarios: Sequence[Scenario], *, device=None,
         kind = members[0].graph_kind
         if kind == "trace":
             tr = out.meta["trace"]
+            # Provenance: a sharded (factorization-only) build backs the
+            # numbers as transparently as an edge list does.
             meta["trace"] = {"dataset": members[0].graph["dataset"],
                              "n_nodes": int(tr.n_nodes),
-                             "n_edges": int(tr.n_edges)}
+                             "n_edges": int(tr.n_edges),
+                             "edge_list_free": not tr.has_edge_list}
         elif kind == "hetero":
             tr = out.meta["trace"]
             meta["trace"] = {

@@ -16,18 +16,22 @@ once per trace on the host and collapsed to the unique ``(sender,
 receiver)`` pairs with an edge-multiplicity prefix, makes the deduplicated
 ``(dst_tile, source)`` pairs of any capacity contiguous runs.  A capacity
 then costs one O(U) boundary-flag pass over the U unique pairs.  That pass
-has two engines:
+has three engines:
 
 * ``"torch"`` (the default): kernel K4 (:func:`repro_torch.kernels.ops.
   schedule_counts`) on ``device``, which is CUDA unless the caller passes
   ``device="cpu"`` (then the plain PyTorch version runs).  The
   factorization goes to the device once per trace and device;
-* ``"numpy"``: the reference's host pass, kept verbatim.
+* ``"numpy"``: the reference's host pass, kept verbatim;
+* ``"sharded"``: the same host pass split at new-sender boundaries over a
+  thread pool (:func:`repro_torch.distributed.trace_shard.
+  sharded_schedule_counts`).
 
-Both give bit-identical integers, and :meth:`GraphTrace.schedule_reference`
-keeps the per-capacity ``np.unique`` algorithm as the oracle.  Datasets
-registered with a ``cache_token`` also persist their factorization and every
-schedule in the content-addressed disk cache
+All three give bit-identical integers, and
+:meth:`GraphTrace.schedule_reference` keeps the per-capacity ``np.unique``
+algorithm as the oracle.  Datasets registered with a ``cache_token`` also
+persist their factorization and every schedule in the content-addressed
+disk cache
 (:mod:`repro_torch.core.schedule_cache`): a warm process skips the
 generator, the sort and K4.
 
@@ -70,7 +74,7 @@ __all__ = [
 CORA_V = 2708
 CORA_E = 10556
 
-_ENGINES = ("torch", "numpy")
+_ENGINES = ("torch", "numpy", "sharded")
 
 #: Process-wide work counters (observability, not behaviour): edge-list
 #: sorts, schedule computations, schedule-LRU hits and dataset builds.
@@ -661,10 +665,30 @@ class GraphTrace:
             out.append(self._schedule_from_counts(cap, n_tiles, K, halo, cut))
         return out
 
+    def _compute_schedules_sharded(self, caps: Sequence[int]
+                                   ) -> list[TraceSchedule]:
+        """The ``"sharded"`` engine: the O(U) host pass split at new-sender
+        boundaries and run per shard; the integer partial counts are summed
+        (:mod:`repro_torch.distributed.trace_shard`)."""
+        from ..distributed import trace_shard
+
+        out = []
+        for cap in caps:
+            _bump_stat("schedule_computes")
+            n_tiles, K = self._geometry(cap)
+            halo, remote = trace_shard.sharded_schedule_counts(
+                self._pair_factorization(), K, n_tiles)
+            out.append(self._schedule_from_counts(
+                cap, n_tiles, K, halo.astype(np.float64),
+                remote.astype(np.float64)))
+        return out
+
     def _compute(self, caps: Sequence[int], engine: str,
                  device) -> list[TraceSchedule]:
         if engine == "torch":
             return self._compute_schedules_torch(caps, device)
+        if engine == "sharded":
+            return self._compute_schedules_sharded(caps)
         return [self._compute_schedule(c) for c in caps]
 
     # -- schedule cache plumbing ------------------------------------------
@@ -740,7 +764,8 @@ class GraphTrace:
         halo / cut counts are one boundary-flag pass over the shared
         unique-pair factorization: kernel K4 on ``device`` (CUDA unless
         ``device="cpu"``) for ``engine="torch"``, the host pass for
-        ``engine="numpy"``; bit-identical integers.
+        ``engine="numpy"``, that pass split over shards for
+        ``engine="sharded"``; bit-identical integers.
         """
         return self.schedules([tile_vertices], engine=engine,
                               device=device)[0]
@@ -1219,6 +1244,20 @@ def _power_law_stream_trace(*, n_nodes, n_edges, seed=0,
     return GraphTrace(snd, rcv, int(n_nodes))
 
 
+def _power_law_sharded_trace(*, n_nodes, n_edges, seed=0,
+                             alpha=1.6) -> GraphTrace:
+    """The ``power_law_stream`` graph built by the sharded pipeline
+    (:mod:`repro_torch.distributed.trace_shard`): the same edge multiset and
+    a bit-identical factorization, but edge-list-free, so it reaches 10^8
+    edges and more.  The shard count comes from ``REPRO_TORCH_TRACE_SHARDS``
+    (else the CPU count) and never enters the cache key."""
+    from ..distributed import trace_shard
+
+    return trace_shard.build_power_law_trace(
+        n_nodes=int(n_nodes), n_edges=int(n_edges), seed=int(seed),
+        alpha=float(alpha))
+
+
 def _cora_trace(*, seed=0, alpha=1.6) -> GraphTrace:
     """Cora-sized deterministic power-law graph (V/E of Cora)."""
     return _power_law_trace(n_nodes=CORA_V, n_edges=CORA_E,
@@ -1301,6 +1340,8 @@ def _typed_cora_trace(*, n_relations=3, seed=0, alpha=1.6) -> TypedGraphTrace:
 
 register_trace_dataset("power_law", _power_law_trace, cache_token="v1")
 register_trace_dataset("power_law_stream", _power_law_stream_trace,
+                       cache_token="v1")
+register_trace_dataset("power_law_sharded", _power_law_sharded_trace,
                        cache_token="v1")
 register_trace_dataset("cora", _cora_trace)
 register_trace_dataset("molecule", _molecule_trace)

@@ -1,12 +1,16 @@
-"""GNN family: the configurations of GCN, GatedGCN, MeshGraphNet and
-EquiformerV2 (the reference's ``models/gnn``).
+"""GNN family: GCN, GatedGCN, MeshGraphNet and EquiformerV2 (eSCN), the
+reference's ``models/gnn`` in PyTorch.
 
-Only the config classes are ported, which the architecture registry
-(:mod:`repro_torch.configs`) and its workload bridges read.  The models
-themselves (message passing, the eSCN convolution, graph batches) are not
-ported yet.
+Each model is an ``nn.Module`` whose ``forward(g)`` returns what the
+reference's ``forward(cfg, params, g)`` returns, with a ``loss_fn(model,
+g)`` beside it.  Message passing is gathers, ``index_add_`` and
+``scatter_reduce_`` (:mod:`.layers`): the reference's models reach no
+Pallas kernel, so these run none either.  Weights come from the reference's
+parameter layout through :mod:`repro_torch.params`.  Training (optimizers,
+the train step) is not ported yet.
 """
 
 from . import equiformer_v2, gatedgcn, gcn, meshgraphnet
+from .graph import GraphBatch
 
-__all__ = ["gcn", "gatedgcn", "meshgraphnet", "equiformer_v2"]
+__all__ = ["gcn", "gatedgcn", "meshgraphnet", "equiformer_v2", "GraphBatch"]

@@ -21,6 +21,19 @@ in that layout and :func:`load_dlrm` loads them, or the reference's
 full-size tables are drawn on the card instead, by ``DLRM(cfg,
 generator=...)``: 53 GB would not pass through host numpy in reasonable
 time.)
+
+The reference GNNs keep their weights as pytrees whose per-layer leaves are
+stacked along a leading ``L`` axis (its models scan over layers):
+GatedGCN's ``{"embed_h", "embed_e", "out", "layers": {"A", ..., "ln_e_b"}}``,
+MeshGraphNet's ``{"node_enc", "edge_enc", "decoder", "processors":
+{"edge_mlp", "node_mlp"}}`` of :func:`mlp_init` MLPs, EquiformerV2's
+``{"embed", "out_mlp", "layers": {"w_m0", "w_m{m}_r", "w_m{m}_i",
+"attn_mlp", "gate", "ffn", "norm_scale"}}``, and GCN's ``{"w", "b"}``
+lists.  :func:`gnn_params` draws seeded numpy weights in those layouts with
+the reference's initializers, and :func:`load_gcn`, :func:`load_gatedgcn`,
+:func:`load_meshgraphnet` and :func:`load_equiformer_v2` load them, or the
+reference's ``init_params`` output after ``np.asarray``, into the port's
+modules: layer ``i`` takes slice ``i`` of every stacked leaf.
 """
 
 from __future__ import annotations
@@ -33,11 +46,17 @@ import torch
 from .backend import resolve_device
 from .models.common import dense_init, embed_init, mlp_init
 from .models.dlrm import DLRM, DLRMConfig
+from .models.gnn.equiformer_v2 import EquiformerV2, EquiformerV2Config
+from .models.gnn.gatedgcn import LAYER_KEYS as GATEDGCN_KEYS
+from .models.gnn.gatedgcn import GatedGCN, GatedGCNConfig
+from .models.gnn.gcn import GCN, GCNConfig, layer_dims
+from .models.gnn.meshgraphnet import MeshGraphNet, MeshGraphNetConfig, mlp_dims
 from .models.transformer import LAYER_KEYS, Transformer, TransformerConfig
 
 __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
            "load_transformer", "draw_transformer", "dlrm_params",
-           "load_dlrm"]
+           "load_dlrm", "gnn_params", "load_gcn", "load_gatedgcn",
+           "load_meshgraphnet", "load_equiformer_v2"]
 
 
 def gcn_params(dims: Sequence[int], seed: int = 0) -> dict:
@@ -194,4 +213,169 @@ def load_dlrm(params_np: dict, cfg: DLRMConfig, *, device=None) -> DLRM:
                                      f"expected {len(mlp[key])}")
                 for i, (dst, src) in enumerate(zip(mlp[key], srcs)):
                     _put(dst, src, f"{name}[{key!r}][{i}]")
+    return model
+
+
+def _stack(layers: Sequence[dict]) -> dict:
+    """Per-layer pytrees (dicts of arrays or of lists of arrays) stacked
+    leaf by leaf along a new leading axis, as the reference stacks them."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([p[k] for p in layers]) for k in first}
+    if isinstance(first, list):
+        return [_stack([p[i] for p in layers]) for i in range(len(first))]
+    return np.stack(layers)
+
+
+def gnn_params(cfg, seed: int = 0) -> dict:
+    """Seeded float32 numpy weights for a GNN config, in the reference's
+    layout (layer leaves stacked on a leading axis), with the reference's
+    initializers: LeCun-normal matrices, He-normal MLPs, zero biases, unit
+    norm scales.  The draw repeats on every host but differs from the
+    reference's ``jax.random`` draw."""
+    rng = np.random.default_rng(seed)
+    if isinstance(cfg, GCNConfig):
+        return gcn_params(layer_dims(cfg), seed)
+    if isinstance(cfg, GatedGCNConfig):
+        d = cfg.d_hidden
+        p = {"embed_h": dense_init(rng, (cfg.d_in, d)),
+             "embed_e": dense_init(rng, (cfg.d_edge_in, d)),
+             "out": dense_init(rng, (d, cfg.n_classes))}
+        p["layers"] = _stack([
+            {**{k: dense_init(rng, (d, d)) for k in "ABCDE"},
+             "ln_h_s": np.ones((d,), np.float32),
+             "ln_h_b": np.zeros((d,), np.float32),
+             "ln_e_s": np.ones((d,), np.float32),
+             "ln_e_b": np.zeros((d,), np.float32)}
+            for _ in range(cfg.n_layers)])
+        return p
+    if isinstance(cfg, MeshGraphNetConfig):
+        d = cfg.d_hidden
+        p = {"node_enc": mlp_init(rng, mlp_dims(cfg, cfg.d_in),
+                                  layer_norm_out=True),
+             "edge_enc": mlp_init(rng, mlp_dims(cfg, cfg.d_edge_in),
+                                  layer_norm_out=True),
+             "decoder": mlp_init(rng, [d] * cfg.mlp_layers + [cfg.d_out])}
+        p["processors"] = _stack([
+            {"edge_mlp": mlp_init(rng, mlp_dims(cfg, 3 * d),
+                                  layer_norm_out=True),
+             "node_mlp": mlp_init(rng, mlp_dims(cfg, 2 * d),
+                                  layer_norm_out=True)}
+            for _ in range(cfg.n_layers)])
+        return p
+    if isinstance(cfg, EquiformerV2Config):
+        C, lm = cfg.d_hidden, cfg.l_max
+
+        def so2_layer() -> dict:
+            n0 = (lm + 1) * C
+            q = {"w_m0": dense_init(rng, (n0, n0), fan_in=n0)}
+            for m in range(1, cfg.m_max + 1):
+                nm = len(cfg.ls_for_m(m)) * C
+                q[f"w_m{m}_r"] = dense_init(rng, (nm, nm), fan_in=nm)
+                q[f"w_m{m}_i"] = dense_init(rng, (nm, nm), fan_in=nm)
+            q["attn_mlp"] = mlp_init(rng, [2 * C, C, cfg.n_heads])
+            q["gate"] = dense_init(rng, (C, lm * C), fan_in=C)
+            q["ffn"] = mlp_init(rng, [C, 2 * C, C])
+            q["norm_scale"] = np.ones((lm + 1, C), np.float32)
+            return q
+
+        return {"embed": dense_init(rng, (cfg.d_in, C)),
+                "out_mlp": mlp_init(rng, [C, C, cfg.d_out]),
+                "layers": _stack([so2_layer() for _ in range(cfg.n_layers)])}
+    raise TypeError(f"not a GNN config: {type(cfg).__name__}")
+
+
+def _layer(leaf, i: int):
+    """Slice ``i`` of a stacked leaf (a list of stacked arrays: each's)."""
+    if isinstance(leaf, (list, tuple)):
+        return [np.asarray(a)[i] for a in leaf]
+    return np.asarray(leaf)[i]
+
+
+def _put_mlp(mlp, src: dict, what: str) -> None:
+    """Copy a reference-layout MLP ``{"w": [...], "b": [...]}`` (and its
+    LayerNorm's ``ln_scale`` / ``ln_bias``) into a :class:`~repro_torch.
+    models.common.MLP`; layer counts and shapes must match."""
+    for key in ("w", "b"):
+        dsts = getattr(mlp, key)
+        if len(src[key]) != len(dsts):
+            raise ValueError(f"{what}[{key!r}]: {len(src[key])} layers, "
+                             f"expected {len(dsts)}")
+        for j, (dst, a) in enumerate(zip(dsts, src[key])):
+            _put(dst, a, f"{what}[{key!r}][{j}]")
+    if hasattr(mlp, "ln_scale") != ("ln_scale" in src):
+        raise ValueError(f"{what}: LayerNorm weights do not match")
+    if "ln_scale" in src:
+        _put(mlp.ln_scale, src["ln_scale"], f"{what}['ln_scale']")
+        _put(mlp.ln_bias, src["ln_bias"], f"{what}['ln_bias']")
+
+
+def load_gcn(params_np: dict, cfg: GCNConfig, *, device=None) -> GCN:
+    """The port's GCN holding ``params_np`` (``{"w": [...], "b": [...]}``)
+    in f32 on ``device`` (CUDA by default); every shape must match."""
+    model = GCN(cfg, device=device)
+    with torch.no_grad():
+        for key in ("w", "b"):
+            if len(params_np[key]) != cfg.n_layers:
+                raise ValueError(f"{len(params_np[key])} {key!r} layers for "
+                                 f"{cfg.n_layers}")
+            for i, (dst, src) in enumerate(zip(getattr(model, key),
+                                               params_np[key])):
+                _put(dst, src, f"{key}[{i}]")
+    return model
+
+
+def load_gatedgcn(params_np: dict, cfg: GatedGCNConfig, *,
+                  device=None) -> GatedGCN:
+    """The port's GatedGCN holding ``params_np`` (reference layout) in f32
+    on ``device`` (CUDA by default); layer ``i`` takes slice ``i``."""
+    model = GatedGCN(cfg, device=device)
+    with torch.no_grad():
+        for key in ("embed_h", "embed_e", "out"):
+            _put(getattr(model, key), params_np[key], key)
+        stacked = params_np["layers"]
+        for i, layer in enumerate(model.layers):
+            for key in GATEDGCN_KEYS:
+                _put(getattr(layer, key), _layer(stacked[key], i),
+                     f"layers[{key!r}][{i}]")
+    return model
+
+
+def load_meshgraphnet(params_np: dict, cfg: MeshGraphNetConfig, *,
+                      device=None) -> MeshGraphNet:
+    """The port's MeshGraphNet holding ``params_np`` (reference layout) in
+    f32 on ``device`` (CUDA by default); processor ``i`` takes slice ``i``."""
+    model = MeshGraphNet(cfg, device=device)
+    with torch.no_grad():
+        for key in ("node_enc", "edge_enc", "decoder"):
+            _put_mlp(getattr(model, key), params_np[key], key)
+        stacked = params_np["processors"]
+        for i, proc in enumerate(model.processors):
+            for key in ("edge_mlp", "node_mlp"):
+                _put_mlp(getattr(proc, key),
+                         {k: _layer(v, i) for k, v in stacked[key].items()},
+                         f"processors[{key!r}][{i}]")
+    return model
+
+
+def load_equiformer_v2(params_np: dict, cfg: EquiformerV2Config, *,
+                       device=None) -> EquiformerV2:
+    """The port's EquiformerV2 holding ``params_np`` (reference layout) in
+    f32 on ``device`` (CUDA by default); layer ``i`` takes slice ``i``."""
+    model = EquiformerV2(cfg, device=device)
+    with torch.no_grad():
+        _put(model.embed, params_np["embed"], "embed")
+        _put_mlp(model.out_mlp, params_np["out_mlp"], "out_mlp")
+        stacked = params_np["layers"]
+        matrices = ["w_m0", "gate", "norm_scale"] + [
+            f"w_m{m}_{part}" for m in range(1, cfg.m_max + 1)
+            for part in ("r", "i")]
+        for i, layer in enumerate(model.layers):
+            for key in matrices:
+                _put(getattr(layer, key), _layer(stacked[key], i),
+                     f"layers[{key!r}][{i}]")
+            for key in ("attn_mlp", "ffn"):
+                _put_mlp(getattr(layer, key),
+                         {k: _layer(v, i) for k, v in stacked[key].items()},
+                         f"layers[{key!r}][{i}]")
     return model

@@ -53,10 +53,12 @@ from repro_torch.kernels import ops
 REPO = Path(__file__).resolve().parents[1]
 DATAFLOWS = ("engn", "hygcn", "spmm_tiled", "spmm_unfused", "awb_gcn")
 KERNEL_SPECS = ("spmm_tiled_cta", "spmm_unfused_cta")
+#: Every file of both packages' lint roots: ``core`` and ``distributed``.
 CORE_FILES = sorted(
     str(p.relative_to(REPO))
-    for root in (REPO / "src" / "repro" / "core",
-                 REPO / "src" / "repro_torch" / "core")
+    for pkg in ("repro", "repro_torch")
+    for root in (REPO / "src" / pkg / "core",
+                 REPO / "src" / pkg / "distributed")
     for p in root.glob("*.py"))
 
 
@@ -502,7 +504,8 @@ def test_lint_lexsort_pragma_and_vocab_rules():
 
 
 def test_port_tree_lints_clean():
-    assert default_lint_roots() == (REPO / "src" / "repro_torch" / "core",)
+    pkg = REPO / "src" / "repro_torch"
+    assert default_lint_roots() == (pkg / "core", pkg / "distributed")
     assert lint_paths() == []
 
 

@@ -6,7 +6,8 @@ must be the same edge lists; every per-relation schedule, every relational
 term and every scenario total of the port must equal the reference's bit
 for bit (``np.array_equal``, never ``isclose``).  On the CPU the torch
 engine runs K4's plain version, which must equal the NumPy engine.  The
-sharded case of the reference's battery waits for ROADMAP item 4b.
+sharded case of the reference's battery is twinned in
+``tests/test_torch_trace_shard.py``.
 """
 
 import json

@@ -19,6 +19,10 @@ CONFIG_MODULES = ("base", "scenarios", "arctic_480b", "dlrm_mlperf",
                   "granite_3_2b", "meshgraphnet", "qwen3_moe_30b_a3b",
                   "smollm_135m")
 
+#: The MoE config and every module of the GNN models.
+GNN_MODULES = ("moe", "gnn/__init__", "gnn/graph", "gnn/layers", "gnn/gcn",
+               "gnn/gatedgcn", "gnn/meshgraphnet", "gnn/equiformer_v2")
+
 #: A meta-path finder that refuses jax*, and exactly ``repro`` and
 #: ``repro.*`` (``repro_torch`` must load).
 _REFUSE = r"""
@@ -79,9 +83,13 @@ def test_port_imports_with_jax_and_reference_blocked():
         assert name in walked, name
     for name in CONFIG_MODULES:
         assert f"repro_torch.configs.{name}" in walked, name
-    for name in ("moe", "gnn", "gnn.gcn", "gnn.gatedgcn", "gnn.meshgraphnet",
-                 "gnn.equiformer_v2"):
-        assert f"repro_torch.models.{name}" in walked, name
+    for name in GNN_MODULES:
+        module = name.replace("/__init__", "").replace("/", ".")
+        assert f"repro_torch.models.{module}" in walked, name
+    for name in ("repro_torch.distributed",
+                 "repro_torch.distributed.trace_shard",
+                 "repro_torch.data.wigner"):
+        assert name in walked, name
 
 
 def test_analysis_cli_help_runs_with_jax_and_reference_blocked():
@@ -110,14 +118,16 @@ def test_no_module_imports_jax_or_the_reference(path):
 
 
 def test_ast_scan_covers_the_registry_and_model_configs():
-    """The scan above walks every file of the registry and of the MoE and
-    GNN config modules."""
+    """The scan above walks every file of the registry, of the MoE and GNN
+    model modules, of the sharded trace pipeline and the Wigner data."""
     scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for name in CONFIG_MODULES + ("__init__",):
         assert f"configs/{name}.py" in scanned, name
-    for name in ("moe", "gnn/__init__", "gnn/gcn", "gnn/gatedgcn",
-                 "gnn/meshgraphnet", "gnn/equiformer_v2"):
+    for name in GNN_MODULES:
         assert f"models/{name}.py" in scanned, name
+    for name in ("distributed/__init__", "distributed/trace_shard",
+                 "data/wigner"):
+        assert f"{name}.py" in scanned, name
 
 
 def _run_smoke(cwd: Path):

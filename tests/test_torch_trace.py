@@ -19,12 +19,13 @@ from repro_torch.core import trace as ttrace
 from repro_torch.data import synthetic as tsynthetic
 from repro_torch.kernels import ops, segment_reduce as sr
 
-#: The reference battery's dataset parameters (tests/test_trace_engine.py),
-#: without the sharded build, which waits for the distributed slice.
+#: The reference battery's dataset parameters (tests/test_trace_engine.py).
 DATASET_PARAMS = {
     "power_law": {"n_nodes": 1200, "n_edges": 9000, "seed": 1, "alpha": 1.5},
     "power_law_stream": {"n_nodes": 1200, "n_edges": 9000, "seed": 1,
                          "alpha": 1.5},
+    "power_law_sharded": {"n_nodes": 1200, "n_edges": 9000, "seed": 1,
+                          "alpha": 1.5},
     "cora": {},
     "molecule": {"batch": 16, "n_nodes": 12, "n_edges": 30},
     "ring_of_tiles": {"n_nodes": 512, "n_tiles": 8},
@@ -225,8 +226,13 @@ def test_trace_schedules_match_reference(name, engine):
     ref.clear_schedules()
     jax_scheds = ref.schedules(caps, engine="jax")
     scheds = port.schedules(caps, engine=engine, device="cpu")
+    # A sharded build is factorization-only (no oracle); its graph is by
+    # contract power_law_stream's for equal parameters.
+    oracle_trace = ref if ref.has_edge_list else jtrace.resolve_trace_dataset(
+        "power_law_stream", DATASET_PARAMS[name])
+    assert port.has_edge_list == ref.has_edge_list
     for cap, got, jax_s in zip(caps, scheds, jax_scheds):
-        oracle = ref.schedule_reference(cap)
+        oracle = oracle_trace.schedule_reference(cap)
         assert (got.n_tiles, got.K, got.capacity) == (
             oracle.n_tiles, oracle.K, oracle.capacity)
         for f in COUNT_FIELDS:
@@ -383,8 +389,10 @@ def test_ring_and_molecule_generators_match_reference():
 # ---------------------------------------------------------------------------
 def test_dataset_registry_and_cache_keys():
     assert ttrace.trace_dataset_names() == (
-        "cora", "molecule", "power_law", "power_law_stream",
-        "ring_of_tiles", "typed_blocks", "typed_cora", "typed_power_law")
+        "cora", "molecule", "power_law", "power_law_sharded",
+        "power_law_stream", "ring_of_tiles", "typed_blocks", "typed_cora",
+        "typed_power_law")
+    assert ttrace.trace_dataset_names() == jtrace.trace_dataset_names()
     a = ttrace.resolve_trace_dataset("ring_of_tiles",
                                      {"n_nodes": 64, "n_tiles": 4})
     b = ttrace.resolve_trace_dataset("ring_of_tiles",
@@ -393,7 +401,7 @@ def test_dataset_registry_and_cache_keys():
     assert ttrace._canonical_params({"n": 2.0, "x": {"y": [1.0]}}) == (
         jtrace._canonical_params({"n": 2.0, "x": {"y": [1.0]}}))
     with pytest.raises(KeyError, match="unknown trace dataset"):
-        ttrace.resolve_trace_dataset("power_law_sharded")
+        ttrace.resolve_trace_dataset("no_such_dataset")
     with pytest.raises(ValueError, match="bad parameters"):
         ttrace.resolve_trace_dataset("ring_of_tiles", {"bogus": 1})
     ttrace.clear_trace_cache()
