@@ -253,6 +253,30 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    ``torch.profiler``; the reckoning of why the other three models do not
    fit that shape on one card.  The counters are read right after and
    must all be 0: the reference's GNN models reach no Pallas kernel.
+25. qwen3-moe-30b-a3b, bf16, from the registry at full width and all 48
+   layers (``params.draw_transformer``, seed 0: 60.44 GB drawn on the
+   card, the std of one ``w_gate`` and one ``w_down`` slice within 2% of
+   ``fan_in ** -0.5``): the memory reckoning behind the batch cut, one
+   warm-up prefill, then with the counters zeroed one ``prefill_32k``
+   prefill of B x 32,768 seeded tokens and 32 greedy decode steps; K5 must
+   launch exactly 48 times, all in the prefill.  Prefill ms and tokens/s,
+   decode p50 / p99, peak device memory, each layer's share of dropped
+   assignments, and one prefill's and 8 decode steps' device time by kind
+   (``torch.profiler``).  Checks: (a) at the first and the last layer, on
+   the served prefill's own MoE input, the keep mask and slots bit-
+   identical to a stable argsort's ranks and the output within 3e-2 of a
+   per-expert fp32 loop over the kept tokens; (b) K5 on layer 0's own q,
+   k, v held to its plain version one batch entry and query head at a time
+   (bf16 tolerance and the one-step element gate), and timed beside its
+   bound; (c) ``moe_ffn_capacity`` against ``moe_ffn_reference`` in f32 at
+   full width, T 512, capacity factor 16, within 1e-5; (d) f32 at full
+   width and vocab with 2 layers, card vs CPU with the same weights: the
+   router's top-8 indices equal, then the prefill logits and every cache
+   entry (B 1, S 256) and 8 decode steps within 1e-4;
+26. arctic-480b, bf16, full width with its depth cut 35 -> 2 (54.90 GB
+   drawn): ``prefill_32k`` at B 1 and 8 decode steps, K5 exactly 2
+   launches, the same times, drops and peak memory, and check (a) at layer
+   0 with the dense residual branch added to both sides.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -516,6 +540,33 @@ HUGE_TRACE = {"n_nodes": 10_000_000, "n_edges": 100_000_000, "seed": 0,
 #: output.
 GNN_N_CLASSES = {"full_graph_sm": 7, "ogb_products": 47, "molecule": 10}
 GNN_TOLERANCE = 1e-4
+#: The qwen3-moe-30b-a3b serving cell: the registry's published config,
+#: whole (48 layers, 30.2 B parameters, 60.44 GB bf16), at ``prefill_32k``
+#: (S 32,768) with its batch cut, then 32 greedy decode steps.  Per
+#: sequence the KV cache takes 3.22 GB and the MoE layer's transients at
+#: most 5.67 GB (held in turn, counted as if all were live at once), so B 2
+#: reckons to at most 78.23 GB and B 3 to 87.13 GB, past the card's 85.02;
+#: B 2 peaked at 75.78 GB on an H100 80GB HBM3.  Phase 25 prints the
+#: reckoning and fails above the limit.
+#: reduced: batch (prefill_32k, 32 -> 2).
+QWEN3_MOE_BATCH, QWEN3_MOE_STEPS = 2, 32
+QWEN3_MOE_PEAK_LIMIT = 78e9
+#: arctic-480b at full width with its depth cut to 2 of 35 layers (27.22
+#: GB a layer in bf16; 2 layers and the embeddings 54.90 GB, 3 layers
+#: 82.13 GB), ``prefill_32k`` at B 1, then 8 decode steps.
+#: reduced: depth (35 -> 2), batch (prefill_32k, 32 -> 1).
+ARCTIC_LAYERS, ARCTIC_STEPS = 2, 8
+#: The drawn expert weights' std against fan_in ** -0.5.
+MOE_DRAW_STD_TOL = 0.02
+#: A served bf16 MoE output against a per-expert fp32 loop: the repo's bf16
+#: tolerance.
+MOE_LOOP_TOLERANCE = 3e-2
+#: The f32 checks: full width and vocab, depth cut to 2 layers; card vs CPU
+#: at B 1, S 256, then 8 decode steps.  The capacity path against the
+#: all-expert path at T 512, capacity factor 16 (C = T: nothing drops), the
+#: reference test's case.
+MOE_CHECK_LAYERS, MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 2, 256, 8
+MOE_FFN_CASE = (512, 16.0)
 
 
 def k5_work(b: int, s: int, h: int, hk: int, d: int,
@@ -1327,25 +1378,30 @@ def percentile(samples, q: float) -> float:
                                              - 1))]
 
 
-def device_time_by_kind(fn, kernel: str, fragment) -> dict:
+def device_time_by_kind(fn, kernel: str, fragment, extra=None) -> dict:
     """Device time in ms of the work ``fn`` runs, by kind, from
     ``torch.profiler``: ``kernel`` (names holding ``fragment``, or any of a
-    tuple of fragments), cuBLAS matrix products, copies and fills, every
-    other kernel."""
+    tuple of fragments), each kind of ``extra`` (a dict of kind -> name
+    fragments, matched next), cuBLAS matrix products, copies and fills,
+    every other kernel."""
     fragments = (fragment,) if isinstance(fragment, str) else fragment
+    extra = extra or {}
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds = {kernel: 0.0, "cuBLAS products": 0.0, "copies": 0.0,
-             "other kernels": 0.0}
+    kinds = {kernel: 0.0, **{k: 0.0 for k in extra}, "cuBLAS products": 0.0,
+             "copies": 0.0, "other kernels": 0.0}
     for event in prof.events():
         if event.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = event.name.lower()
+        named = [k for k, frags in extra.items()
+                 if any(f in name for f in frags)]
         kind = (kernel if any(f in name for f in fragments)
+                else named[0] if named
                 else "cuBLAS products"
                 if any(w in name for w in ("nvjet", "gemm", "xmma", "cutlass"))
                 else "copies" if "memcpy" in name or "memset" in name
@@ -2370,11 +2426,12 @@ def flex_time(q, k, v, window, cap, expect) -> str:
             "to the plain version)")
 
 
-def k5_sliced_check(q, k, v, window, cap) -> tuple:
+def k5_sliced_check(q, k, v, window, cap, heads=None) -> tuple:
     """K5 through the counted wrapper on a whole (B, S, H, D) input, held to
     its plain version computed one batch entry and one kv head's query
     group at a time (a (1, H/Hk, S, S) f32 score matrix each, 8.6 GB at
-    gemma2's S 32,768).  Returns (kernel output, plain output)."""
+    gemma2's S 32,768), or ``heads`` query heads of a group at a time.
+    Returns (kernel output, plain output)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
@@ -2383,11 +2440,13 @@ def k5_sliced_check(q, k, v, window, cap) -> tuple:
                                   softcap=cap)
         expect = torch.empty_like(got)
         rep = q.shape[2] // k.shape[2]
+        width = heads or rep
         for bi in range(q.shape[0]):
-            for g in range(k.shape[2]):
-                heads = slice(g * rep, (g + 1) * rep)
-                expect[bi:bi + 1, :, heads] = fa.flash_attention_plain(
-                    q[bi:bi + 1, :, heads], k[bi:bi + 1, :, g:g + 1],
+            for h0 in range(0, q.shape[2], width):
+                g = h0 // rep
+                sl = slice(h0, h0 + width)
+                expect[bi:bi + 1, :, sl] = fa.flash_attention_plain(
+                    q[bi:bi + 1, :, sl], k[bi:bi + 1, :, g:g + 1],
                     v[bi:bi + 1, :, g:g + 1], window=window, softcap=cap)
     torch.cuda.synchronize()
     return got, expect
@@ -3207,6 +3266,498 @@ def gnn_phase(dev, card: str, ogb_edges: tuple) -> None:
         raise AssertionError(f"the GNN models launched kernels: {phase}")
 
 
+def moe_plain_slots(flat_e, n_experts: int, capacity: int) -> tuple:
+    """The capacity dispatch's keep mask and slots computed another way:
+    each assignment's rank among the assignments to its expert, from a
+    stable argsort of the (token-major) expert ids.  Returns (keep, slot)
+    with slot 0 where keep is false, as the reference writes it."""
+    e = flat_e.long()
+    order = torch.argsort(e, stable=True)
+    counts = torch.bincount(e, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(e)
+    rank[order] = torch.arange(e.numel(), device=e.device) - starts[e[order]]
+    keep = rank < capacity
+    return keep, torch.where(keep, rank, 0)
+
+
+def moe_loop(layer, h, token_of, flat_e, keep, flat_g) -> torch.Tensor:
+    """The experts in fp32, one at a time over the tokens kept for it: each
+    token's gated sum (T, d), fp32."""
+    import torch.nn.functional as F
+
+    hf = h.float()
+    out = torch.zeros_like(hf)
+    for e in range(layer.moe.w_gate.shape[0]):
+        sel = keep & (flat_e == e)
+        tokens = token_of[sel].long()
+        if tokens.numel() == 0:
+            continue
+        xe = hf[tokens]
+        y = (F.silu(xe @ layer.moe.w_gate[e].float())
+             * (xe @ layer.moe.w_up[e].float())) @ layer.moe.w_down[e].float()
+        out.index_add_(0, tokens, y * flat_g[sel][:, None])
+    return out
+
+
+def moe_dispatch_check(cfg, layer, n: int, h, out, packed, label: str) -> str:
+    """Check (a) at layer ``n``: the served prefill's keep mask and slots
+    (``packed``, what ``_pack_assignments`` returned there) against
+    :func:`moe_plain_slots` bit for bit, its routing against a plain
+    softmax top-k, and its MoE output ``out`` (plus the dense residual
+    branch, where the config has one, on both sides) against
+    :func:`moe_loop` at the bf16 tolerance.  Returns the printed line."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import swiglu
+
+    m = cfg.moe
+    T = h.shape[0]
+    C = moe._capacity(T, m)
+    token_of, flat_e, slot, keep, flat_g = packed
+    with torch.inference_mode():
+        probs = torch.softmax(h.float() @ layer.moe.router.float(), dim=-1)
+        route = torch.topk(probs, m.top_k, dim=-1).indices.reshape(-1)
+        routed = torch.equal(route, flat_e.long())
+        pkeep, pslot = moe_plain_slots(flat_e, m.n_experts, C)
+        same = (torch.equal(keep, pkeep) and torch.equal(slot.long(), pslot)
+                and torch.equal(token_of.long(), torch.arange(
+                    T, device=h.device).repeat_interleave(m.top_k)))
+        expect = moe_loop(layer, h, token_of, flat_e, pkeep, flat_g)
+        got = out
+        if m.dense_residual_d_ff:
+            got = out + swiglu(h, layer.res_gate, layer.res_up,
+                               layer.res_down)
+            expect = expect + swiglu(h.float(), layer.res_gate.float(),
+                                     layer.res_up.float(),
+                                     layer.res_down.float())
+        err = rel_err(got, expect)
+    dropped = int((~keep).sum())
+    line = (f"# check {label} MoE layer {n} (the served prefill's own input, "
+            f"T {T}, C {C}): keep mask and slots "
+            f"{'bit-identical to' if same else 'DIFFER from'} a stable "
+            f"argsort's ranks, routing {'equal to' if routed else 'NOT'} a "
+            f"plain softmax top-{m.top_k}; {dropped} of {keep.numel()} "
+            f"assignments dropped; output"
+            f"{' + dense residual' if m.dense_residual_d_ff else ''} vs a "
+            f"per-expert fp32 loop over the kept tokens: max rel err "
+            f"{err:.3e} (tolerance {MOE_LOOP_TOLERANCE:.0e})")
+    print(line)
+    if not (same and routed and err < MOE_LOOP_TOLERANCE):
+        raise AssertionError(f"{label} MoE layer {n}: dispatch "
+                             f"{'ok' if same else 'differs'}, routing "
+                             f"{'ok' if routed else 'differs'}, err {err}")
+    return line
+
+
+def moe_reckoning(cfg, b: int, s: int, max_seq: int) -> dict:
+    """The memory of a prefill of B x S tokens, in bytes, as reckoned from
+    the shapes: bf16 weights; per sequence the KV cache and the tensors
+    ``moe_ffn_capacity`` holds at T = S, A = T x k assignments: the (T + 1,
+    d) copy of x it gathers from, the (E, C, d) buffer and its output
+    ``out_buf``, the SwiGLU's three (E, C, f) intermediates, the gated
+    outputs ``y_a`` (A, d), and ``_pack_assignments``' (E, A) int32 one-hot
+    with its running count.  They are held in turn, not all at once, so the
+    sum bounds the layer's share from above."""
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    C = moe._capacity(s, m)
+    a = s * m.top_k
+    parts = {"x copy": (s + 1) * cfg.d_model * 2,
+             "buffer and out_buf": 2 * m.n_experts * C * cfg.d_model * 2,
+             "SwiGLU intermediates": 3 * m.n_experts * C * m.d_ff_expert * 2,
+             "y_a": a * cfg.d_model * 2,
+             "one-hot and running count": 2 * m.n_experts * a * 4}
+    weights = 2 * cfg.param_count()
+    kv = cfg.n_layers * 2 * max_seq * cfg.n_kv_heads * cfg.d_head * 2
+    moe_bytes = sum(parts.values())
+    return {"weights": weights, "kv": kv, "moe": moe_bytes, "parts": parts,
+            "C": C, "total": weights + b * (kv + moe_bytes)}
+
+
+def moe_k5_check(cfg, q, k, v, label: str, card: str) -> None:
+    """Check (b): K5 on a served prefill's own layer-0 q, k, v held to its
+    plain version at the bf16 tolerance and the one-step element gate, one
+    query head at a time (a kv head's query group would hold 30-34 GB of
+    fp32 scores at S 32,768), then timed beside its bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    k5 = "flash_attention"
+    b, s = q.shape[:2]
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    got, expect = k5_sliced_check(q, k, v, None, None, heads=1)
+    err, outside = rel_err(got, expect), beyond_bf16_step(got, expect)
+    where = (f"{label} layer 0 B={b} S={s} H={h} Hk={hk} D={d} (GQA "
+             f"{h // hk}:1) bf16")
+    print(f"# check {k5} {where} (the served prefill's own q, k, v; plain "
+          f"version per batch entry and query head): max rel err {err:.3e} "
+          f"(tolerance {ATTN_TOLERANCE['bf16']:.0e}), max abs err "
+          f"{abs_err(got, expect):.3e}, {outside} elements beyond one bf16 "
+          "step")
+    if not err < ATTN_TOLERANCE["bf16"] or outside:
+        raise AssertionError(f"K5 disagrees with its plain version at "
+                             f"{where}: {err}, {outside} elements beyond one "
+                             "bf16 step")
+    del got, expect
+    nbytes, nops = k5_work(b, s, h, hk, d)
+    bound = 1e3 * max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_OPS_PER_S)
+    with torch.inference_mode():
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
+    print(f"# time {k5} {where}: kernel {ms:.4f} ms ({nops / ms / 1e9:.1f} "
+          f"TFLOP/s, {100 * bound / ms:.1f}% of the bound), bound "
+          f"{bound:.4f} ms ({nops} op at the bf16 tensor-core rate) | {card}")
+
+
+def mean_pairwise_cosine(h) -> float:
+    """The mean cosine over all pairs of distinct rows of ``h`` (T, d), in
+    fp32: (|sum of unit rows|^2 - T) / (T (T - 1))."""
+    u = torch.nn.functional.normalize(h.float(), dim=-1)
+    t = u.shape[0]
+    total = u.sum(0)
+    return float((total @ total - t) / (t * (t - 1)))
+
+
+def moe_serving(dev, card: str, cfg, b: int, steps: int, label: str,
+                launches: dict, check_layers, peak_limit: float) -> tuple:
+    """One MoE cell: ``cfg`` drawn on the card from seed 0 in bf16, one
+    warm-up prefill, then with the counts zeroed one prefill of B x 32,768
+    seeded tokens (``prefill_32k``) and ``steps`` greedy decode steps; K5
+    must launch once per layer, all in the prefill, and the peak device
+    memory stay under ``peak_limit``.  Then a prefill and 8
+    decode steps under ``torch.profiler``, and one more prefill that keeps
+    layer 0's q, k, v, every layer's drop count and, at ``check_layers``,
+    the MoE input, output and packing.  Returns (model, captures)."""
+    from repro_torch import params
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    k5 = "flash_attention"
+    s = LM_SHAPES["prefill_32k"].params["seq"]
+    max_seq = s + steps
+    m = cfg.moe
+    t0 = time.perf_counter()
+    model = params.draw_transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters drawn, "
+                             f"{cfg.param_count()} in the config")
+    stds = {name: (float(w.float().std()), w.shape[-2] ** -0.5)
+            for name, w in (("w_gate", model.layers[0].moe.w_gate[0]),
+                            ("w_down", model.layers[0].moe.w_down[0]))}
+    print(f"# {label} draw: layer 0 expert 0 " + ", ".join(
+        f"{name} std {got:.6f} vs fan_in^-0.5 {want:.6f} ("
+        f"{100 * (got / want - 1):+.2f}%)" for name, (got, want)
+        in stds.items()))
+    if any(abs(got / want - 1) > MOE_DRAW_STD_TOL
+           for got, want in stds.values()):
+        raise AssertionError(f"{label} expert weights drawn at {stds}")
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)), device=dev)
+    prefill = tr.make_prefill_step(cfg, max_seq=max_seq)
+    serve = tr.make_serve_step(cfg, max_seq)
+    print(f"# {label} set-up: {cfg.n_layers} layers d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x {cfg.d_head}, "
+          f"{m.n_experts} experts top-{m.top_k} d_ff {m.d_ff_expert}"
+          f"{f' + dense residual d_ff {m.dense_residual_d_ff}' if m.dense_residual_d_ff else ''}"
+          f", capacity factor {m.capacity_factor} (C {moe._capacity(b * s, m)}"
+          f" at T {b * s}), vocab {cfg.vocab}; {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+          f"{draw_s:.3f} s; prefill_32k at B {b}, S {s}, max_seq {max_seq}, "
+          f"{steps} decode steps; one warm-up prefill")
+    prefill(model, prompts)  # cuBLAS handles and plans; not counted
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    logits, cache = prefill(model, prompts)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_ms = start.elapsed_time(end)
+    per_prefill = ops.LAUNCHES[k5]
+    token = logits.argmax(-1, keepdim=True)
+    generated, step_s = [token], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        step_logits, cache = serve(model, cache, token, s + step)
+        token = step_logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        generated.append(token)
+    served = ops.LAUNCHES[k5]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"# {label} serving launches: {json.dumps({k5: served})} "
+          f"({per_prefill} in the prefill)")
+    if per_prefill != cfg.n_layers or served != cfg.n_layers:
+        raise AssertionError(f"K5 launched {per_prefill} times in the "
+                             f"{label} prefill and {served} in all; expected "
+                             f"{cfg.n_layers}, one per layer, all in the "
+                             "prefill")
+    launches[k5] += served
+    out = torch.cat(generated, dim=1)
+    for name, t in (("prefill logits", logits),
+                    ("last decode logits", step_logits)):
+        if t.shape != (b, cfg.vocab) or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label} {name}: shape {tuple(t.shape)} "
+                                 "or not finite")
+    if out.shape != (b, steps + 1) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{label} generated tokens {tuple(out.shape)}")
+    shapes = {k: tuple(v.shape) for k, v in cache.items()}
+    if shapes != {f"{n}{i}": e for i, e in enumerate(tr.cache_shapes(
+            cfg, b, max_seq)) for n in "kv"}:
+        raise AssertionError(f"{label} cache shapes {shapes}")
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    print(f"# {label} serving: prefill of {b} x {s} tokens "
+          f"{prefill_s * 1e3:.3f} ms host clock, {prefill_ms:.3f} ms CUDA "
+          f"events, {b * s / prefill_s:.0f} prefill tokens/s; {steps} decode "
+          f"steps: p50 {percentile(step_s, 50) * 1e3:.3f} ms, p99 "
+          f"{percentile(step_s, 99) * 1e3:.3f} ms per step ({b} tokens); KV "
+          f"caches {cache_bytes / 1e9:.2f} GB; peak device memory "
+          f"{peak / 1e9:.2f} GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}"
+          f" | {card}")
+    if peak > peak_limit:
+        raise AssertionError(f"{label} cell peak memory {peak} B")
+    del logits, step_logits, cache
+    torch.cuda.empty_cache()
+    # Where the device time goes: a prefill and 8 decode steps under
+    # torch.profiler, outside the counted run.
+    split = {"routing and dispatch": ("index", "gather", "scatter", "scan",
+                                      "topk", "sort")}
+    pre_kinds = device_time_by_kind(lambda: prefill(model, prompts), "K5",
+                                    "flash_wgmma_kernel", extra=split)
+    # One more prefill keeps what it hands K5 at layer 0, each layer's
+    # dropped assignments, and at the checked layers the MoE input, output
+    # and packing.
+    captured = {"drops": [], "moe": {}, "pack": {}}
+    counted, capacity_ffn = ops.flash_attention, moe.moe_ffn_capacity
+    pack = moe._pack_assignments
+
+    def keep_qkv(q, k, v, **kw):
+        captured.setdefault("qkv", (q, k, v))
+        return counted(q, k, v, **kw)
+
+    def keep_moe(params_, x, mcfg):
+        y, aux = capacity_ffn(params_, x, mcfg)
+        n = len(captured["drops"]) - 1
+        if n in check_layers:
+            captured["moe"][n] = (x, y)
+        return y, aux
+
+    def keep_pack(*args):
+        packed = pack(*args)
+        if len(captured["drops"]) in check_layers:
+            captured["pack"][len(captured["drops"])] = packed
+        captured["drops"].append((~packed[3]).sum())
+        return packed
+
+    ops.flash_attention = keep_qkv
+    moe.moe_ffn_capacity, moe._pack_assignments = keep_moe, keep_pack
+    try:
+        _, cache = prefill(model, prompts)
+    finally:
+        ops.flash_attention = counted
+        moe.moe_ffn_capacity, moe._pack_assignments = capacity_ffn, pack
+    token = generated[0]
+
+    def decode_steps():
+        nonlocal cache, token
+        for step in range(PROFILED_STEPS):
+            lg, cache = serve(model, cache, token, s + step)
+            token = lg.argmax(-1, keepdim=True)
+
+    dec_kinds = device_time_by_kind(decode_steps, "K5", "flash_wgmma_kernel",
+                                    extra=split)
+    del cache
+    torch.cuda.empty_cache()
+    step_ms = 1e3 * percentile(step_s, 50)
+    for what, kinds_ms, host_ms, n in (
+            ("prefill", pre_kinds, prefill_ms, 1),
+            ("decode step", dec_kinds, step_ms, PROFILED_STEPS)):
+        busy = sum(kinds_ms.values()) / n
+        parts = ", ".join(f"{k} {v / n:.3f} ms" for k, v in kinds_ms.items())
+        print(f"# where the time goes, {label} {what} (torch.profiler device"
+              f" time{'' if n == 1 else f', mean of {n} steps'}; routing and "
+              f"dispatch: index, gather, scatter, scan, top-k and sort "
+              f"kernels, the embedding lookup among them): {parts}; device "
+              f"busy {busy:.3f} ms of {host_ms:.3f} ms "
+              f"({100 * busy / host_ms:.1f}%, the rest idle) | {card}")
+    share = [float(d) / (b * s * m.top_k) for d in captured["drops"]]
+    cosine = {n: mean_pairwise_cosine(captured["moe"][n][0])
+              for n in sorted(captured["moe"])}
+    ranked = sorted(share)
+    print(f"# {label} drops: share of the prefill's {b * s * m.top_k} "
+          f"assignments dropped per layer (C {moe._capacity(b * s, m)}): min "
+          f"{ranked[0]:.4%}, median {statistics.median(ranked):.4%}, max "
+          f"{ranked[-1]:.4%} over {len(share)} layers; " + ", ".join(
+              f"layer {n} {share[n]:.4%} dropped, mean pairwise cosine of "
+              f"its MoE inputs {c:.4f}" for n, c in cosine.items()))
+    if len(share) != cfg.n_layers:
+        raise AssertionError(f"{label}: {len(share)} MoE layers packed")
+    return model, captured
+
+
+def moe_phases(dev, card: str, launches: dict) -> None:
+    """Phases 25-26: qwen3-moe-30b-a3b whole and arctic-480b with its depth
+    cut, served at full width through the registry, with their checks.  Adds
+    each served prefill's K5 launches to ``launches``."""
+    from dataclasses import replace
+
+    from repro_torch import backend, params
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    backend.full_fp32()
+    torch.cuda.empty_cache()
+    # 25. qwen3-moe-30b-a3b, full width and depth.
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen3-moe-30b-a3b").make_config()
+    shape = LM_SHAPES["prefill_32k"].params
+    s, b = shape["seq"], QWEN3_MOE_BATCH
+    total = torch.cuda.get_device_properties(0).total_memory
+    r = {n: moe_reckoning(cfg, n, s, s + QWEN3_MOE_STEPS) for n in (1, 2, 3)}
+    print(f"# qwen3-moe reckoning: weights {r[1]['weights'] / 1e9:.2f} GB "
+          f"bf16; per sequence the KV cache {r[1]['kv'] / 1e9:.2f} GB and "
+          f"the MoE transients at T {s} (C {r[1]['C']}) "
+          f"{r[1]['moe'] / 1e9:.2f} GB (" + ", ".join(
+              f"{name} {n / 1e9:.2f} GB" for name, n in r[1]["parts"].items())
+          + "); B 1 / 2 / 3 reckon to "
+          + " / ".join(f"{r[n]['total'] / 1e9:.2f}" for n in (1, 2, 3))
+          + f" GB of the card's {total / 1e9:.2f} GB; cut: prefill_32k's "
+          f"batch {shape['batch']} -> {b} (B 2 while the cell peaks at most "
+          f"{QWEN3_MOE_PEAK_LIMIT / 1e9:.0f} GB, else 1)")
+    model, cap = moe_serving(dev, card, cfg, b, QWEN3_MOE_STEPS, "qwen3-moe",
+                             launches, (0, cfg.n_layers - 1),
+                             QWEN3_MOE_PEAK_LIMIT)
+    # (a) the dispatch at the first and the last layer.
+    for n in sorted(cap["moe"]):
+        h, out = cap["moe"].pop(n)
+        moe_dispatch_check(cfg, model.layers[n], n, h, out,
+                           cap["pack"].pop(n), "qwen3-moe")
+        del h, out
+    q, k, v = cap.pop("qkv")
+    del model, cap
+    torch.cuda.empty_cache()
+    # (b) K5 on the prefill's own q, k, v at layer 0 (GQA 8:1).
+    moe_k5_check(cfg, q, k, v, "qwen3-moe", card)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # (c) and (d) in f32 at full width and vocab, depth cut to 2 layers.
+    cfg32 = replace(cfg, n_layers=MOE_CHECK_LAYERS, dtype="float32")
+    model32 = params.draw_transformer(cfg32, seed=0, device=dev)
+    T, cf = MOE_FFN_CASE
+    case = replace(cfg.moe, capacity_factor=cf)
+    x = torch.randn(T, cfg.d_model, generator=torch.Generator().manual_seed(
+        2)).to(dev)
+    with torch.inference_mode():
+        y_ref, _ = moe.moe_ffn_reference(model32.layers[0].moe, x, case)
+        y_cap, _ = moe.moe_ffn_capacity(model32.layers[0].moe, x, case)
+    err = rel_err(y_cap, y_ref)
+    print(f"# check qwen3-moe moe_ffn_capacity vs moe_ffn_reference, f32 at "
+          f"full width (d {cfg.d_model}, {case.n_experts} experts top-"
+          f"{case.top_k}, d_ff {case.d_ff_expert}), T {T}, capacity factor "
+          f"{cf} (C {moe._capacity(T, case)}: nothing drops): max rel err "
+          f"{err:.3e} (tolerance {TOLERANCE['f32']:.0e})")
+    if not err < TOLERANCE["f32"]:
+        raise AssertionError(f"qwen3-moe capacity vs reference path: {err}")
+    del x, y_ref, y_cap
+    n_tok = MOE_CHECK_PROMPT + MOE_CHECK_STEPS
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, n_tok)))
+
+    def run(model_, toks):
+        """Prefill, caches, 8 teacher-forced decode steps and every router
+        call's top-k, on the model's device."""
+        routes = []
+        router = moe.router_topk
+
+        def keep_route(*args):
+            idx, gates, aux = router(*args)
+            routes.append(idx.cpu())
+            return idx, gates, aux
+
+        moe.router_topk = keep_route
+        try:
+            lg, cache = tr.make_prefill_step(cfg32, max_seq=n_tok)(
+                model_, toks[:, :MOE_CHECK_PROMPT])
+            steps = []
+            serve32 = tr.make_serve_step(cfg32, n_tok)
+            for pos in range(MOE_CHECK_PROMPT, n_tok):
+                step_lg, cache = serve32(model_, cache, toks[:, pos:pos + 1],
+                                         pos)
+                steps.append(step_lg.cpu())
+        finally:
+            moe.router_topk = router
+        return (lg.cpu(), {k_: c.cpu() for k_, c in cache.items()}, steps,
+                routes)
+
+    card_out = run(model32, tokens.to(dev))
+    model32.cpu()
+    torch.cuda.empty_cache()
+    cpu_out = run(model32, tokens)
+    differ = sum(int((a != c).sum()) for a, c in zip(card_out[3], cpu_out[3]))
+    print(f"# check qwen3-moe f32 {MOE_CHECK_LAYERS} layers, vocab "
+          f"{cfg.vocab}: router top-{cfg.moe.top_k} indices card vs CPU over "
+          f"{len(card_out[3])} calls (prefill and {MOE_CHECK_STEPS} decode "
+          f"steps at {MOE_CHECK_LAYERS} layers): {differ} assignments differ")
+    if differ or len(card_out[3]) != len(cpu_out[3]):
+        raise AssertionError(f"qwen3-moe routing differs card vs CPU at "
+                             f"{differ} assignments")
+    errs = {f"prefill logits B=1 S={MOE_CHECK_PROMPT}": rel_err(card_out[0],
+                                                                cpu_out[0])}
+    for key in cpu_out[1]:
+        errs[f"cache {key}"] = rel_err(card_out[1][key], cpu_out[1][key])
+    errs[f"{MOE_CHECK_STEPS} decode steps (worst)"] = max(
+        rel_err(a, c) for a, c in zip(card_out[2], cpu_out[2]))
+    for name, err in errs.items():
+        print(f"# check qwen3-moe f32 card vs CPU: {name} max rel err "
+              f"{err:.3e} (tolerance {SERVE_TOLERANCE:.0e})")
+        if not err < SERVE_TOLERANCE:
+            raise AssertionError(f"qwen3-moe f32 {name}: {err}")
+    del model32, card_out, cpu_out
+    torch.cuda.empty_cache()
+    print(f"# phase 25 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+
+    # 26. arctic-480b at full width, depth cut.
+    t_phase = time.perf_counter()
+    full = get_arch("arctic-480b").make_config()
+    cfg = replace(full, n_layers=ARCTIC_LAYERS)
+    per_layer = (full.param_count() - cfg.param_count()) / (
+        full.n_layers - ARCTIC_LAYERS)
+    print(f"# arctic reckoning: {full.param_count()} parameters "
+          f"({2 * full.param_count() / 1e9:.2f} GB bf16), "
+          f"{2 * per_layer / 1e9:.2f} GB a layer; cut: depth "
+          f"{full.n_layers} -> {ARCTIC_LAYERS} ({2 * cfg.param_count() / 1e9:.2f}"
+          f" GB with the embeddings; {ARCTIC_LAYERS + 1} layers would take "
+          f"{2 * (cfg.param_count() + per_layer) / 1e9:.2f} GB of the card's "
+          f"{total / 1e9:.2f}), prefill_32k's batch {shape['batch']} -> 1")
+    model, cap = moe_serving(dev, card, cfg, 1, ARCTIC_STEPS, "arctic",
+                             launches, (0,), QWEN3_MOE_PEAK_LIMIT)
+    h, out = cap["moe"].pop(0)
+    moe_dispatch_check(cfg, model.layers[0], 0, h, out, cap["pack"].pop(0),
+                       "arctic")
+    q, k, v = cap.pop("qkv")
+    del model, cap, h, out
+    torch.cuda.empty_cache()
+    # (b) K5 on the prefill's own q, k, v at layer 0 (GQA 7:1).
+    moe_k5_check(cfg, q, k, v, "arctic", card)
+    del q, k, v
+    torch.cuda.empty_cache()
+    print(f"# phase 26 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list of arrays."""
     if isinstance(tree, dict):
@@ -3479,6 +4030,9 @@ def main() -> int:
     ogb_edges = bridge_phase(dev, card, launches)
     sharded_phase(dev, card, launches)
     gnn_phase(dev, card, ogb_edges)
+    del ogb_edges
+    torch.cuda.empty_cache()
+    moe_phases(dev, card, launches)
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -3498,7 +4052,8 @@ def main() -> int:
           "17's typed path, phases 18-19's tunes and serve windows, "
           "phase 22's trace bridges and phase 23's sharded path); K5's "
           "one layer of the SmolLM-135M prefill, bf16 (its launches: the "
-          "SmolLM prefill's and the gemma2-2b prefill's); K6's the 26 "
+          "SmolLM prefill's, the gemma2-2b prefill's, the qwen3-moe "
+          "prefill's and the arctic prefill's); K6's the 26 "
           "tables of one serve_bulk forward of DLRM-MLPerf, f32")
     print(json.dumps({"kernels": kernels}))
     print(card)

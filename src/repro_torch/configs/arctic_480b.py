@@ -2,8 +2,8 @@
 (GQA kv=8) head 128, MoE 128 experts top-2 (expert d_ff 4864) + dense
 residual MLP, vocab 32000.
 
-The config constructs and joins the workload bridges; its model does not
-build until the MoE layer is ported."""
+476.6 B parameters, 27.22 GB a layer in bf16: one 80 GB card holds two of
+its 35 layers."""
 
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig

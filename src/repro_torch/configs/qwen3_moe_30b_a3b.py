@@ -1,8 +1,7 @@
 """Qwen3-30B-A3B [hf:Qwen/Qwen3-30B-A3B]: 48L d2048 32H (GQA kv=4) head 128,
 MoE 128 experts top-8, expert d_ff 768, vocab 151936.
 
-The config constructs and joins the workload bridges; its model does not
-build until the MoE layer is ported."""
+30.2 B parameters, 60.44 GB in bf16: the model fits one 80 GB card whole."""
 
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 __all__ = ["dense_init", "he_init", "embed_init", "rms_norm", "layer_norm",
-           "softcap", "mlp_init", "mlp_apply", "MLP", "rope_freqs",
+           "softcap", "swiglu", "mlp_init", "mlp_apply", "MLP", "rope_freqs",
            "apply_rope", "segment_sum", "segment_softmax"]
 
 
@@ -69,6 +69,12 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 logit soft-capping: ``cap * tanh(x / cap)``."""
     return cap * torch.tanh(x / cap)
+
+
+def swiglu(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU FFN: h (..., g, d); weights (..., d, f) / (..., f, d)."""
+    return (torch.nn.functional.silu(h @ w_gate) * (h @ w_up)) @ w_down
 
 
 def mlp_init(rng: np.random.Generator, dims: Sequence[int], *,

@@ -1,8 +1,9 @@
-"""Dense decoder-only transformer, served: prefill through kernel K5, then
+"""Decoder-only transformer, served: prefill through kernel K5, then
 greedy-ready decode steps over a KV cache.
 
-The reference's ``models/transformer.py`` in PyTorch, for dense configs
-(SmolLM, granite, gemma2's local/global pattern with soft-caps).  Layers
+The reference's ``models/transformer.py`` in PyTorch: dense configs
+(SmolLM, granite, gemma2's local/global pattern with soft-caps) and MoE
+configs with an optional dense residual branch (qwen3-moe, arctic).  Layers
 are grouped by the repeating ``window_pattern`` as in the reference: layer
 ``g * P + i`` is group ``g``'s pattern entry ``i``, and each pattern entry
 keeps its own KV cache ``(G, B, S_entry, Hk, d_head)``, where a windowed
@@ -10,10 +11,13 @@ entry holds a ring of ``window`` slots and a global one the whole sequence.
 
 Prefill attention is ``kernels.ops.flash_attention`` on every layer (K5 on
 CUDA tensors, its plain version on CPU tensors); decode attention is plain
-PyTorch (:mod:`.attention`).  Every entry runs under
-``torch.inference_mode()``: K5 has no backward.  MoE layers, training and
-the sharded and context-parallel paths are not ported: an MoE config
-constructs and counts its parameters, but building its model raises.
+PyTorch (:mod:`.attention`).  An MoE layer runs the capacity dispatch
+(:func:`.moe.moe_ffn_capacity`) over all ``B * S`` tokens of a prefill or
+forward call, as the reference's ``_ffn_block`` does, and the all-expert
+path (:func:`.moe.moe_ffn_reference`) in a decode step.  Every entry runs
+under ``torch.inference_mode()``: K5 has no backward.  Training, the
+expert-parallel dispatch and the sharded and context-parallel paths are not
+ported.
 """
 
 from __future__ import annotations
@@ -22,27 +26,26 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..backend import resolve_device
 from ..kernels import ops
 from . import attention as attn_lib
-from .common import apply_rope, rms_norm, rope_freqs, softcap
-from .moe import MoEConfig
+from . import moe as moe_lib
+from .common import apply_rope, rms_norm, rope_freqs, softcap, swiglu
+from .moe import MoE, MoEConfig
 
 __all__ = ["TransformerConfig", "DecoderLayer", "Transformer", "LAYER_KEYS",
-           "forward", "make_prefill_step", "make_serve_step", "cache_shapes",
+           "RESIDUAL_KEYS", "layer_keys", "forward", "forward_hidden",
+           "make_prefill_step", "make_serve_step", "cache_shapes",
            "init_cache"]
 
-#: Per-layer weights, in the reference's block-dict names and (in, out)
-#: layout: ``x @ w``.
+#: Per-layer weights of a dense config, in the reference's block-dict names
+#: and (in, out) layout: ``x @ w``.
 LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up",
               "w_down")
-
-
-#: Where the MoE layer comes to the port.
-MOE_ITEM = "ROADMAP.md Queue 1 item 8d"
+#: An MoE layer's dense residual branch (arctic), in place of the FFN.
+RESIDUAL_KEYS = ("res_gate", "res_up", "res_down")
 
 
 @dataclass(frozen=True)
@@ -118,15 +121,26 @@ def _weight(*shape, device, dtype) -> nn.Parameter:
                         requires_grad=False)
 
 
+def layer_keys(cfg: TransformerConfig) -> tuple[str, ...]:
+    """A layer's weights other than its experts (``layer.moe``), by their
+    reference names."""
+    if cfg.moe is None:
+        return LAYER_KEYS
+    return LAYER_KEYS[:6] + (RESIDUAL_KEYS if cfg.moe.dense_residual_d_ff
+                             else ())
+
+
 class DecoderLayer(nn.Module):
-    """One pre-norm block: GQA attention with RoPE, then a SwiGLU FFN."""
+    """One pre-norm block: GQA attention with RoPE, then a SwiGLU FFN, or
+    for an MoE config the experts (``moe``) and, where the config has one,
+    the dense residual branch beside them."""
 
     def __init__(self, cfg: TransformerConfig, window: Optional[int], *,
                  device=None, dtype=None):
         super().__init__()
         d, H, Hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                            cfg.d_head, cfg.d_ff)
-        kw = {"device": device, "dtype": dtype}
+        kw = {"device": resolve_device(device), "dtype": dtype}
         self.window = window
         self.ln1 = _weight(d, **kw)
         self.ln2 = _weight(d, **kw)
@@ -134,26 +148,30 @@ class DecoderLayer(nn.Module):
         self.wk = _weight(d, Hk * dh, **kw)
         self.wv = _weight(d, Hk * dh, **kw)
         self.wo = _weight(H * dh, d, **kw)
-        self.w_gate = _weight(d, f, **kw)
-        self.w_up = _weight(d, f, **kw)
-        self.w_down = _weight(f, d, **kw)
+        if cfg.moe is None:
+            self.w_gate = _weight(d, f, **kw)
+            self.w_up = _weight(d, f, **kw)
+            self.w_down = _weight(f, d, **kw)
+            return
+        self.moe = MoE(d, cfg.moe, **kw)
+        fr = cfg.moe.dense_residual_d_ff
+        if fr:
+            self.res_gate = _weight(d, fr, **kw)
+            self.res_up = _weight(d, fr, **kw)
+            self.res_down = _weight(fr, d, **kw)
 
 
 class Transformer(nn.Module):
-    """The weights of a dense config, in one dtype on one device; layer
-    ``g * P + i`` runs pattern entry ``i``'s window.  They are zeros until
+    """The weights of a config, in one dtype on one device (CUDA unless
+    ``device`` says otherwise); layer ``g * P + i`` runs pattern entry
+    ``i``'s window.  They are zeros until
     :func:`repro_torch.params.load_transformer` fills them or
-    :func:`repro_torch.params.draw_transformer` draws them from a seed.  An
-    MoE config raises: its layer is not ported."""
+    :func:`repro_torch.params.draw_transformer` draws them from a seed."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported ({MOE_ITEM}); only "
-                "dense configs build a model")
         self.cfg = cfg
-        kw = {"device": device, "dtype": dtype}
+        kw = {"device": resolve_device(device), "dtype": dtype}
         self.embed = _weight(cfg.vocab, cfg.d_model, **kw)
         self.final_norm = _weight(cfg.d_model, **kw)
         self.layers = nn.ModuleList(
@@ -177,9 +195,22 @@ def _qkv(cfg: TransformerConfig, layer: DecoderLayer, x: torch.Tensor,
     return apply_rope(q, positions, freqs), apply_rope(k, positions, freqs), v
 
 
-def _ffn(layer: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: TransformerConfig, layer: DecoderLayer, x: torch.Tensor, *,
+         decode: bool = False):
+    """The FFN block: (x + its output, the MoE balance loss or None).  An
+    MoE layer routes all ``B * S`` tokens in one call: the capacity dispatch
+    in a prefill, every expert in a decode step."""
     h = rms_norm(x, layer.ln2)
-    return x + (F.silu(h @ layer.w_gate) * (h @ layer.w_up)) @ layer.w_down
+    if cfg.moe is None:
+        return x + swiglu(h, layer.w_gate, layer.w_up, layer.w_down), None
+    b, s, d = h.shape
+    moe_ffn = (moe_lib.moe_ffn_reference if decode
+               else moe_lib.moe_ffn_capacity)
+    out, aux = moe_ffn(layer.moe, h.reshape(b * s, d), cfg.moe)
+    out = out.reshape(b, s, d)
+    if cfg.moe.dense_residual_d_ff:
+        out = out + swiglu(h, layer.res_gate, layer.res_up, layer.res_down)
+    return x + out, aux
 
 
 def _logits(cfg: TransformerConfig, model: Transformer,
@@ -191,9 +222,11 @@ def _logits(cfg: TransformerConfig, model: Transformer,
 
 
 def _prefill_layers(cfg: TransformerConfig, model: Transformer,
-                    tokens: torch.Tensor, on_kv=None) -> torch.Tensor:
+                    tokens: torch.Tensor, on_kv=None,
+                    on_aux=None) -> torch.Tensor:
     """The residual stream after every layer; ``on_kv(n, k, v)`` receives
-    layer ``n``'s roped keys and values (B, S, Hk, d_head)."""
+    layer ``n``'s roped keys and values (B, S, Hk, d_head), and ``on_aux``
+    each MoE layer's balance loss."""
     b, s = tokens.shape
     x = model.embed[tokens.long()]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
@@ -203,18 +236,31 @@ def _prefill_layers(cfg: TransformerConfig, model: Transformer,
         out = ops.flash_attention(q, k, v, causal=True, window=layer.window,
                                   softcap=cfg.attn_softcap)
         x = x + out.reshape(b, s, cfg.n_heads * cfg.d_head) @ layer.wo
-        x = _ffn(layer, x)
+        x, aux = _ffn(cfg, layer, x)
         if on_kv is not None:
             on_kv(n, k, v)
+        if on_aux is not None and aux is not None:
+            on_aux(aux)
     return x
+
+
+@torch.inference_mode()
+def forward_hidden(cfg: TransformerConfig, model: Transformer,
+                   tokens: torch.Tensor):
+    """tokens (B, S) -> (final normed hidden (B, S, d), aux_loss): the MoE
+    balance loss summed over the layers in fp32, 0 for a dense config."""
+    losses = []
+    x = _prefill_layers(cfg, model, tokens, on_aux=losses.append)
+    aux = sum(losses, torch.zeros((), dtype=torch.float32, device=x.device))
+    return rms_norm(x, model.final_norm), aux
 
 
 @torch.inference_mode()
 def forward(cfg: TransformerConfig, model: Transformer,
             tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V).  S must meet K5's block contract
-    (S <= 128 or S % 128 == 0).  The reference's second output, the MoE
-    balance loss, has no dense counterpart."""
+    (S <= 128 or S % 128 == 0).  The reference returns the MoE balance loss
+    beside the logits; here :func:`forward_hidden` does."""
     return _logits(cfg, model, _prefill_layers(cfg, model, tokens))
 
 
@@ -284,7 +330,7 @@ def make_serve_step(cfg: TransformerConfig, max_seq: int):
 
     One decode step: write the token's roped key and value at ``pos`` (the
     ring slot ``pos % window`` of a windowed entry) and attend over the
-    valid slots.  The cache is updated in place, where the reference
+    valid slots.  MoE layers run every expert (the reference's decode).  The cache is updated in place, where the reference
     returns an updated copy; the same dict is returned.
     """
     P = len(cfg.window_pattern)
@@ -314,7 +360,7 @@ def make_serve_step(cfg: TransformerConfig, max_seq: int):
                 q, kc, vc, length_mask=valid[None].expand(b, s_entry),
                 attn_softcap=cfg.attn_softcap)
             x = x + out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ layer.wo
-            x = _ffn(layer, x)
+            x, _ = _ffn(cfg, layer, x, decode=True)
         return _logits(cfg, model, x)[:, 0], cache
 
     return serve_step

@@ -7,12 +7,16 @@ combine weights W of the block-dense layer ``Y = (A @ X) @ W``.
 
 The reference transformer keeps ``{"embed": (V, d), "final_norm": (d,),
 "blocks": [one dict per window-pattern entry of (G, ...) stacks]}`` (and
-``"unembed": (d, V)`` when embeddings are not tied).
+``"unembed": (d, V)`` when embeddings are not tied).  An MoE block holds
+``"moe": {"router": (G, d, E), "w_gate", "w_up": (G, E, d, f), "w_down":
+(G, E, f, d)}`` in place of the dense FFN, and ``res_gate`` / ``res_up`` /
+``res_down`` when the config has a dense residual branch.
 :func:`transformer_params` makes seeded numpy weights in that layout and
 :func:`load_transformer` turns it, or the reference's own ``init_params``
 output converted with ``np.asarray``, into the port's module.  A
 full-size model is drawn on the card instead, by :func:`draw_transformer`:
-gemma2-2b's 2.6 B weights would take 10.4 GB of f32 host arrays.
+gemma2-2b's 2.6 B weights would take 10.4 GB of f32 host arrays, and
+qwen3-moe-30b-a3b's 30.2 B 121 GB.
 
 The reference DLRM keeps ``{"tables": [(V_t, d) per feature], "bot": {"w",
 "b"}, "top": {"w", "b"}}``.  :func:`dlrm_params` makes seeded numpy weights
@@ -51,7 +55,8 @@ from .models.gnn.gatedgcn import LAYER_KEYS as GATEDGCN_KEYS
 from .models.gnn.gatedgcn import GatedGCN, GatedGCNConfig
 from .models.gnn.gcn import GCN, GCNConfig, layer_dims
 from .models.gnn.meshgraphnet import MeshGraphNet, MeshGraphNetConfig, mlp_dims
-from .models.transformer import LAYER_KEYS, Transformer, TransformerConfig
+from .models.moe import MOE_KEYS, init_moe_params
+from .models.transformer import Transformer, TransformerConfig, layer_keys
 
 __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
            "load_transformer", "draw_transformer", "dlrm_params",
@@ -100,18 +105,29 @@ def transformer_params(cfg: TransformerConfig, seed: int = 0) -> dict:
                        cfg.d_ff)
     G = cfg.n_groups
 
+    def ffn(width: int, prefix: str) -> dict:
+        return {f"{prefix}gate": dense_init(rng, (G, d, width), fan_in=d),
+                f"{prefix}up": dense_init(rng, (G, d, width), fan_in=d),
+                f"{prefix}down": dense_init(rng, (G, width, d),
+                                            fan_in=width)}
+
     def block() -> dict:
-        return {
+        blk = {
             "ln1": np.zeros((G, d), np.float32),
             "ln2": np.zeros((G, d), np.float32),
             "wq": dense_init(rng, (G, d, H * dh), fan_in=d),
             "wk": dense_init(rng, (G, d, Hk * dh), fan_in=d),
             "wv": dense_init(rng, (G, d, Hk * dh), fan_in=d),
             "wo": dense_init(rng, (G, H * dh, d), fan_in=H * dh),
-            "w_gate": dense_init(rng, (G, d, f), fan_in=d),
-            "w_up": dense_init(rng, (G, d, f), fan_in=d),
-            "w_down": dense_init(rng, (G, f, d), fan_in=f),
         }
+        if cfg.moe is None:
+            return {**blk, **ffn(f, "w_")}
+        experts = [init_moe_params(rng, d, cfg.moe) for _ in range(G)]
+        blk["moe"] = {key: np.stack([e[key] for e in experts])
+                      for key in MOE_KEYS}
+        if cfg.moe.dense_residual_d_ff:
+            blk.update(ffn(cfg.moe.dense_residual_d_ff, "res_"))
+        return blk
 
     params = {"embed": embed_init(rng, (cfg.vocab, d)),
               "final_norm": np.zeros((d,), np.float32),
@@ -135,8 +151,8 @@ def load_transformer(params_np: dict, cfg: TransformerConfig, *,
                      dtype: Optional[torch.dtype] = None) -> Transformer:
     """The port's module holding ``params_np`` (reference layout), in
     ``dtype`` (the config's compute dtype by default) on ``device`` (CUDA
-    by default).  Layer ``g * P + i`` takes block ``i``'s slice ``g``;
-    every shape must match exactly."""
+    by default).  Layer ``g * P + i`` takes block ``i``'s slice ``g`` (of
+    every expert weight too); every shape must match exactly."""
     model = Transformer(cfg, device=resolve_device(device),
                         dtype=dtype or cfg.compute_dtype)
     P = len(cfg.window_pattern)
@@ -150,10 +166,18 @@ def load_transformer(params_np: dict, cfg: TransformerConfig, *,
             _put(model.unembed, params_np["unembed"], "unembed")
         for n, layer in enumerate(model.layers):
             g, i = divmod(n, P)
-            for key in LAYER_KEYS:
-                _put(getattr(layer, key),
-                    np.asarray(params_np["blocks"][i][key])[g],
-                    f"blocks[{i}][{key!r}][{g}]")
+            block = params_np["blocks"][i]
+            expect = set(layer_keys(cfg)) | ({"moe"} if cfg.moe else set())
+            if set(block) != expect:
+                raise ValueError(f"blocks[{i}] holds {sorted(block)}, "
+                                 f"expected {sorted(expect)}")
+            for key in layer_keys(cfg):
+                _put(getattr(layer, key), np.asarray(block[key])[g],
+                     f"blocks[{i}][{key!r}][{g}]")
+            if cfg.moe is not None:
+                for key in MOE_KEYS:
+                    _put(layer.moe[key], np.asarray(block["moe"][key])[g],
+                         f"blocks[{i}]['moe'][{key!r}][{g}]")
     return model
 
 
@@ -163,8 +187,10 @@ def draw_transformer(cfg: TransformerConfig, seed: int = 0, *,
     """The port's module with seeded weights drawn in place on ``device``
     (CUDA by default), in ``dtype`` (the config's compute dtype by
     default), with the reference's initializers: LeCun-normal matrices
-    (std ``1/sqrt(fan_in)``, ``fan_in`` the first dimension of the
-    ``(in, out)`` layout), 0.02-normal embeddings, zero norm scales.
+    (std ``1/sqrt(fan_in)``, ``fan_in`` the ``in`` dimension of the ``(in,
+    out)`` layout, second to last: d for an expert's ``w_gate`` / ``w_up``
+    ``(E, d, f)``, f for its ``w_down`` ``(E, f, d)``), 0.02-normal
+    embeddings, zero norm scales.
 
     The draw comes from a ``torch.Generator`` on the device seeded with
     ``seed``, in the order of the module's parameters, so it repeats on one
@@ -177,8 +203,8 @@ def draw_transformer(cfg: TransformerConfig, seed: int = 0, *,
         for name, p in model.named_parameters():
             if name == "embed":
                 p.normal_(0.0, 0.02, generator=gen)
-            elif p.dim() == 2:
-                p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
+            elif p.dim() >= 2:
+                p.normal_(0.0, p.shape[-2] ** -0.5, generator=gen)
     return model
 
 

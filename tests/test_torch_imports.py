@@ -19,7 +19,7 @@ CONFIG_MODULES = ("base", "scenarios", "arctic_480b", "dlrm_mlperf",
                   "granite_3_2b", "meshgraphnet", "qwen3_moe_30b_a3b",
                   "smollm_135m")
 
-#: The MoE config and every module of the GNN models.
+#: The MoE layer and every module of the GNN models.
 GNN_MODULES = ("moe", "gnn/__init__", "gnn/graph", "gnn/layers", "gnn/gcn",
                "gnn/gatedgcn", "gnn/meshgraphnet", "gnn/equiformer_v2")
 
@@ -61,6 +61,29 @@ assert not leaked, leaked
 """
 
 
+#: The MoE serving path on the CPU with the finder in place: a registry
+#: smoke config built, drawn, prefilled and decoded one step (a module that
+#: imported jax or the reference lazily, on first use, would fail here).
+_MOE_SERVES = _REFUSE + r"""
+import torch
+from repro_torch import params
+from repro_torch.configs import get_arch
+from repro_torch.models import moe, transformer as tr
+
+for arch in ("qwen3-moe-30b-a3b", "arctic-480b"):
+    cfg = get_arch(arch).make_smoke_config()
+    model = params.draw_transformer(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(0))
+    lg, cache = tr.make_prefill_step(cfg, max_seq=17)(model, tokens)
+    lg, _ = tr.make_serve_step(cfg, 17)(model, cache, lg.argmax(-1, keepdim=True), 16)
+    _, aux = tr.forward_hidden(cfg, model, tokens)
+    assert bool(torch.isfinite(lg).all()) and float(aux) > 0
+leaked = [m for m in sys.modules if m.startswith("jax") or m == "repro" or m.startswith("repro.")]
+assert not leaked, leaked
+print("served", moe.__name__)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
@@ -90,6 +113,14 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "repro_torch.distributed.trace_shard",
                  "repro_torch.data.wigner"):
         assert name in walked, name
+
+
+def test_moe_serves_with_jax_and_reference_blocked():
+    proc = subprocess.run([sys.executable, "-c", _MOE_SERVES], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "served repro_torch.models.moe" in proc.stdout
 
 
 def test_analysis_cli_help_runs_with_jax_and_reference_blocked():

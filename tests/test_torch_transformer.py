@@ -1,4 +1,4 @@
-"""The port's SmolLM serving path against the JAX reference transformer.
+"""The port's serving path against the JAX reference transformer.
 
 Weights come from the reference's ``init_params``, converted with
 ``np.asarray`` and loaded with ``params.load_transformer``; tokens are
@@ -7,7 +7,11 @@ attention takes K5's plain version.  Configs: the reference tests' tiny
 ``DENSE`` and ``GEMMA`` (windowed entries, soft-caps), SmolLM-135M's
 full widths at 2 layers, and gemma2-2b's full widths (d 2304, 8 heads, 4
 kv heads, head dim 256, d_ff 9216, both soft-caps) at 2 layers, one
-(local, global) pattern group.
+(local, global) pattern group.  MoE: the reference tests' ``tiny-moe`` (4
+experts, top-2, a dense residual branch), and the registry's
+``qwen3-moe-smoke`` and ``arctic-smoke``: the prefill and ``forward`` route
+all B * S tokens through the capacity dispatch, a decode step runs every
+expert.
 
 Tolerance: 1e-4 relative to the largest logit, the reference's own
 (``tests/test_transformer.py``): fp32 products, exponentials and norms in
@@ -23,16 +27,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import arctic_480b as jarctic
 from repro.configs import base as jbase
 from repro.configs import gemma2_2b as jgemma2
 from repro.configs import granite_3_2b as jgranite
+from repro.configs import qwen3_moe_30b_a3b as jqwen3
 from repro.configs import smollm_135m as jsmollm
 from repro.models import common as jcommon
 from repro.models import transformer as jtr
 from repro.models.moe import MoEConfig
 from repro_torch import params
 from repro_torch.configs import base, gemma2_2b, granite_3_2b, smollm_135m
-from repro_torch.models import common, transformer as tr
+from repro_torch.models import common, moe, transformer as tr
 from repro_torch.models.moe import MoEConfig as TMoEConfig
 
 DENSE = jtr.TransformerConfig(name="tiny-dense", n_layers=4, d_model=32,
@@ -51,11 +57,24 @@ SMOLLM_2L = replace(jsmollm.make_config(), name="smollm-135m-2l", n_layers=2,
 #: the ring and 8 decode steps overwrite it.
 GEMMA2_2L = replace(jgemma2.make_config(), name="gemma2-2b-2l", n_layers=2,
                     vocab=8192, window_pattern=(16, None), dtype="float32")
+#: The reference tests' MoE config (tests/test_transformer.py): capacity
+#: factor 2 at 4 experts and top-2 makes C = T, so nothing drops.
+MOE = jtr.TransformerConfig(name="tiny-moe", n_layers=2, d_model=32,
+                            n_heads=4, n_kv_heads=4, d_head=8, d_ff=64,
+                            vocab=128,
+                            moe=MoEConfig(n_experts=4, top_k=2,
+                                          d_ff_expert=32,
+                                          capacity_factor=2.0,
+                                          dense_residual_d_ff=32),
+                            dtype="float32", q_chunk=8)
 #: (config, batch, prompt length, decode steps); SmolLM at a prompt of 64,
 #: gemma2 at 32 with 8 steps.
 CASES = {"tiny-dense": (DENSE, 2, 16, 4), "tiny-gemma": (GEMMA, 2, 16, 4),
          "smollm-135m-2l": (SMOLLM_2L, 2, 64, 4),
-         "gemma2-2b-2l": (GEMMA2_2L, 2, 32, 8)}
+         "gemma2-2b-2l": (GEMMA2_2L, 2, 32, 8),
+         "tiny-moe": (MOE, 2, 16, 4),
+         "qwen3-moe-smoke": (jqwen3.make_smoke_config(), 2, 16, 4),
+         "arctic-smoke": (jarctic.make_smoke_config(), 2, 16, 4)}
 TOL = 1e-4
 
 
@@ -128,10 +147,32 @@ def test_prefill_and_decode_continuation_match_reference(name):
         assert _rel(lg, jlg) < TOL, i
 
 
-@pytest.mark.parametrize("name", ["tiny-dense", "tiny-gemma"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_forward_hidden_matches_reference(name):
+    """The final normed hidden state and the balance loss summed over the
+    layers (0 for a dense config) against the reference's
+    ``forward_hidden``, and the loss against its ``forward``'s second
+    output."""
+    jcfg, jparams, cfg, model, tokens = _build(name)
+    s = CASES[name][2]
+    t = jnp.asarray(tokens[:, :s])
+    hidden, aux = tr.forward_hidden(cfg, model, torch.as_tensor(tokens[:, :s]))
+    jhidden, jaux = jax.jit(lambda p, t: jtr.forward_hidden(jcfg, p, t))(
+        jparams, t)
+    _, jaux_fwd = jax.jit(lambda p, t: jtr.forward(jcfg, p, t))(jparams, t)
+    assert hidden.shape == jhidden.shape and aux.dtype == torch.float32
+    assert _rel(hidden, jhidden) < TOL
+    assert abs(float(aux) - float(jaux)) < 1e-6
+    assert abs(float(aux) - float(jaux_fwd)) < 1e-6
+    assert (float(aux) > 0) == (jcfg.moe is not None)
+
+
+@pytest.mark.parametrize("name", ["tiny-dense", "tiny-gemma", "tiny-moe"])
 def test_decode_matches_forward(name):
     """Decode from an empty cache reproduces the forward's last logits (the
-    reference's test_decode_matches_forward)."""
+    reference's test_decode_matches_forward).  For tiny-moe nothing drops
+    in the forward (C = T), so its capacity dispatch and decode's
+    all-expert path compute the same function."""
     _, _, cfg, model, tokens = _build(name)
     b, s = CASES[name][1:3]
     t = torch.as_tensor(tokens[:, :s])
@@ -242,6 +283,57 @@ def test_transformer_params_round_trip():
     assert model.embed.dtype == torch.float32 and not model.embed.requires_grad
 
 
+def test_moe_transformer_params_round_trip():
+    """The MoE layout: ``blocks[i]["moe"]`` stacks of the router and the 3-D
+    expert weights, and the dense residual branch, with the same keys and
+    shapes as ``init_params``; layer g * P + i holds slice g of each."""
+    cfg = _port_cfg(MOE)
+    p = params.transformer_params(cfg, seed=5)
+    jp = jtr.init_params(MOE, jax.random.key(0))
+    assert (jax.tree_util.tree_map(np.shape, p)
+            == jax.tree_util.tree_map(np.shape, jp))
+    assert p["blocks"][0]["moe"]["w_gate"].shape == (2, 4, 32, 32)
+    model = params.load_transformer(p, cfg, device="cpu")
+    assert not any(hasattr(model.layers[0], k) for k in ("w_gate", "w_up",
+                                                          "w_down"))
+    assert tr.layer_keys(cfg) == tr.LAYER_KEYS[:6] + tr.RESIDUAL_KEYS
+    for n, layer in enumerate(model.layers):
+        g, i = divmod(n, len(cfg.window_pattern))
+        block = p["blocks"][i]
+        for key in tr.layer_keys(cfg):
+            assert np.array_equal(getattr(layer, key).numpy(),
+                                  block[key][g]), (n, key)
+        for key in moe.MOE_KEYS:
+            assert np.array_equal(layer.moe[key].numpy(),
+                                  block["moe"][key][g]), (n, key)
+    scaled = np.concatenate([p["blocks"][0]["moe"][k].ravel() * 32 ** 0.5
+                             for k in moe.MOE_KEYS])
+    assert abs(float(scaled.std()) - 1) < 0.05
+
+
+def test_moe_seeded_draw_fills_expert_weights():
+    """``draw_transformer`` draws the 3-D expert weights too, each with
+    std ``fan_in ** -0.5`` where ``fan_in`` is the second-to-last dimension:
+    d for ``w_gate`` / ``w_up`` (E, d, f), f for ``w_down`` (E, f, d)."""
+    cfg = replace(_port_cfg(jqwen3.make_smoke_config()), d_model=64,
+                  moe=TMoEConfig(n_experts=8, top_k=2, d_ff_expert=48,
+                                 dense_residual_d_ff=96))
+    model = params.draw_transformer(cfg, seed=3, device="cpu")
+    again = params.draw_transformer(cfg, seed=3, device="cpu")
+    layer = model.layers[0]
+    assert (tuple(layer.moe.w_gate.shape), tuple(layer.moe.w_down.shape)) == (
+        (8, 64, 48), (8, 48, 64))
+    for (name, p), q in zip(model.named_parameters(), again.parameters()):
+        assert torch.equal(p, q), name
+        if p.dim() == 1:
+            continue
+        std = 0.02 if name == "embed" else p.shape[-2] ** -0.5
+        assert abs(float(p.std()) / std - 1) < 0.1, name
+    assert abs(float(layer.moe.w_down.std()) * 48 ** 0.5 - 1) < 0.1
+    assert abs(float(layer.res_down.std()) * 96 ** 0.5 - 1) < 0.1
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+
+
 def test_load_refuses_wrong_shapes():
     cfg = _port_cfg(DENSE)
     p = params.transformer_params(cfg, 0)
@@ -252,8 +344,9 @@ def test_load_refuses_wrong_shapes():
 
 def test_moe_config_raises():
     """An MoE config constructs and counts its parameters as the
-    reference's does; building its model raises, naming the item the MoE
-    layer waits for."""
+    reference's does, builds its model and loads the reference's
+    ``init_params``; a dense layout loaded into it raises, and so do a
+    load and a build that ask for no device when there is no card."""
     jmoe = jtr.TransformerConfig(
         name="tiny-moe", n_layers=2, d_model=32, n_heads=4, n_kv_heads=4,
         d_head=8, d_ff=64, vocab=128,
@@ -263,11 +356,25 @@ def test_moe_config_raises():
     cfg = _port_cfg(jmoe)
     assert cfg.param_count() == jmoe.param_count()
     assert cfg.active_param_count() == jmoe.active_param_count()
-    with pytest.raises(NotImplementedError, match="MoE.*item 8d"):
-        tr.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE.*item 8d"):
+    model = tr.Transformer(cfg, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    jp = jax.tree_util.tree_map(np.asarray, jtr.init_params(
+        jmoe, jax.random.key(0)))
+    model = params.load_transformer(jp, cfg, device="cpu")
+    assert np.array_equal(model.layers[1].moe.w_down.numpy(),
+                          jp["blocks"][0]["moe"]["w_down"][1])
+    assert np.array_equal(model.layers[0].res_gate.numpy(),
+                          jp["blocks"][0]["res_gate"][0])
+    with pytest.raises(ValueError, match="moe"):
         params.load_transformer(params.transformer_params(
             replace(cfg, moe=None), 0), cfg, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            params.load_transformer(jp, cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tr.Transformer(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            moe.MoE(cfg.d_model, cfg.moe)
 
 
 @pytest.mark.parametrize("make", ["make_config", "make_smoke_config"])
@@ -389,3 +496,28 @@ def test_prefill_on_the_card_matches_the_cpu(cuda_device):
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
     expect, _ = prefill(params.load_transformer(p, cfg, device="cpu"), tokens)
     assert _rel(lg.cpu(), expect) < TOL
+
+
+@pytest.mark.gpu
+def test_moe_prefill_on_the_card_matches_the_cpu(cuda_device):
+    """tiny-moe's widths with a head dim K5 takes (16): the prefill's
+    logits and caches, card (K5, the capacity dispatch) against the CPU."""
+    from repro_torch import backend
+    from repro_torch.kernels import ops
+
+    backend.full_fp32()
+    cfg = replace(_port_cfg(MOE), d_head=16)
+    p = params.transformer_params(cfg, 0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)))
+    prefill = tr.make_prefill_step(cfg, max_seq=136)
+    ops.reset_launches()
+    lg, cache = prefill(params.load_transformer(p, cfg, device=cuda_device),
+                        tokens.to(cuda_device))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    expect, expect_cache = prefill(
+        params.load_transformer(p, cfg, device="cpu"), tokens)
+    assert _rel(lg.cpu(), expect) < TOL
+    for key in cache:
+        assert _rel(cache[key].cpu(), expect_cache[key]) < TOL, key
