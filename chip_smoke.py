@@ -276,7 +276,35 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
 26. arctic-480b, bf16, full width with its depth cut 35 -> 2 (54.90 GB
    drawn): ``prefill_32k`` at B 1 and 8 decode steps, K5 exactly 2
    launches, the same times, drops and peak memory, and check (a) at layer
-   0 with the dense residual branch added to both sides.
+   0 with the dense residual branch added to both sides;
+27. the training substrate on the card: AdamW (clipping, cosine schedule,
+   weight decay, in place and not), SGD and the int8 compression against
+   the same calls on the CPU; a CUDA training state checkpointed, restored
+   onto the CPU and back, equal leaf for leaf; K6's autograd ``Function``
+   at DLRM-MLPerf's widths on 26 tables of 65,536 rows at B 512: forward
+   bit-identical to the plain version, table gradient (``index_add_``)
+   within 1e-5 of autograd through the plain gather-and-add;
+28. SmolLM-135M trained at full width and depth at ``train_4k`` (S 4,096,
+   B cut 256 -> 8), bf16 compute, remat "full", through
+   ``launch.train.train`` with a checkpoint every 2 steps and a failure
+   injected at step 3: the history (before and after the rollback) within
+   1e-5 of an uninterrupted run's, K5 launched 0 times (training attention
+   is the chunked plain path, as in the reference); step p50 / p99,
+   tokens/s, peak memory and the batch the card's memory admits, a step's
+   device time by kind; in f32 at 2 layers (full width and vocab, B 2, S
+   256) 3 steps on the card against the CPU from the same weights, losses
+   and parameters within 1e-4;
+29. the four GNNs (GCN-Cora with a failure injected, GatedGCN,
+   MeshGraphNet, EquiformerV2) trained at their published configs on a
+   2,708-node, 10,556-edge power-law graph through the trainer, step time
+   and peak memory, and 5 steps card vs CPU from the same weights (losses
+   within 1e-4); no kernel launches;
+30. DLRM-MLPerf trained at published widths and ``train_batch`` (B
+   65,536) with every table capped at 4,000,000 rows (49.5 GB of weights,
+   gradients and moments): K6 exactly 26 launches a step, step time,
+   samples/s, peak memory and a step's device time by kind (K6, the
+   ``index_add_`` backward, cuBLAS, the optimizer); 3 steps in f32 at
+   65,536-row tables, B 512, card vs CPU, losses within 1e-4.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -567,6 +595,76 @@ MOE_LOOP_TOLERANCE = 3e-2
 #: reference test's case.
 MOE_CHECK_LAYERS, MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 2, 256, 8
 MOE_FFN_CASE = (512, 16.0)
+
+
+#: Training (phases 27-30).  The substrate on the card against the CPU: f32
+#: updates whose global norm sums in another order; 1e-6 as on the CPU
+#: against the reference.
+OPTIM_TOLERANCE = 1e-6
+#: K6's table gradient (float ``index_add_`` on the card, atomics) against
+#: autograd through the plain bag's gather-and-add: the repo's f32 kernel
+#: tolerance, at DLRM-MLPerf's widths with every table capped.
+BAG_GRAD_TOLERANCE = 1e-5
+BAG_GRAD_ROW_CAP, BAG_GRAD_BATCH = 65_536, 512
+#: SmolLM-135M trained at ``train_4k`` (S 4,096), bf16 compute, remat
+#: "full": B 8 of the shape's 256, the cut that fits the run's time (a step
+#: of B 8 takes about 3.5 s on the card; phase 28 prints the largest B the
+#: card's memory admits).  A run of 4 steps with a checkpoint every 2 and a
+#: failure injected at step 3, against an uninterrupted run of the same 4.
+#: reduced: batch (train_4k, 256 -> 8).
+LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_EVERY, LM_TRAIN_FAIL = 8, 4, 2, 3
+TRAIN_LR = 3e-3
+#: The replay after the rollback against the uninterrupted run: the card
+#: sums the embedding's and the attention's gradients in no fixed order.
+LM_ROLLBACK_TOLERANCE = 1e-5
+#: The f32 trajectories, card vs CPU from the same weights: the repo's
+#: model tolerance, with TF32 off.
+TRAIN_TOLERANCE = 1e-4
+#: A gradient entry is zero to rounding at or below this share of its
+#: leaf's largest.  Two f32 evaluations of a gradient differ by about 1e-7
+#: of the leaf's largest, and AdamW's normalised update m / (sqrt(v) + eps)
+#: turns such an entry's rounding into a step of up to lr either way; above
+#: the share that rounding moves the update by at most about 1e-4 of lr.
+GRAD_ROUNDING_SHARE = 1e-3
+#: What every card-vs-CPU training check holds to TRAIN_TOLERANCE: the loss
+#: of each step taken from the CPU's state, and the update of one gradient
+#: by the card's optimizer against the CPU's.  Where f32 resolves the
+#: gradient along the run, also every step's gradient, parameters and
+#: moments, and the free trajectories.
+ALWAYS_KEYS = ("step_loss", "step_update")
+RESOLVED_KEYS = ("step_grad", "step_params", "step_moments", "traj_loss",
+                 "traj_params", "traj_moments")
+LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_SEQ, LM_CHECK_STEPS = 2, 2, 256, 3
+#: The four GNNs at their published configs on a full_graph_sm-sized graph
+#: through the trainer; GCN-Cora with the example's failure (its 300 steps
+#: and --fail-at 120, scaled to 30 and 12).  Their card-vs-CPU check runs 5
+#: steps on the trainer's smaller graph (EquiformerV2's CPU step at V
+#: 2,708 takes about 37 s).  AdamW at 1e-4, a rate at which GCN, GatedGCN
+#: and MeshGraphNet lower their loss at every step and EquiformerV2 over the
+#: run: at the trainer's 3e-3 the first step's update (lr times the
+#: gradient's sign, on every weight) throws MeshGraphNet's loss from 13.5
+#: to 480.
+GNN_TRAIN_STEPS, GNN_TRAIN_EVERY, GNN_TRAIN_LR = 10, 10, 1e-4
+#: The GNNs held to ALWAYS_KEYS alone.  Along their 5 steps they reach
+#: states whose gradient f32 does not resolve to TRAIN_TOLERANCE: there the
+#: CPU's or the card's f32 gradient misses an f64 evaluation by up to 1e-2
+#: (phase 29 prints both), and which states do so changes with the order
+#: of summation, so the card and the CPU part there.  The phase repeats
+#: their check at EXTRA_SEEDS.
+GNN_F32_UNRESOLVED = ("meshgraphnet", "equiformer-v2")
+#: The seeds besides the trainer's 0 at which phases 29 and 30 repeat a
+#: check that does not hold RESOLVED_KEYS.
+EXTRA_SEEDS = (1, 2)
+GCN_TRAIN_STEPS, GCN_TRAIN_FAIL = 30, 12
+GNN_CHECK_GRAPH, GNN_CHECK_STEPS = (128, 512), 5
+#: DLRM-MLPerf trained at published widths and ``train_batch`` (B 65,536):
+#: each table capped at 4,000,000 rows (24,184,588 in all), whose weights,
+#: gradients and two moments (16 B a parameter) take 49.5 GB of the card.
+#: The published 204,184,588 rows would need 418 GB, the serving cap of
+#: phase 13 (20M rows) 213 GB.
+#: reduced: vocab_sizes (training: every table capped at 4,000,000 rows).
+DLRM_TRAIN_ROW_CAP, DLRM_TRAIN_STEPS = 4_000_000, 3
+DLRM_TRAIN_CHECK_CAP, DLRM_TRAIN_CHECK_BATCH = 65_536, 512
 
 
 def k5_work(b: int, s: int, h: int, hk: int, d: int,
@@ -1378,12 +1476,14 @@ def percentile(samples, q: float) -> float:
                                              - 1))]
 
 
-def device_time_by_kind(fn, kernel: str, fragment, extra=None) -> dict:
+def device_time_by_kind(fn, kernel: str, fragment, extra=None,
+                        by_name=None) -> dict:
     """Device time in ms of the work ``fn`` runs, by kind, from
     ``torch.profiler``: ``kernel`` (names holding ``fragment``, or any of a
     tuple of fragments), each kind of ``extra`` (a dict of kind -> name
     fragments, matched next), cuBLAS matrix products, copies and fills,
-    every other kernel."""
+    every other kernel.  ``by_name``, a dict, also gathers the time of each
+    kernel name."""
     fragments = (fragment,) if isinstance(fragment, str) else fragment
     extra = extra or {}
     from torch.profiler import ProfilerActivity, profile
@@ -1407,6 +1507,9 @@ def device_time_by_kind(fn, kernel: str, fragment, extra=None) -> dict:
                 else "copies" if "memcpy" in name or "memset" in name
                 else "other kernels")
         kinds[kind] += event.device_time / 1e3
+        if by_name is not None:
+            by_name[event.name] = (by_name.get(event.name, 0.0)
+                                   + event.device_time / 1e3)
     return kinds
 
 
@@ -2627,7 +2730,7 @@ def gemma2_phases(dev, card: str, launches: dict) -> None:
     padded = torch.nn.functional.pad(fed, (0, -fed.shape[1] % 128))
     with torch.inference_mode():
         again = tr._logits(cfg, model, tr._prefill_layers(
-            cfg, model, padded)[:, s - 1:s + GEMMA2_STEPS])
+            cfg, model, padded)[0][:, s - 1:s + GEMMA2_STEPS])
     got = torch.stack(served_logits, dim=1)
     err = rel_err(got, again)
     agree = int((again.argmax(-1) == out).sum())
@@ -2643,7 +2746,7 @@ def gemma2_phases(dev, card: str, launches: dict) -> None:
     model.float()
     with torch.inference_mode():
         exact = tr._logits(cfg, model, tr._prefill_layers(
-            cfg, model, padded[:1])[:, s - 1:s + GEMMA2_STEPS])
+            cfg, model, padded[:1])[0][:, s - 1:s + GEMMA2_STEPS])
     print(f"# gemma2 batch row 0 against the same {GEMMA2_STEPS + 1} "
           f"positions in f32: served (bf16 decode) max rel err "
           f"{rel_err(got[:1], exact):.3e}, prefill path (bf16 K5) "
@@ -3758,6 +3861,698 @@ def moe_phases(dev, card: str, launches: dict) -> None:
 
 
 
+def tree_rel_err(got, want, share: float = 1e-2, keep=None) -> float:
+    """The worst leaf of two trees of tensors: each leaf's max abs error
+    relative to its own largest entry, or to ``share`` of the tree's
+    largest where a leaf is near zero.  ``keep``, a tree of boolean masks
+    (or None) beside ``want``'s leaves, limits each leaf's error to the
+    entries it keeps."""
+    from repro_torch.tree import tree_leaves
+
+    g = [t.detach().float().cpu() for t in tree_leaves(got)]
+    w = [t.detach().float().cpu() for t in tree_leaves(want)]
+    masks = [None] * len(w) if keep is None else tree_leaves(keep)
+    if len(g) != len(w) or len(masks) != len(w):
+        raise AssertionError(f"{len(g)} leaves against {len(w)}")
+    top = max(float(t.abs().max()) if t.numel() else 0.0 for t in w)
+    worst = 0.0
+    for a, b, m in zip(g, w, masks):
+        diff = (a - b).abs() if m is None else (a - b).abs()[m.cpu()]
+        scale = max(float(b.abs().max()) if b.numel() else 0.0, share * top,
+                    1e-30)
+        worst = max(worst, float(diff.max()) / scale if diff.numel()
+                    else 0.0)
+    return worst
+
+
+def synced(step_fn):
+    """``step_fn`` that waits for the card at its end, so the loop's step
+    time is the step's."""
+    def run(state, batch):
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        return state, metrics
+    return run
+
+
+def exact_gnn_gradient(step_fn, state, batch):
+    """The gradient of a GNN trainer's loss at ``state``, evaluated in f64
+    on the CPU: every floating tensor of the weights and the graph widened,
+    and the tensors the models make f64 by default."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    def wide(t):
+        return (t.double() if torch.is_tensor(t) and t.is_floating_point()
+                else t)
+
+    fields = {}
+    for f in dataclasses.fields(batch):
+        v = getattr(batch, f.name)
+        fields[f.name] = ({k: wide(w) for k, w in v.items()}
+                          if isinstance(v, dict) else wide(v))
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        return step_fn.grad_fn(tree_map(wide, state[0]),
+                               dataclasses.replace(batch, **fields))[1]
+    finally:
+        torch.set_default_dtype(before)
+
+
+def card_vs_cpu_steps(family: str, arch, args, dev, n: int,
+                      exact=None) -> dict:
+    """``n`` steps of the trainer's set-up on the card and on the CPU from
+    the CPU's weights, each step taken in its two halves (``grad_fn``, then
+    the optimizer, which spends the gradients' buffers).  The worst
+    relative errors (:func:`tree_rel_err`):
+
+    - ``step_*``: the card's step from the CPU's state before it, which
+      chaotic dynamics cannot magnify: ``step_loss``; ``step_grad`` the
+      gradient; ``step_update`` the
+      parameters and moments after the card's optimizer spent the card's
+      gradient against the CPU's optimizer spending the same gradient;
+      ``step_params`` the parameters after the two steps over the entries
+      whose CPU gradient is not zero to rounding (above
+      ``GRAD_ROUNDING_SHARE`` of its leaf's largest); ``step_moments``;
+    - ``traj_*``: the two free trajectories: the losses, the parameters
+      over the entries whose CPU gradient was above that share at every
+      step (``kept``, their share of all), the moments, and every
+      parameter and moment (``traj_state``);
+    - with ``exact(step_fn, state, batch)``, an f64 gradient on the CPU:
+      ``exact_cpu`` and ``exact_card``, the CPU's and the card's f32
+      gradients against it from the same states."""
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import apply_updates
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def copy_to(tree, device):
+        return tree_map(lambda t: t.to(device, copy=True), tree)
+
+    def gradient(step_fn, state, batch):
+        (_, metrics), grads = step_fn.grad_fn(state[0], batch)
+        return metrics, grads
+
+    def update(step_fn, state, grads):
+        params, opt_state = state
+        updates, opt_state = step_fn.optimizer.update(grads, opt_state,
+                                                      params)
+        return (apply_updates(params, updates,
+                              donate=step_fn.optimizer.donate), opt_state)
+
+    cpu = torch.device("cpu")
+    cpu_state, cpu_step, cpu_batch = train.SETUPS[family](arch, args, cpu)
+    card_state = copy_to(cpu_state, dev)
+    _, card_step, card_batch = train.SETUPS[family](arch, args, dev)
+    err = dict.fromkeys(("step_loss", "step_grad", "step_update",
+                         "step_params", "step_moments", "traj_loss")
+                        + (("exact_cpu", "exact_card") if exact else ()),
+                        0.0)
+
+    def loss_err(a, b):
+        return abs(float(a["loss"]) - float(b["loss"])) / max(
+            abs(float(b["loss"])), 1e-30)
+
+    kept = None
+    for i in range(n):
+        forced = copy_to(cpu_state, dev)
+        m_forced, g_forced = gradient(card_step, forced, card_batch(i))
+        m_card, g_card = gradient(card_step, card_state, card_batch(i))
+        m_cpu, g_cpu = gradient(cpu_step, cpu_state, cpu_batch(i))
+        step = {"step_grad": tree_rel_err(g_forced, g_cpu)}
+        if exact:
+            g_exact = exact(cpu_step, cpu_state, cpu_batch(i))
+            step["exact_cpu"] = tree_rel_err(g_cpu, g_exact)
+            step["exact_card"] = tree_rel_err(g_forced, g_exact)
+            del g_exact
+        keep = tree_map(lambda g: g.abs() > GRAD_ROUNDING_SHARE
+                        * g.abs().max(), g_cpu)
+        kept = keep if kept is None else tree_map(torch.logical_and, kept,
+                                                  keep)
+        same = update(cpu_step, copy_to(cpu_state, cpu),
+                      copy_to(g_forced, cpu))
+        forced = update(card_step, forced, g_forced)
+        card_state = update(card_step, card_state, g_card)
+        cpu_state = update(cpu_step, cpu_state, g_cpu)
+        step.update(
+            traj_loss=loss_err(m_card, m_cpu),
+            step_loss=loss_err(m_forced, m_cpu),
+            step_update=tree_rel_err(forced, same),
+            step_params=tree_rel_err(forced[0], cpu_state[0], keep=keep),
+            step_moments=tree_rel_err(forced[1], cpu_state[1]))
+        for key, value in step.items():
+            err[key] = max(err[key], value)
+        del forced, same, g_forced, g_card, g_cpu
+    err["traj_params"] = tree_rel_err(card_state[0], cpu_state[0], keep=kept)
+    err["traj_moments"] = tree_rel_err(card_state[1], cpu_state[1])
+    err["traj_state"] = tree_rel_err(card_state, cpu_state)
+    err["kept"] = (sum(int(m.sum()) for m in tree_leaves(kept))
+                   / sum(m.numel() for m in tree_leaves(kept)))
+    return err
+
+
+def check_line(err: dict) -> str:
+    """:func:`card_vs_cpu_steps`'s errors, as the phases print them."""
+    exact = (f" (against an f64 gradient: the CPU's f32 "
+             f"{err['exact_cpu']:.3e}, the card's {err['exact_card']:.3e})"
+             if "exact_cpu" in err else "")
+    return (f"each step from the CPU's state: loss {err['step_loss']:.3e}, "
+            f"gradients {err['step_grad']:.3e}{exact}, the update of one "
+            f"gradient (parameters and moments) {err['step_update']:.3e}, "
+            f"parameters whose gradient is not zero to rounding "
+            f"{err['step_params']:.3e}, moments {err['step_moments']:.3e}; "
+            f"the free trajectories: losses {err['traj_loss']:.3e}, the "
+            f"{100 * err['kept']:.1f}% of parameters whose gradient never "
+            f"was zero to rounding {err['traj_params']:.3e}, moments "
+            f"{err['traj_moments']:.3e}, every parameter and moment "
+            f"{err['traj_state']:.3e} (tolerance {TRAIN_TOLERANCE:.0e})")
+
+
+def hold(err: dict, resolved: bool, label: str, free: bool = True) -> None:
+    """Raises unless ALWAYS_KEYS and, where the f32 gradient is
+    ``resolved``, RESOLVED_KEYS (the free trajectories' only with
+    ``free``) are below TRAIN_TOLERANCE."""
+    keys = ALWAYS_KEYS + (RESOLVED_KEYS if resolved else ())
+    if not free:
+        keys = tuple(k for k in keys if not k.startswith("traj"))
+    bad = {k: err[k] for k in keys if not err[k] < TRAIN_TOLERANCE}
+    if bad:
+        raise AssertionError(f"{label} card vs CPU: {bad} (all: {err})")
+
+
+def train_args(*argv) -> object:
+    from repro_torch.launch import train
+
+    return train.build_parser().parse_args([str(a) for a in argv])
+
+
+def substrate_phase(dev, card: str) -> None:
+    """Phase 27: the optimizers, compression and checkpoints on the card
+    against the CPU, and K6's autograd ``Function`` (forward bit-identical,
+    table gradient against autograd through the plain bag)."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+    from repro_torch.optim import optimizers as optim
+    from repro_torch.optim.compression import compress_decompress
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(27)
+    leaves = [(1024, 576), (576,), (49152, 64), (9, 64), (30, 1536)]
+    base = [torch.randn(s, generator=gen) for s in leaves]
+    grads = [[torch.randn(s, generator=gen) * 3 for s in leaves]
+             for _ in range(3)]
+
+    def as_tree(ts):
+        return {"w": ts[0], "b": ts[1], "nested": {"z": ts[2],
+                                                   "a": [ts[3], ts[4]]}}
+
+    runs = {
+        "adamw clip 1.0, cosine, wd 0.1": lambda: optim.adamw(
+            optim.cosine_schedule(3e-3, warmup=2, total=10),
+            weight_decay=0.1),
+        "adamw donated": lambda: optim.adamw(
+            optim.cosine_schedule(3e-3, warmup=2, total=10),
+            weight_decay=0.1, donate=True),
+        "sgd momentum 0.9, clip 1.0": lambda: optim.sgd(0.05, clip_norm=1.0),
+    }
+    states = {}
+    for name, make in runs.items():
+        out = []
+        for d in (dev, cpu):
+            opt = make()
+            p = as_tree([t.clone().to(d) for t in base])
+            s = opt.init(p)
+            for g in grads:
+                u, s = opt.update(as_tree([t.clone().to(d) for t in g]), s, p)
+                p = optim.apply_updates(p, u, donate=opt.donate)
+            out.append((p, s))
+        err = tree_rel_err(out[0], out[1])
+        states[name] = out
+        print(f"# substrate {name}: 3 updates of a 5-leaf tree "
+              f"({sum(t.numel() for t in base)} parameters), card vs CPU max "
+              f"rel err {err:.3e} (tolerance {OPTIM_TOLERANCE:.0e})")
+        if not err < OPTIM_TOLERANCE:
+            raise AssertionError(f"{name}: card vs CPU {err}")
+    g_card = grads[0][2].to(dev)
+    e_card = torch.zeros_like(g_card)
+    g_cpu, e_cpu = grads[0][2].clone(), torch.zeros_like(grads[0][2])
+    for _ in range(3):
+        (d1, e_card), (d2, e_cpu) = (compress_decompress(g_card, e_card),
+                                     compress_decompress(g_cpu, e_cpu))
+        if not (torch.equal(d1.cpu(), d2) and torch.equal(e_card.cpu(),
+                                                          e_cpu)):
+            raise AssertionError("compress_decompress differs card vs CPU")
+    print(f"# substrate compress_decompress: 3 error-feedback rounds of "
+          f"{g_cpu.numel()} values bit-identical card vs CPU")
+    card_state = states["adamw clip 1.0, cosine, wd 0.1"][0]
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(3, card_state)
+        like_cpu = tree_map(lambda t: torch.zeros_like(t, device=cpu),
+                            card_state)
+        _, on_cpu = mgr.restore(like_cpu)
+        mgr.save(4, on_cpu)
+        _, back = mgr.restore(like_cpu, device=dev)
+    same = all(torch.equal(a.cpu(), b) and b.device.type == "cpu"
+               and c.device == a.device and torch.equal(a, c)
+               for a, b, c in zip(tree_leaves(card_state),
+                                  tree_leaves(on_cpu), tree_leaves(back)))
+    print(f"# substrate checkpoint: a CUDA (params, AdamW state) of "
+          f"{len(tree_leaves(card_state))} leaves saved, restored onto the "
+          f"CPU, saved again and restored onto the card: equal leaf for leaf "
+          f"{same}")
+    if not same:
+        raise AssertionError("checkpoint round trip card -> CPU -> card")
+
+    cfg = dlrm_mlperf.make_config(vocab_sizes=tuple(
+        min(v, BAG_GRAD_ROW_CAP) for v in dlrm.CRITEO_1TB_VOCABS))
+    batch = synthetic.criteo_batch(27, 0, batch=BAG_GRAD_BATCH,
+                                   n_dense=cfg.n_dense,
+                                   vocab_sizes=cfg.vocab_sizes,
+                                   multi_hot=cfg.multi_hot)
+    sparse = torch.from_numpy(batch["sparse"]).to(dev)
+    worst, exact = 0.0, True
+    for t, v in enumerate(cfg.vocab_sizes):
+        table = torch.randn(v, cfg.embed_dim, generator=gen).to(dev)
+        ids = sparse[:, t, :]
+        ct = torch.randn(BAG_GRAD_BATCH, cfg.embed_dim,
+                         generator=gen).to(dev)
+        t1 = table.clone().requires_grad_()
+        out = ops.embedding_bag_autograd(t1, ids)
+        (out * ct).sum().backward()
+        with torch.no_grad():
+            exact &= torch.equal(out, eb.embedding_bag_plain(table, ids))
+        t2 = table.clone().requires_grad_()
+        acc = torch.zeros(BAG_GRAD_BATCH, cfg.embed_dim, device=dev)
+        for h in range(ids.shape[1]):
+            acc = acc + t2[ids[:, h].long()]
+        (acc * ct).sum().backward()
+        worst = max(worst, rel_err(t1.grad, t2.grad))
+    print(f"# substrate K6 autograd Function at DLRM-MLPerf widths (26 "
+          f"tables capped at {BAG_GRAD_ROW_CAP} rows, D {cfg.embed_dim}, B "
+          f"{BAG_GRAD_BATCH}): forward bit-identical to the plain version "
+          f"{exact}; table gradient (index_add_) vs autograd through the "
+          f"plain gather-and-add max rel err {worst:.3e} (tolerance "
+          f"{BAG_GRAD_TOLERANCE:.0e})")
+    if not (exact and worst < BAG_GRAD_TOLERANCE):
+        raise AssertionError(f"K6 Function: forward {exact}, grad {worst}")
+    print(f"# phase 27 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+
+
+def step_kinds(grad_fn, optimizer, state, batch, kernel: str, fragments,
+               extra=None) -> tuple[dict, list]:
+    """One step's device time by kind, the gradient and the update profiled
+    apart (the update is every kernel of ``optimizer.update`` and
+    ``apply_updates``), and the 8 kernels that took longest."""
+    from repro_torch.optim.optimizers import apply_updates
+
+    params, opt_state = state
+    names: dict = {}
+    out: dict = {}
+
+    def grad():
+        out["grads"] = grad_fn(params, batch)[1]
+
+    kinds = device_time_by_kind(grad, kernel, fragments, extra,
+                                by_name=names)
+    grads = out.pop("grads")
+
+    def update():
+        u, _ = optimizer.update(grads, opt_state, params)
+        apply_updates(params, u, donate=optimizer.donate)
+
+    opt = device_time_by_kind(update, kernel, fragments, extra,
+                              by_name=names)
+    kinds["optimizer (AdamW update, applied)"] = sum(opt.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    top += [(f"[{kernel}] {n}", ms) for n, ms in names.items()
+            if any(f in n.lower() for f in ((fragments,)
+                                            if isinstance(fragments, str)
+                                            else fragments))][:2]
+    return kinds, top
+
+
+def lm_training_phase(dev, card: str) -> None:
+    """Phase 28: SmolLM-135M trained at full width and depth at
+    ``train_4k`` (B cut to 8) through ``launch.train``, with a checkpoint
+    every 2 steps and a failure injected at step 3, held to an
+    uninterrupted run; K5 launches 0 (training attention is the chunked
+    plain path, as in the reference); the device time of a step by kind;
+    and the f32 trajectory at 2 layers, card vs CPU."""
+    import dataclasses
+    import tempfile
+    from functools import partial
+
+    from repro_torch import backend
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.distributed.resilience import run_resilient
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+    from repro_torch.tree import value_and_grad
+
+    t_phase = time.perf_counter()
+    backend.full_fp32()
+    torch.cuda.empty_cache()
+    arch = get_arch("smollm-135m")
+    cfg = arch.make_config()
+    shape = LM_SHAPES["train_4k"].params
+    s, b = shape["seq"], LM_TRAIN_BATCH
+    n_params = cfg.param_count()
+    state_bytes = train.TRAIN_BYTES_PER_PARAM * n_params
+    argv = ["--arch", arch.name, "--full", "--batch", b, "--seq", s,
+            "--steps", LM_TRAIN_STEPS, "--lr", TRAIN_LR, "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        state, failed = train.train(train_args(
+            *argv, "--checkpoint-every", LM_TRAIN_EVERY, "--fail-at",
+            LM_TRAIN_FAIL, "--ckpt-dir", ckpt))
+        failed_s = time.perf_counter() - t0
+        kept = sorted(p.name for p in Path(ckpt).iterdir())
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    # The uninterrupted run: the trainer's set-up and loop, no checkpoint,
+    # each step waited for (its dt is the step's time).
+    args = train_args(*argv)
+    state, step_fn, batch_fn = train.SETUPS["lm"](arch, args, dev)
+    t0 = time.perf_counter()
+    state, clean = run_resilient(state=state, step_fn=synced(step_fn),
+                                 batch_fn=batch_fn, n_steps=LM_TRAIN_STEPS,
+                                 log_every=0)
+    clean_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    print(f"# smollm train set-up: {cfg.name} {cfg.n_layers} layers d "
+          f"{cfg.d_model}, {n_params} parameters, f32 weights drawn on the "
+          f"card (params.draw_transformer, seed 0), bf16 compute, remat "
+          f"{cfg.remat!r}, q_chunk {cfg.q_chunk}; AdamW (cosine schedule, "
+          f"lr {TRAIN_LR}, warm-up 20, wd 0.1, clip 1.0); {state_bytes / 1e9:.2f}"
+          f" GB of weights, gradients and moments; cut: train_4k's batch "
+          f"{shape['batch']} -> {b} (S {s})")
+    steps = [h["step"] for h in failed]
+    expect = (list(range(LM_TRAIN_FAIL))
+              + list(range(LM_TRAIN_FAIL - LM_TRAIN_FAIL % LM_TRAIN_EVERY,
+                           LM_TRAIN_STEPS)))
+    print(f"# smollm train run (launch.train.train, checkpoint every "
+          f"{LM_TRAIN_EVERY}, failure at step {LM_TRAIN_FAIL}): steps "
+          f"{steps}, checkpoints kept {kept}, {failed_s:.1f} s with the "
+          f"saves and the restore; uninterrupted run {clean_s:.1f} s (host "
+          f"clock)")
+    if steps != expect:
+        raise AssertionError(f"smollm rollback replayed steps {steps}, "
+                             f"expected {expect}")
+    by_step = {h["step"]: h for h in clean}
+    worst = 0.0
+    for h in failed:
+        for key in ("loss", "ce"):
+            want = by_step[h["step"]][key]
+            worst = max(worst, abs(h[key] - want) / max(abs(want), 1e-30))
+    losses = [h["loss"] for h in clean]
+    print(f"# smollm train check: the failed run's history (before and "
+          f"after the rollback) vs the uninterrupted run's, max rel err "
+          f"{worst:.3e} (tolerance {LM_ROLLBACK_TOLERANCE:.0e}); loss "
+          f"{losses[0]!r} -> {losses[-1]!r}; launches {json.dumps(launches)}")
+    if not worst < LM_ROLLBACK_TOLERANCE:
+        raise AssertionError(f"smollm rollback history differs: {worst}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"smollm loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"smollm training launched kernels: {launches}")
+    dts = [h["dt"] for h in clean]
+    p50 = percentile(dts, 50)
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_seq = (peak - state_bytes) / b
+    b_max = int((total - state_bytes) // per_seq)
+    print(f"# smollm train times: step p50 {p50 * 1e3:.1f} ms, p99 "
+          f"{percentile(dts, 99) * 1e3:.1f} ms over {len(dts)} steps (first "
+          f"{dts[0] * 1e3:.1f} ms), {b * s / p50:.0f} tokens/s; peak device "
+          f"memory {peak / 1e9:.2f} GB | {card}")
+    print(f"# smollm train reckoning: peak {peak / 1e9:.2f} GB = "
+          f"{state_bytes / 1e9:.2f} GB of state + {per_seq / 1e9:.3f} GB a "
+          f"sequence of {s} tokens; the card's {total / 1e9:.2f} GB admit B "
+          f"{b_max} (train_4k asks {shape['batch']})")
+    optimizer = adamw(cosine_schedule(TRAIN_LR, warmup=20,
+                                      total=LM_TRAIN_STEPS),
+                      weight_decay=0.1, donate=True)
+    grad_fn = value_and_grad(partial(tr.loss_fn, cfg))
+    kinds, top = step_kinds(
+        grad_fn, optimizer, state, batch_fn(0), "f32 products (attention "
+        "einsums)", ("sgemm", "f32f32", "gemm_f32", "_sss_"))
+    busy = sum(kinds.values())
+    print(f"# where the time goes, smollm train step (B {b}, S {s}; "
+          f"torch.profiler device time, gradient and update profiled "
+          f"apart): " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                 kinds.items())
+          + f"; device busy {busy:.1f} ms of a {p50 * 1e3:.1f} ms step "
+          f"({100 * busy / (p50 * 1e3):.1f}%, the rest idle) | {card}")
+    print("# smollm train top kernels: " + "; ".join(
+        f"{name[:90]} {ms:.1f} ms" for name, ms in top))
+    del state, step_fn, batch_fn, grad_fn
+    torch.cuda.empty_cache()
+
+    # f32 at 2 layers, full width and vocab: card vs CPU from one draw.
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                                dtype="float32")
+    arch32 = dataclasses.replace(arch, make_config=lambda: cfg32)
+    err = card_vs_cpu_steps("lm", arch32, train_args(
+        "--arch", arch.name, "--full", "--batch", LM_CHECK_BATCH, "--seq",
+        LM_CHECK_SEQ, "--steps", LM_CHECK_STEPS, "--lr", TRAIN_LR,
+        "--device", "cpu"), dev, LM_CHECK_STEPS)
+    print(f"# smollm train f32 check ({LM_CHECK_LAYERS} layers, full width "
+          f"and vocab {cfg.vocab}, B {LM_CHECK_BATCH}, S {LM_CHECK_SEQ}, "
+          f"{LM_CHECK_STEPS} steps, TF32 off), card vs CPU: "
+          + check_line(err))
+    hold(err, True, "smollm f32")
+    if not err["traj_state"] < TRAIN_TOLERANCE:
+        raise AssertionError(f"smollm f32 card vs CPU: {err}")
+    torch.cuda.empty_cache()
+    print(f"# phase 28 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+
+
+def gnn_training_phase(dev, card: str) -> None:
+    """Phase 29: the four GNNs trained at their published configs through
+    the trainer on a full_graph_sm-sized graph (GCN-Cora with a failure
+    injected), every loss falling, and 5 steps card vs CPU from the same
+    weights (GNN_F32_UNRESOLVED's at EXTRA_SEEDS too).  No kernel
+    launches: the reference's GNN training reaches no Pallas kernel."""
+    import tempfile
+
+    from repro_torch import backend, params
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    backend.full_fp32()
+    ops.reset_launches()
+    p = GNN_SHAPES["full_graph_sm"].params
+    for name in ("gcn-cora", "gatedgcn", "meshgraphnet", "equiformer-v2"):
+        arch = get_arch(name)
+        steps = GCN_TRAIN_STEPS if name == "gcn-cora" else GNN_TRAIN_STEPS
+        argv = ["--arch", name, "--full", "--gnn-nodes", p["n_nodes"],
+                "--gnn-edges", p["n_edges"], "--lr", GNN_TRAIN_LR]
+        extra = (["--fail-at", GCN_TRAIN_FAIL] if name == "gcn-cora" else [])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as ckpt:
+            t0 = time.perf_counter()
+            state, hist = train.train(train_args(
+                *argv, *extra, "--steps", steps, "--checkpoint-every",
+                GNN_TRAIN_EVERY, "--device", "cuda", "--ckpt-dir", ckpt))
+            run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # Step times: the trainer's step, each waited for.
+        args = train_args(*argv, "--device", "cuda")
+        _, step_fn, batch_fn = train.SETUPS["gnn"](arch, args, dev)
+        g = batch_fn(0)
+        dts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, g)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        del state, step_fn, batch_fn, g
+        losses = [h["loss"] for h in hist]
+        n_params = sum(np.asarray(a).size for a in _leaves(
+            params.gnn_params(arch.make_config(), 0)))
+        print(f"# gnn train {name}: published config ({n_params} "
+              f"parameters), V {p['n_nodes']} E {p['n_edges']}, {len(hist)} "
+              f"steps{' with a failure at step ' + str(GCN_TRAIN_FAIL) if extra else ''}"
+              f" at lr {GNN_TRAIN_LR} in {run_s:.2f} s (host clock); loss "
+              f"{losses[0]!r} -> {losses[-1]!r} ("
+              + " ".join(f"{v:.4g}" for v in losses)
+              + f"); step p50 {percentile(dts, 50) * 1e3:.2f} ms (5 steps "
+              f"waited for); peak device memory {peak / 1e9:.3f} GB | {card}")
+        records = (steps + GCN_TRAIN_FAIL % GNN_TRAIN_EVERY if extra
+                   else steps)
+        if not (all(np.isfinite(losses)) and len(hist) == records
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{name} run: {len(hist)} records, loss "
+                                 f"{losses}")
+        # Card vs CPU, 5 steps from the same weights (the CPU's, copied);
+        # where the f32 gradient is not resolved, at more seeds.
+        n, e = GNN_CHECK_GRAPH
+        resolved = name not in GNN_F32_UNRESOLVED
+        for seed in (0,) if resolved else (0, *EXTRA_SEEDS):
+            err = card_vs_cpu_steps("gnn", arch, train_args(
+                "--arch", name, "--full", "--gnn-nodes", n, "--gnn-edges", e,
+                "--lr", GNN_TRAIN_LR, "--seed", seed, "--device", "cpu"), dev,
+                GNN_CHECK_STEPS, exact=None if resolved
+                else exact_gnn_gradient)
+            print(f"# gnn train {name} check (seed {seed}, V {n} E {e}, "
+                  f"{GNN_CHECK_STEPS} steps, TF32 off), card vs CPU: "
+                  + check_line(err) + ("" if resolved else
+                                       "; held: " + ", ".join(ALWAYS_KEYS)))
+            hold(err, resolved, name)
+    phase = dict(ops.LAUNCHES)
+    print(f"# gnn train launches: {json.dumps(phase)} (the reference's GNN "
+          f"training reaches no Pallas kernel); phase 29 took "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    if any(phase.values()):
+        raise AssertionError(f"GNN training launched kernels: {phase}")
+
+
+def dlrm_training_phase(dev, card: str, launches: dict) -> None:
+    """Phase 30: DLRM-MLPerf trained at published widths and train_batch
+    with every table capped at 4M rows, K6 in each step's forward (exactly
+    26 launches a step) and the table gradients by ``index_add_``; the
+    device time of a step by kind; 3 steps card vs CPU in f32 at 65,536-row
+    tables, at the trainer's seed and EXTRA_SEEDS.  Adds the steps' K6
+    launches to ``launches``."""
+    import dataclasses
+
+    from repro_torch import backend
+    from repro_torch.configs import RECSYS_SHAPES, get_arch
+    from repro_torch.distributed.resilience import run_resilient
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import dlrm
+
+    t_phase = time.perf_counter()
+    backend.full_fp32()
+    torch.cuda.empty_cache()
+    arch = get_arch("dlrm-mlperf")
+    full = arch.make_config()
+    cfg = arch.make_config(vocab_sizes=tuple(
+        min(v, DLRM_TRAIN_ROW_CAP) for v in dlrm.CRITEO_1TB_VOCABS))
+    serve_cap = arch.make_config(vocab_sizes=tuple(
+        min(v, DLRM_ROW_CAP) for v in dlrm.CRITEO_1TB_VOCABS))
+    per = train.TRAIN_BYTES_PER_PARAM
+    b = RECSYS_SHAPES["train_batch"].params["batch"]
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"# dlrm train reckoning ({per} B a parameter: f32 weights, "
+          f"gradients, two moments): published {sum(full.vocab_sizes)} rows "
+          f"{per * full.param_count() / 1e9:.2f} GB; the serving cap "
+          f"({DLRM_ROW_CAP} rows a table) {sum(serve_cap.vocab_sizes)} rows "
+          f"{per * serve_cap.param_count() / 1e9:.2f} GB; cut: every table "
+          f"capped at {DLRM_TRAIN_ROW_CAP} rows, {sum(cfg.vocab_sizes)} rows"
+          f", {4 * cfg.param_count() / 1e9:.2f} GB of f32 weights and "
+          f"{per * cfg.param_count() / 1e9:.2f} GB with gradients and "
+          f"moments ({free / 1e9:.2f} of {total / 1e9:.2f} GB free); no "
+          f"checkpoint (the state is {12 * cfg.param_count() / 1e9:.2f} GB)")
+    arch_cut = dataclasses.replace(arch, make_config=lambda: cfg)
+    args = train_args("--arch", arch.name, "--full", "--batch", b, "--lr",
+                      TRAIN_LR, "--steps", DLRM_TRAIN_STEPS, "--device",
+                      "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step_fn, batch_fn = train.SETUPS["recsys"](arch_cut, args, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = [batch_fn(i) for i in range(DLRM_TRAIN_STEPS + 1)]
+    data_s = time.perf_counter() - t0
+    state, _ = step_fn(state, batches[-1])   # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    state, hist = run_resilient(state=state, step_fn=synced(step_fn),
+                                batch_fn=lambda i: batches[i],
+                                n_steps=DLRM_TRAIN_STEPS, log_every=0)
+    k6 = ops.LAUNCHES["embedding_bag"]
+    others = {k: v for k, v in ops.LAUNCHES.items() if k != "embedding_bag"}
+    peak = torch.cuda.max_memory_allocated()
+    launches["embedding_bag"] += k6
+    dts = [h["dt"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    p50 = percentile(dts, 50)
+    print(f"# dlrm train: {DLRM_TRAIN_STEPS} AdamW steps (lr {TRAIN_LR}, "
+          f"clip 1.0) at B {b} after one warm-up step; set-up {init_s:.2f} s "
+          f"(weights drawn on the card), Criteo batches {data_s:.2f} s (host"
+          f"); K6 launches {k6} ({k6 / DLRM_TRAIN_STEPS:.0f} a step), other "
+          f"kernels {json.dumps(others)}; loss {losses[0]!r} -> "
+          f"{losses[-1]!r}")
+    if k6 != cfg.n_sparse * DLRM_TRAIN_STEPS or any(others.values()):
+        raise AssertionError(f"K6 launched {k6} times in {DLRM_TRAIN_STEPS} "
+                             f"steps; expected {cfg.n_sparse} a step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"dlrm training losses {losses}")
+    print(f"# dlrm train times: step p50 {p50 * 1e3:.2f} ms, p99 "
+          f"{percentile(dts, 99) * 1e3:.2f} ms, {b / p50:.0f} samples/s; peak"
+          f" device memory {peak / 1e9:.2f} GB | {card}")
+    kinds, top = step_kinds(
+        step_fn.grad_fn, step_fn.optimizer, state, batches[0], "K6",
+        "embedding_bag_kernel",
+        {"index_add_ backward": ("indexfunc", "index_add")})
+    # K6 by CUDA events: after the earlier phases the profiler records few
+    # or none of K6's launches here, though a fresh process sees all 26
+    # (PERF.md, PR 24), so its K6 figure stays out of the busy share.
+    seen = kinds.pop("K6")
+    sparse, tables = batches[0]["sparse"], state[0]["tables"]
+    k6_ms = time_ms(torch, lambda: [eb.embedding_bag(t, sparse[:, i, :])
+                                    for i, t in enumerate(tables)], reps=5)
+    busy = sum(kinds.values()) + k6_ms
+    print(f"# where the time goes, dlrm train step (B {b}; torch.profiler "
+          f"device time, gradient and update profiled apart; K6 by CUDA "
+          f"events, its 26 bags timed alone, median of 5): K6 {k6_ms:.3f} "
+          f"ms (the profiler recorded {seen:.3f} ms of it), "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items())
+          + f"; device busy {busy:.2f} ms of a {p50 * 1e3:.2f} ms step "
+          f"({100 * busy / (p50 * 1e3):.1f}%, the rest idle) | {card}")
+    print("# dlrm train top kernels: " + "; ".join(
+        f"{name[:90]} {ms:.2f} ms" for name, ms in top))
+    del state, step_fn, batch_fn, batches
+    torch.cuda.empty_cache()
+
+    small = arch.make_config(vocab_sizes=tuple(
+        min(v, DLRM_TRAIN_CHECK_CAP) for v in dlrm.CRITEO_1TB_VOCABS))
+    before = ops.LAUNCHES["embedding_bag"]
+    # The trainer's seed holds every key; at the others rounding moves the
+    # free trajectories apart within 3 steps (seed 1), so they hold
+    # ALWAYS_KEYS and the steps from the CPU's state.
+    for seed in (0, *EXTRA_SEEDS):
+        err = card_vs_cpu_steps("recsys", dataclasses.replace(
+            arch, make_config=lambda: small), train_args(
+            "--arch", arch.name, "--full", "--batch", DLRM_TRAIN_CHECK_BATCH,
+            "--lr", TRAIN_LR, "--seed", seed, "--device", "cpu"), dev,
+            DLRM_TRAIN_STEPS)
+        print(f"# dlrm train f32 check (seed {seed}, tables capped at "
+              f"{DLRM_TRAIN_CHECK_CAP} rows, B {DLRM_TRAIN_CHECK_BATCH}, "
+              f"{DLRM_TRAIN_STEPS} steps, TF32 off; K6 on the card, the plain "
+              f"bag on the CPU), card vs CPU: " + check_line(err)
+              + ("" if seed == 0 else "; the free trajectories not held"))
+        hold(err, True, "dlrm f32", free=seed == 0)
+    ops.LAUNCHES["embedding_bag"] = before  # comparisons, not the path
+    torch.cuda.empty_cache()
+    print(f"# phase 30 took {time.perf_counter() - t_phase:.1f} s (host "
+          "clock)")
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list of arrays."""
     if isinstance(tree, dict):
@@ -4033,6 +4828,10 @@ def main() -> int:
     del ogb_edges
     torch.cuda.empty_cache()
     moe_phases(dev, card, launches)
+    substrate_phase(dev, card)
+    lm_training_phase(dev, card)
+    gnn_training_phase(dev, card)
+    dlrm_training_phase(dev, card, launches)
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -4054,7 +4853,9 @@ def main() -> int:
           "one layer of the SmolLM-135M prefill, bf16 (its launches: the "
           "SmolLM prefill's, the gemma2-2b prefill's, the qwen3-moe "
           "prefill's and the arctic prefill's); K6's the 26 "
-          "tables of one serve_bulk forward of DLRM-MLPerf, f32")
+          "tables of one serve_bulk forward of DLRM-MLPerf, f32 (its "
+          "launches: the DLRM serving path's and phase 30's training "
+          "steps')")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

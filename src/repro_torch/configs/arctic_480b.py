@@ -29,7 +29,7 @@ def make_smoke_config(**kw) -> TransformerConfig:
         d_ff=48, vocab=256,
         moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=48,
                       capacity_factor=2.0, dense_residual_d_ff=48),
-        dtype="float32", **kw)
+        dtype="float32", q_chunk=16, **kw)
 
 
 ARCH = ArchDef(

@@ -32,7 +32,7 @@ def make_smoke_config(**kw) -> TransformerConfig:
         n_layers=4, d_model=48, n_heads=4, n_kv_heads=2, d_head=12,
         d_ff=96, vocab=256, window_pattern=(8, None),
         attn_softcap=50.0, final_softcap=30.0,
-        dtype="float32", **kw)
+        dtype="float32", q_chunk=16, **kw)
 
 
 ARCH = ArchDef(

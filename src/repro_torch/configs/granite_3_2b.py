@@ -19,7 +19,7 @@ def make_smoke_config(**kw) -> TransformerConfig:
         name="granite-smoke",
         n_layers=3, d_model=48, n_heads=4, n_kv_heads=2, d_head=12,
         d_ff=96, vocab=251,       # deliberately non-divisible like 49155
-        dtype="float32", **kw)
+        dtype="float32", q_chunk=16, **kw)
 
 
 ARCH = ArchDef(

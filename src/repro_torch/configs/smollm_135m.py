@@ -22,7 +22,7 @@ def make_smoke_config(**kw) -> TransformerConfig:
     return TransformerConfig(
         name="smollm-smoke",
         n_layers=3, d_model=36, n_heads=3, n_kv_heads=3, d_head=12,
-        d_ff=96, vocab=256, dtype="float32", **kw)
+        d_ff=96, vocab=256, dtype="float32", q_chunk=16, **kw)
 
 
 ARCH = ArchDef(

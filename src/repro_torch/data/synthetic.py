@@ -1,6 +1,6 @@
-"""Deterministic generators for the trace path and DLRM serving (a copy of
-the reference's ``repro/data/synthetic.py``: the graphs and
-``criteo_batch``).
+"""Deterministic generators for the trace path, DLRM and training (a copy
+of the reference's ``repro/data/synthetic.py``: the graphs, ``lm_batch``
+and ``criteo_batch``).
 
 Every generator is a pure function of its seed and parameters.  The random
 streams are the reference's, call for call, so the port and the reference
@@ -15,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["power_law_graph", "power_law_edge_stream", "power_law_edges",
+__all__ = ["lm_batch", "power_law_graph", "power_law_edge_stream", "power_law_edges",
            "power_law_stream_blocks", "ring_of_tiles_graph",
            "molecule_batch", "criteo_batch", "GraphArrays",
            "POWER_LAW_STREAM_CHUNK"]
@@ -23,6 +23,16 @@ __all__ = ["power_law_graph", "power_law_edge_stream", "power_law_edges",
 
 def _rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
+
+
+def lm_batch(seed: int, step: int, *, batch: int, seq: int,
+             vocab: int) -> dict[str, np.ndarray]:
+    """Zipfian token stream (vocabulary rank-frequency like real text):
+    int32 ``tokens`` (B, S) and next-token ``labels`` (B, S)."""
+    r = _rng(seed, step)
+    toks = r.zipf(1.3, size=(batch, seq + 1)).astype(np.int64)
+    toks = np.minimum(toks - 1, vocab - 1).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 @dataclass

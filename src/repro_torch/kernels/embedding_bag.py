@@ -18,7 +18,10 @@ rounds otherwise in bf16.)
 :func:`embedding_bag` launches the kernel on CUDA tensors and raises for any
 other; :func:`embedding_bag_plain` is the plain version that the CPU path
 and the card-side comparison use.  Neither has a backward: the TPU kernel
-has none, and both raise when autograd would need one.
+has none, and both raise when autograd would need one.  Training reaches K6
+through ``ops.embedding_bag_autograd``, whose ``autograd.Function`` runs
+the forward with grad mode off and gives the table its gradient in plain
+PyTorch (the transposed gather).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Public wrappers of the port's kernels (GNN layer K1-K3, trace K4,
-attention K5, embedding bag K6).
+attention K5, embedding bag K6), and K6 under autograd
+(:func:`embedding_bag_autograd`).
 
 A CUDA tensor launches the hand-written kernel (or the kernel module
 raises); a CPU tensor takes the kernel's plain version.  Nothing falls back
@@ -31,7 +32,8 @@ from . import segment_reduce as sr
 
 __all__ = ["LAUNCHES", "reset_launches", "gnn_aggregate_combine",
            "gnn_aggregate", "gnn_combine", "schedule_counts",
-           "flash_attention", "embedding_bag"]
+           "flash_attention", "embedding_bag", "EmbeddingBagFunction",
+           "embedding_bag_autograd"]
 
 LAUNCHES = {"edge_aggregate": 0, "edge_aggregate_unfused.aggregate": 0,
             "edge_aggregate_unfused.combine": 0,
@@ -140,3 +142,40 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
         _launched("embedding_bag")
         return out
     return eb.embedding_bag_plain(table, indices, out=out)
+
+
+class EmbeddingBagFunction(torch.autograd.Function):
+    """K6 with a gradient for its table.  The forward is
+    :func:`embedding_bag` (K6 on CUDA tensors, counted; the plain version
+    on CPU tensors), run with grad mode off as every ``Function``'s forward
+    is, so K6's guard against tables that require grad lets it through.
+    The backward is the transposed gather, plain PyTorch on every device:
+    a dense ``(V, D)`` table gradient with each bag's output gradient
+    ``index_add_``-ed into the rows of its ids, which is what ``jnp.take``'s
+    VJP gives the reference.  On CUDA ``index_add_`` adds floats with
+    atomics, so repeated ids sum in no fixed order.  The ids get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor,
+                indices: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(indices)
+        ctx.table_shape = table.shape
+        return embedding_bag(table, indices)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        (indices,) = ctx.saved_tensors
+        b, hot = indices.shape
+        grad = grad_out.new_zeros(ctx.table_shape)
+        grad.index_add_(0, indices.reshape(-1).long(),
+                        grad_out[:, None, :].expand(b, hot, -1)
+                        .reshape(b * hot, -1))
+        return grad, None
+
+
+def embedding_bag_autograd(table: torch.Tensor,
+                           indices: torch.Tensor) -> torch.Tensor:
+    """:func:`embedding_bag` that autograd can differentiate with respect
+    to ``table`` (:class:`EmbeddingBagFunction`)."""
+    return EmbeddingBagFunction.apply(table, indices)

@@ -1,11 +1,16 @@
-"""Decode attention over a KV cache (the reference's
-``models/attention.py``, single device).
+"""Training attention and decode attention over a KV cache (the
+reference's ``models/attention.py``, single device).
 
-Prefill attention is kernel K5 (``kernels.ops.flash_attention``).  Decode
-attention attends one query per sequence to the cache; no TPU kernel
-computes it, so it stays plain PyTorch.  The reference's sequence-sharded
-partials (``decode_attention_partial``, ``combine_decode_partials``) wait
-for the distributed port.
+Serving prefill attention is kernel K5 (``kernels.ops.flash_attention``),
+which has no backward in either package.  Training attention is
+:func:`chunked_causal_attention`, the reference's training path: f32
+scores over one chunk of queries at a time, so the materialised block is
+``(B, H, q_chunk, S)`` rather than ``(B, H, S, S)``, each chunk
+rematerialised in the backward pass.  Decode attention attends one query
+per sequence to the cache.  No TPU kernel computes either, so both stay
+plain PyTorch, as the reference's are XLA.  The reference's
+sequence-sharded partials (``decode_attention_partial``,
+``combine_decode_partials``) wait for the distributed port.
 """
 
 from __future__ import annotations
@@ -13,12 +18,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import softcap
 
-__all__ = ["repeat_kv", "decode_attention"]
+__all__ = ["repeat_kv", "chunked_causal_attention", "decode_attention"]
 
 _NEG_INF = -1e30
+
+
+def _mask_value(scores_dtype: torch.dtype, device=None) -> torch.Tensor:
+    return torch.tensor(_NEG_INF, dtype=scores_dtype, device=device)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -29,6 +39,66 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     b, s, hk, d = x.shape
     return x[:, :, :, None, :].expand(b, s, hk, n_rep, d).reshape(
         b, s, hk * n_rep, d)
+
+
+def chunked_causal_attention(
+    q: torch.Tensor,                   # (B, Sq, H, D)
+    k: torch.Tensor,                   # (B, Skv, Hk, D)
+    v: torch.Tensor,                   # (B, Skv, Hk, D)
+    *,
+    window: Optional[int] = None,      # sliding window; None = global causal
+    attn_softcap: Optional[float] = None,
+    q_chunk: int = 1024,
+    score_budget_bytes: int = 1 << 29,  # cap the fp32 score block (512 MiB)
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention over chunks of queries,
+    in fp32, returned in ``q``'s dtype.
+
+    The chunk halves from ``q_chunk`` while the fp32 score block
+    ``(B*H, q_chunk, S_kv)`` exceeds ``score_budget_bytes`` and the halved
+    chunk still divides S; a chunk that does not divide S falls back to one
+    block.  Each chunk runs under ``torch.utils.checkpoint`` (the
+    reference's ``nothing_saveable`` remat): the backward pass recomputes
+    its scores instead of keeping every chunk's.  The reference's
+    context-parallel arguments (``q_offset``, ``shard_divisor``) come with
+    the distributed port."""
+    b, s, h, d = q.shape
+    s_kv = k.shape[1]
+    n_rep = h // k.shape[2]
+    scale = d ** -0.5
+
+    q_chunk = min(q_chunk, s)
+    per_row_bytes = max(b * h, 1) * s_kv * 4
+    while (q_chunk > 16 and q_chunk * per_row_bytes > score_budget_bytes
+           and s % (q_chunk // 2) == 0):
+        q_chunk //= 2
+    if s % q_chunk:
+        q_chunk = s  # irregular sizes take the single-block path
+    n_chunks = s // q_chunk
+
+    kt = repeat_kv(k, n_rep).permute(0, 2, 3, 1).float()  # (B, H, D, Skv)
+    vt = repeat_kv(v, n_rep).permute(0, 2, 1, 3).float()  # (B, H, Skv, D)
+    qs = q.permute(0, 2, 1, 3).reshape(b, h, n_chunks, q_chunk, d)
+    kv_pos = torch.arange(s_kv, device=q.device)
+
+    def one_chunk(ci: int, qc: torch.Tensor) -> torch.Tensor:
+        q_pos = ci * q_chunk + torch.arange(q_chunk, device=q.device)
+        scores = torch.einsum("bhqd,bhdk->bhqk", qc.float() * scale, kt)
+        if attn_softcap is not None:
+            scores = softcap(scores, attn_softcap)
+        causal = kv_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            causal &= (q_pos[:, None] - kv_pos[None, :]) < window
+        scores = torch.where(causal, scores,
+                             _mask_value(scores.dtype, scores.device))
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, vt)
+
+    out = torch.stack([checkpoint(one_chunk, ci, qs[:, :, ci],
+                                  use_reentrant=False)
+                       for ci in range(n_chunks)], dim=2)
+    # (B, H, n_chunks, qc, D) -> (B, S, H, D)
+    return out.reshape(b, h, s, d).permute(0, 2, 1, 3).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

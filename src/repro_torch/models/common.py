@@ -15,9 +15,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..tree import tree_leaves
+
 __all__ = ["dense_init", "he_init", "embed_init", "rms_norm", "layer_norm",
            "softcap", "swiglu", "mlp_init", "mlp_apply", "MLP", "rope_freqs",
-           "apply_rope", "segment_sum", "segment_softmax"]
+           "apply_rope", "segment_sum", "segment_softmax", "cross_entropy_loss",
+           "count_params"]
 
 
 def _fan(shape: Sequence[int], fan_in: Optional[int]) -> int:
@@ -194,3 +197,23 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     expd = torch.exp(logits - seg_max[segment_ids])
     seg_sum = segment_sum(expd, segment_ids, num_segments)
     return expd / (seg_sum[segment_ids] + 1e-9)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-level cross-entropy in fp32: the mean over the tokens, or over
+    the ``mask``'s weight (at least 1) when one is given."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def count_params(tree) -> int:
+    """The number of elements over a tree's leaves (tensors or arrays)."""
+    return sum(int(x.numel() if torch.is_tensor(x) else np.size(x))
+               for x in tree_leaves(tree) if hasattr(x, "shape"))

@@ -1,5 +1,6 @@
-"""DLRM (Naumov et al., arXiv:1906.00091), served: the reference's
-``models/dlrm.py`` in PyTorch, with every embedding bag through kernel K6.
+"""DLRM (Naumov et al., arXiv:1906.00091), served and trained: the
+reference's ``models/dlrm.py`` in PyTorch, with every embedding bag through
+kernel K6.
 
 13 dense features go through the bottom MLP 512-256-128; 26 categorical
 features each pick rows of their own ``(V, 128)`` table, pooled by K6
@@ -10,9 +11,14 @@ one logit per sample.  The MLP and interaction products are
 full fp32 only while TF32 is off (PyTorch's default), which the caller
 keeps.
 
+Training (:func:`loss_fn`) takes the same forward with each bag through
+``ops.embedding_bag_autograd``: K6 forward, and the table gradient by the
+transposed gather in plain PyTorch, as the reference's gradient is XLA's
+scatter-add.
+
 Not ported here: ``vocab_parallel_embeddings`` and ``param_pspecs`` (the
-sharded tables; they come with the distributed substrate),
-``abstract_params`` and ``loss_fn`` (training).
+sharded tables; they come with the distributed substrate) and
+``abstract_params``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..backend import resolve_device
@@ -30,7 +37,8 @@ from ..kernels import ops
 from .common import mlp_apply
 
 __all__ = ["CRITEO_1TB_VOCABS", "DLRMConfig", "DLRM", "embedding_bag",
-           "dot_interaction", "serve", "score_candidates"]
+           "dot_interaction", "serve", "score_candidates", "logits",
+           "loss_fn"]
 
 # MLPerf Criteo-1TB per-feature cardinalities (day-0..22 preprocessing,
 # capped at 40M rows as in the MLPerf reference implementation).
@@ -176,6 +184,28 @@ class DLRM(nn.Module):
         for t, table in enumerate(self.tables):
             ops.embedding_bag(table, sparse[:, t, :], out=feats[:, t + 1])
         return self.top_logits(feats)
+
+
+def logits(model: DLRM, batch: dict) -> torch.Tensor:
+    """The forward that autograd can differentiate: batch dense (B, 13) f32,
+    sparse (B, 26, multi_hot) int32 -> logits (B,), each bag through
+    ``ops.embedding_bag_autograd`` (K6 on the card)."""
+    dense, sparse = batch["dense"], batch["sparse"]
+    feats = torch.stack([model.bottom(dense)] + [
+        ops.embedding_bag_autograd(table, sparse[:, t, :])
+        for t, table in enumerate(model.tables)], dim=1)
+    return model.top_logits(feats)
+
+
+def loss_fn(model: DLRM, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Binary cross-entropy on the click labels (B,) and accuracy, in f32;
+    ``(loss, {"loss", "acc"})``."""
+    lg = logits(model, batch)
+    labels = batch["labels"].float()
+    loss = -torch.mean(labels * F.logsigmoid(lg)
+                       + (1 - labels) * F.logsigmoid(-lg))
+    acc = torch.mean(((lg > 0) == (labels > 0.5)).float())
+    return loss, {"loss": loss, "acc": acc}
 
 
 def serve(model: DLRM, batch: dict) -> np.ndarray:

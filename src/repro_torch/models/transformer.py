@@ -1,5 +1,6 @@
-"""Decoder-only transformer, served: prefill through kernel K5, then
-greedy-ready decode steps over a KV cache.
+"""Decoder-only transformer: served (prefill through kernel K5, then
+greedy-ready decode steps over a KV cache) and trained (``loss_fn``,
+``make_train_step``).
 
 The reference's ``models/transformer.py`` in PyTorch: dense configs
 (SmolLM, granite, gemma2's local/global pattern with soft-caps) and MoE
@@ -9,36 +10,51 @@ are grouped by the repeating ``window_pattern`` as in the reference: layer
 keeps its own KV cache ``(G, B, S_entry, Hk, d_head)``, where a windowed
 entry holds a ring of ``window`` slots and a global one the whole sequence.
 
-Prefill attention is ``kernels.ops.flash_attention`` on every layer (K5 on
-CUDA tensors, its plain version on CPU tensors); decode attention is plain
+Serving runs a :class:`Transformer` module under ``torch.inference_mode()``:
+prefill attention is ``kernels.ops.flash_attention`` on every layer (K5 on
+CUDA tensors, its plain version on CPU tensors), decode attention plain
 PyTorch (:mod:`.attention`).  An MoE layer runs the capacity dispatch
 (:func:`.moe.moe_ffn_capacity`) over all ``B * S`` tokens of a prefill or
 forward call, as the reference's ``_ffn_block`` does, and the all-expert
-path (:func:`.moe.moe_ffn_reference`) in a decode step.  Every entry runs
-under ``torch.inference_mode()``: K5 has no backward.  Training, the
-expert-parallel dispatch and the sharded and context-parallel paths are not
-ported.
+path (:func:`.moe.moe_ffn_reference`) in a decode step.
+
+Training differentiates a tree of f32 tensors in the reference's parameter
+layout (``{"embed", "final_norm", "blocks": [per pattern entry, (G, ...)
+stacks]}``, :mod:`repro_torch.params`), as the reference's ``loss_fn``
+does: the blocks are cast to the compute dtype, attention is
+:func:`.attention.chunked_causal_attention` (K5 has no backward in either
+package, and the reference trains through the same chunked path), each
+decoder group is rematerialised under ``cfg.remat``, and a large
+vocabulary's cross-entropy is computed and rematerialised a sequence chunk
+at a time.  The expert-parallel dispatch and the sharded and
+context-parallel paths are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..backend import resolve_device
 from ..kernels import ops
+from ..optim.optimizers import make_step
 from . import attention as attn_lib
 from . import moe as moe_lib
-from .common import apply_rope, rms_norm, rope_freqs, softcap, swiglu
-from .moe import MoE, MoEConfig
+from .common import (apply_rope, cross_entropy_loss, rms_norm, rope_freqs,
+                     softcap, swiglu)
+from .moe import MOE_KEYS, MoE, MoEConfig
 
 __all__ = ["TransformerConfig", "DecoderLayer", "Transformer", "LAYER_KEYS",
            "RESIDUAL_KEYS", "layer_keys", "forward", "forward_hidden",
            "make_prefill_step", "make_serve_step", "cache_shapes",
-           "init_cache"]
+           "init_cache", "loss_fn", "make_train_step"]
 
 #: Per-layer weights of a dense config, in the reference's block-dict names
 #: and (in, out) layout: ``x @ w``.
@@ -50,9 +66,12 @@ RESIDUAL_KEYS = ("res_gate", "res_up", "res_down")
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """One decoder-only architecture.  The reference's training-memory and
-    chunked-attention knobs (``remat``, ``q_chunk``) have no field here:
-    nothing in the port trains, and K5 takes no chunking."""
+    """One decoder-only architecture.  ``remat`` and ``q_chunk`` steer
+    training only: ``"full"`` rematerialises each decoder group in the
+    backward pass (``"dots"`` does the same here: PyTorch's checkpoint has
+    no policy that keeps only the products), ``"none"`` keeps every
+    activation; ``q_chunk`` is the training attention's query chunk.
+    Serving ignores both (K5 takes no chunking)."""
 
     name: str
     n_layers: int
@@ -70,6 +89,8 @@ class TransformerConfig:
     final_softcap: Optional[float] = None
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
+    remat: str = "full"              # "none" | "full" | "dots"
+    q_chunk: int = 1024
     tie_embeddings: bool = True
 
     def __post_init__(self):
@@ -221,27 +242,59 @@ def _logits(cfg: TransformerConfig, model: Transformer,
     return logits
 
 
-def _prefill_layers(cfg: TransformerConfig, model: Transformer,
-                    tokens: torch.Tensor, on_kv=None,
-                    on_aux=None) -> torch.Tensor:
-    """The residual stream after every layer; ``on_kv(n, k, v)`` receives
-    layer ``n``'s roped keys and values (B, S, Hk, d_head), and ``on_aux``
-    each MoE layer's balance loss."""
-    b, s = tokens.shape
-    x = model.embed[tokens.long()]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-    freqs = rope_freqs(cfg.d_head, theta=cfg.rope_theta, device=x.device)
-    for n, layer in enumerate(model.layers):
+def _k5_attention(cfg: TransformerConfig, layer, q: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Serving attention: K5 (``ops.flash_attention``)."""
+    return ops.flash_attention(q, k, v, causal=True, window=layer.window,
+                               softcap=cfg.attn_softcap)
+
+
+def _chunked_attention(cfg: TransformerConfig, layer, q: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Training attention: the reference's chunked path, differentiable."""
+    return attn_lib.chunked_causal_attention(
+        q, k, v, window=layer.window, attn_softcap=cfg.attn_softcap,
+        q_chunk=cfg.q_chunk)
+
+
+def _positions(cfg: TransformerConfig, s: int, device):
+    positions = torch.arange(s, dtype=torch.int32, device=device)[None]
+    return positions, rope_freqs(cfg.d_head, theta=cfg.rope_theta,
+                                 device=device)
+
+
+def _layers(cfg: TransformerConfig, layers, x: torch.Tensor,
+            positions: torch.Tensor, freqs: torch.Tensor, attend,
+            on_kv=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The one layer loop, for serving and training alike: ``x`` through
+    ``layers``, attention through ``attend(cfg, layer, q, k, v)`` (K5 in
+    serving, the chunked path in training), then the FFN.  Returns (x, the
+    layers' MoE balance losses summed in fp32, 0 for a dense config);
+    ``on_kv(n, k, v)`` receives the n-th layer's roped keys and values
+    (B, S, Hk, d_head)."""
+    b, s, _ = x.shape
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for n, layer in enumerate(layers):
         q, k, v = _qkv(cfg, layer, x, positions, freqs)
-        out = ops.flash_attention(q, k, v, causal=True, window=layer.window,
-                                  softcap=cfg.attn_softcap)
+        out = attend(cfg, layer, q, k, v)
         x = x + out.reshape(b, s, cfg.n_heads * cfg.d_head) @ layer.wo
-        x, aux = _ffn(cfg, layer, x)
+        x, a = _ffn(cfg, layer, x)
         if on_kv is not None:
             on_kv(n, k, v)
-        if on_aux is not None and aux is not None:
-            on_aux(aux)
-    return x
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _prefill_layers(cfg: TransformerConfig, model: Transformer,
+                    tokens: torch.Tensor,
+                    on_kv=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The serving pass: (the residual stream after every layer, the MoE
+    balance loss), K5 on every layer; ``on_kv`` as in :func:`_layers`."""
+    x = model.embed[tokens.long()]
+    positions, freqs = _positions(cfg, tokens.shape[1], x.device)
+    return _layers(cfg, model.layers, x, positions, freqs, _k5_attention,
+                   on_kv)
 
 
 @torch.inference_mode()
@@ -249,9 +302,7 @@ def forward_hidden(cfg: TransformerConfig, model: Transformer,
                    tokens: torch.Tensor):
     """tokens (B, S) -> (final normed hidden (B, S, d), aux_loss): the MoE
     balance loss summed over the layers in fp32, 0 for a dense config."""
-    losses = []
-    x = _prefill_layers(cfg, model, tokens, on_aux=losses.append)
-    aux = sum(losses, torch.zeros((), dtype=torch.float32, device=x.device))
+    x, aux = _prefill_layers(cfg, model, tokens)
     return rms_norm(x, model.final_norm), aux
 
 
@@ -261,7 +312,145 @@ def forward(cfg: TransformerConfig, model: Transformer,
     """tokens (B, S) -> logits (B, S, V).  S must meet K5's block contract
     (S <= 128 or S % 128 == 0).  The reference returns the MoE balance loss
     beside the logits; here :func:`forward_hidden` does."""
-    return _logits(cfg, model, _prefill_layers(cfg, model, tokens))
+    return _logits(cfg, model, _prefill_layers(cfg, model, tokens)[0])
+
+
+# ---------------------------------------------------------------------------
+# Training: loss and train step over a reference-layout tree of tensors
+# ---------------------------------------------------------------------------
+
+def _tree_layers(cfg: TransformerConfig, params: dict) -> list:
+    """Layer ``g * P + i`` of a reference-layout tree: block ``i``'s slice
+    ``g`` of every weight, cast to the compute dtype (stacks are cast
+    whole, then unbound: the backward stacks the slices' gradients).
+
+    The GNNs and DLRM bind a tree to their module with
+    ``params.tree_loss`` (``torch.func.functional_call``); the transformer
+    cannot.  ``functional_call`` swaps the tree in only for the call, and
+    the group remat recomputes each group in the backward pass, after the
+    call has returned, so the recompute would read the module's own
+    weights and give wrong gradients without an error.  The layers here
+    are plain objects that the recompute's closures hold."""
+    cdt = cfg.compute_dtype
+
+    def cast(a: torch.Tensor) -> tuple:
+        if a.dtype in (torch.float32, torch.bfloat16):
+            a = a.to(cdt)
+        return a.unbind(0)
+
+    entries = []
+    for blk in params["blocks"]:
+        entry = {key: cast(blk[key]) for key in layer_keys(cfg)}
+        if cfg.moe is not None:
+            entry["moe"] = {key: cast(blk["moe"][key]) for key in MOE_KEYS}
+        entries.append(entry)
+    layers = []
+    for n in range(cfg.n_layers):
+        g, i = divmod(n, len(cfg.window_pattern))
+        e = entries[i]
+        layer = SimpleNamespace(window=cfg.window_pattern[i],
+                                **{k: e[k][g] for k in layer_keys(cfg)})
+        if cfg.moe is not None:
+            layer.moe = {k: e["moe"][k][g] for k in MOE_KEYS}
+        layers.append(layer)
+    return layers
+
+
+def _train_hidden(cfg: TransformerConfig, params: dict,
+                  tokens: torch.Tensor):
+    """tokens (B, S) -> (final normed hidden (B, S, d), aux_loss): the
+    reference's ``forward_hidden`` over a tree, differentiable, each
+    decoder group under ``torch.utils.checkpoint`` unless ``cfg.remat`` is
+    ``"none"``."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}")
+    cdt = cfg.compute_dtype
+    # F.embedding: its backward sums the rows in a fixed order on both
+    # devices (indexing's backward accumulates them in no fixed order).
+    x = F.embedding(tokens.long(), params["embed"].to(cdt))
+    positions, freqs = _positions(cfg, tokens.shape[1], x.device)
+    layers = _tree_layers(cfg, params)
+    P = len(cfg.window_pattern)
+
+    def group(x: torch.Tensor, g: int):
+        return _layers(cfg, layers[g * P:(g + 1) * P], x, positions, freqs,
+                       _chunked_attention)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_groups):
+        if cfg.remat == "none":
+            x, a = group(x, g)
+        else:
+            x, a = checkpoint(group, x, g, use_reentrant=False)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"].to(cdt)), aux
+
+
+def _unembed_weight(cfg: TransformerConfig, params: dict) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return w.to(cfg.compute_dtype)
+
+
+#: (B*S*V) elements above which the loss switches to sequence-chunked CE:
+#: the (B, S, V) logits (and their gradient) would otherwise dominate
+#: memory at a 32k+ vocabulary.
+_CE_CHUNK_THRESHOLD = 1 << 24
+_CE_CHUNK = 256
+
+
+def _ce_token_nll(cfg: TransformerConfig, x_chunk: torch.Tensor,
+                  unembed: torch.Tensor,
+                  labels_chunk: torch.Tensor) -> torch.Tensor:
+    """(B, c, d) -> the summed nll over one sequence chunk, fp32."""
+    logits = x_chunk @ unembed
+    if cfg.final_softcap is not None:
+        logits = softcap(logits, cfg.final_softcap)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_chunk.long()[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def loss_fn(cfg: TransformerConfig, params: dict,
+            batch: dict) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy plus the MoE balance loss, over a
+    reference-layout tree of tensors; ``(loss, {"loss", "ce", "aux"})``.
+    ``batch``: int ``tokens`` and ``labels`` (B, S), optionally a ``mask``
+    (the unchunked path only, as in the reference)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    x, aux = _train_hidden(cfg, params, tokens)
+    unembed = _unembed_weight(cfg, params)
+    if b * s * cfg.vocab <= _CE_CHUNK_THRESHOLD or s % _CE_CHUNK:
+        logits = x @ unembed
+        if cfg.final_softcap is not None:
+            logits = softcap(logits, cfg.final_softcap)
+        ce = cross_entropy_loss(logits, labels, mask=batch.get("mask"))
+    else:
+        # Sequence-chunked CE: one chunk's logits at a time, rematerialised
+        # in the backward pass.
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, s, _CE_CHUNK):
+            total = total + checkpoint(
+                _ce_token_nll, cfg, x[:, lo:lo + _CE_CHUNK], unembed,
+                labels[:, lo:lo + _CE_CHUNK], use_reentrant=False)
+        ce = total / (b * s)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+def make_train_step(cfg: TransformerConfig, optimizer):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), the reference's signature over ``optimizers.make_step`` of
+    :func:`loss_fn`: gradients by autograd, then the optimizer's update,
+    applied in place when ``optimizer.donate``."""
+    step_fn = make_step(partial(loss_fn, cfg), optimizer)
+
+    def train_step(params, opt_state, batch):
+        (params, opt_state), metrics = step_fn((params, opt_state), batch)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def cache_shapes(cfg: TransformerConfig, batch: int,
@@ -318,7 +507,7 @@ def make_prefill_step(cfg: TransformerConfig, *,
                 else:
                     slots[:, :s] = t
 
-        x = _prefill_layers(cfg, model, tokens, on_kv=store)
+        x, _ = _prefill_layers(cfg, model, tokens, on_kv=store)
         return _logits(cfg, model, x[:, -1:])[:, 0], cache
 
     return prefill

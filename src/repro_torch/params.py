@@ -38,14 +38,27 @@ the reference's initializers, and :func:`load_gcn`, :func:`load_gatedgcn`,
 :func:`load_meshgraphnet` and :func:`load_equiformer_v2` load them, or the
 reference's ``init_params`` output after ``np.asarray``, into the port's
 modules: layer ``i`` takes slice ``i`` of every stacked leaf.
+
+The reverse direction serves training, whose state is a tree of tensors in
+the reference's layout (so a checkpoint holds the reference's leaves, in its
+order).  :func:`module_tree` gives a port module's weights as such a tree
+(stacked where the reference stacks), :func:`dump_transformer`,
+:func:`dump_dlrm` and :func:`dump_gnn` as the reference's numpy tree,
+:func:`tensor_tree` puts a numpy tree on a device, :func:`to_numpy` takes a
+training state ``(params, opt_state)`` back to numpy leaf for leaf, and
+:func:`tree_loss` evaluates a module's loss with its weights read from a
+tree (stacked leaves unbound), so autograd differentiates the tree.
+Serving modules keep ``requires_grad=False``: training never
+differentiates a module's own weights.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from .backend import resolve_device
 from .models.common import dense_init, embed_init, mlp_init
@@ -57,11 +70,14 @@ from .models.gnn.gcn import GCN, GCNConfig, layer_dims
 from .models.gnn.meshgraphnet import MeshGraphNet, MeshGraphNetConfig, mlp_dims
 from .models.moe import MOE_KEYS, init_moe_params
 from .models.transformer import Transformer, TransformerConfig, layer_keys
+from .tree import tree_map
 
 __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
            "load_transformer", "draw_transformer", "dlrm_params",
            "load_dlrm", "gnn_params", "load_gcn", "load_gatedgcn",
-           "load_meshgraphnet", "load_equiformer_v2"]
+           "load_meshgraphnet", "load_equiformer_v2", "module_tree",
+           "dump_transformer", "dump_dlrm", "dump_gnn", "tensor_tree",
+           "to_numpy", "bind", "tree_loss"]
 
 
 def gcn_params(dims: Sequence[int], seed: int = 0) -> dict:
@@ -405,3 +421,148 @@ def load_equiformer_v2(params_np: dict, cfg: EquiformerV2Config, *,
                          {k: _layer(v, i) for k, v in stacked[key].items()},
                          f"layers[{key!r}][{i}]")
     return model
+
+
+# ---------------------------------------------------------------------------
+# The reverse direction: port modules as reference-layout trees (training)
+# ---------------------------------------------------------------------------
+
+#: Module containers whose layers the reference stacks on a leading axis.
+_STACKED = ("layers", "processors")
+_GNNS = (GCN, GatedGCN, MeshGraphNet, EquiformerV2)
+
+
+def _location(model: nn.Module, name: str) -> tuple[tuple, Optional[int]]:
+    """Where parameter ``name`` of ``model`` lives in the reference's tree:
+    the path of its leaf and, for a stacked leaf, its slice (else None)."""
+    parts = [int(p) if p.isdigit() else p for p in name.split(".")]
+    if isinstance(model, Transformer):
+        if parts[0] == "layers":
+            g, i = divmod(parts[1], len(model.cfg.window_pattern))
+            return ("blocks", i, *parts[2:]), g
+    elif isinstance(model, DLRM):
+        if parts[0] != "tables":   # bot_w.0 -> ("bot", "w", 0)
+            return (*parts[0].split("_"), *parts[1:]), None
+    elif isinstance(model, _GNNS):
+        if parts[0] in _STACKED:
+            return (parts[0], *parts[2:]), parts[1]
+    else:
+        raise TypeError(f"no reference layout for {type(model).__name__}")
+    return tuple(parts), None
+
+
+def _lists(node):
+    """Dicts keyed 0..n-1 (list slots) turned into lists, recursively."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        return [node[i] for i in range(len(node))]
+    return node
+
+
+def module_tree(model: nn.Module) -> dict:
+    """A port module's weights as the reference's tree of tensors, on the
+    module's device in its dtype: the module's own tensors (detached), and
+    new stacks where the reference stacks layers."""
+    leaves: dict[tuple, Any] = {}
+    for name, p in model.named_parameters():
+        path, layer = _location(model, name)
+        if layer is None:
+            leaves[path] = p.detach()
+        else:
+            leaves.setdefault(path, {})[layer] = p.detach()
+    root: dict = {}
+    for path, leaf in leaves.items():
+        if isinstance(leaf, dict):
+            leaf = torch.stack([leaf[i] for i in range(len(leaf))])
+        node = root
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return _lists(root)
+
+
+def to_numpy(tree) -> Any:
+    """Every tensor of a tree (a training state ``(params, opt_state)``
+    among them) as a host numpy array, in the same structure; its leaves
+    flatten in the reference's order."""
+    return tree_map(lambda t: t.detach().cpu().numpy() if torch.is_tensor(t)
+                    else np.asarray(t), tree)
+
+
+def tensor_tree(tree_np, *, device=None) -> Any:
+    """A numpy tree (the reference's ``init_params`` output after
+    ``np.asarray``, or a ``*_params`` draw) as tensors on ``device`` (CUDA
+    by default), each leaf in its own dtype."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree_np)
+
+
+def _dump(model: nn.Module, kinds: tuple) -> dict:
+    if not isinstance(model, kinds):
+        raise TypeError(f"expected one of {[k.__name__ for k in kinds]}, "
+                        f"got {type(model).__name__}")
+    return tree_map(lambda t: t.float().cpu().numpy(), module_tree(model))
+
+
+def dump_transformer(model: Transformer) -> dict:
+    """The reverse of :func:`load_transformer`: the reference's f32 numpy
+    tree (block ``i``'s slice ``g`` from layer ``g * P + i``)."""
+    return _dump(model, (Transformer,))
+
+
+def dump_dlrm(model: DLRM) -> dict:
+    """The reverse of :func:`load_dlrm`: ``{"tables", "bot", "top"}``."""
+    return _dump(model, (DLRM,))
+
+
+def dump_gnn(model: nn.Module) -> dict:
+    """The reverse of :func:`load_gcn`, :func:`load_gatedgcn`,
+    :func:`load_meshgraphnet` and :func:`load_equiformer_v2`: layer ``i``
+    becomes slice ``i`` of each stacked leaf."""
+    return _dump(model, _GNNS)
+
+
+def bind(model: nn.Module, tree) -> dict[str, torch.Tensor]:
+    """``model``'s parameter names mapped to the tensors of a
+    reference-layout ``tree``: the leaves themselves, or a stacked leaf's
+    slices (one ``unbind`` per leaf, whose backward stacks the slices'
+    gradients)."""
+    unbound: dict[tuple, tuple] = {}
+    out = {}
+    for name, _ in model.named_parameters():
+        path, layer = _location(model, name)
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        if layer is not None:
+            if path not in unbound:
+                unbound[path] = leaf.unbind(0)
+            leaf = unbound[path][layer]
+        out[name] = leaf
+    return out
+
+
+class _Apply(nn.Module):
+    def __init__(self, model: nn.Module, fn: Callable):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def tree_loss(model: nn.Module, fn: Callable) -> Callable:
+    """``fn(model, *args)`` as ``loss(tree, *args)``: evaluated with the
+    module's weights read from a reference-layout tree
+    (``torch.func.functional_call``), so gradients flow to the tree.  The
+    module only lends its structure; its own weights are not read."""
+    wrapper = _Apply(model, fn)
+
+    def loss(tree, *args):
+        weights = {f"model.{k}": v for k, v in bind(model, tree).items()}
+        return torch.func.functional_call(wrapper, weights, args)
+
+    return loss

@@ -56,19 +56,12 @@ def _chip_smoke():
     return module
 
 
-#: The reference transformer's training-memory and chunked-attention
-#: knobs: the port trains nothing and K5 takes no chunking, so its config
-#: has no such fields.
-REFERENCE_TRAINING_KNOBS = ("remat", "q_chunk")
-
-
 def _config_fields(cfg) -> dict:
     """A config as plain data: dataclasses (an MoE block too) by field,
-    without the reference's training knobs."""
+    the training knobs (``remat``, ``q_chunk``) among them."""
     return {f.name: (_config_fields(v) if dataclasses.is_dataclass(v)
                      else v)
             for f in dataclasses.fields(cfg)
-            if f.name not in REFERENCE_TRAINING_KNOBS
             for v in (getattr(cfg, f.name),)}
 
 

@@ -19,6 +19,12 @@ CONFIG_MODULES = ("base", "scenarios", "arctic_480b", "dlrm_mlperf",
                   "granite_3_2b", "meshgraphnet", "qwen3_moe_30b_a3b",
                   "smollm_135m")
 
+#: The training substrate and trainer.
+TRAIN_MODULES = ("tree", "optim/__init__", "optim/optimizers",
+                 "optim/compression", "checkpoint/__init__",
+                 "checkpoint/manager", "distributed/resilience",
+                 "launch/__init__", "launch/train")
+
 #: The MoE layer and every module of the GNN models.
 GNN_MODULES = ("moe", "gnn/__init__", "gnn/graph", "gnn/layers", "gnn/gcn",
                "gnn/gatedgcn", "gnn/meshgraphnet", "gnn/equiformer_v2")
@@ -84,6 +90,25 @@ print("served", moe.__name__)
 """
 
 
+#: ``python -m repro_torch.launch.train`` on the CPU with the finder in
+#: place, one family after another (EquiformerV2 reads the Wigner data
+#: lazily): each run must finish with its loss logged.
+_TRAINS = _REFUSE + r"""
+import logging, tempfile
+from repro_torch.launch import train
+
+for arch in ("smollm-135m", "gcn-cora", "equiformer-v2", "dlrm-mlperf"):
+    with tempfile.TemporaryDirectory() as d:
+        code = train.main(["--arch", arch, "--steps", "2", "--device", "cpu",
+                           "--ckpt-dir", d, "--gnn-nodes", "32",
+                           "--gnn-edges", "96", "--seq", "16"])
+    assert code == 0, (arch, code)
+leaked = [m for m in sys.modules if m.startswith("jax") or m == "repro" or m.startswith("repro.")]
+assert not leaked, leaked
+print("trained", train.__name__)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
@@ -113,6 +138,17 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "repro_torch.distributed.trace_shard",
                  "repro_torch.data.wigner"):
         assert name in walked, name
+    for name in TRAIN_MODULES:
+        module = name.replace("/__init__", "").replace("/", ".")
+        assert f"repro_torch.{module}" in walked, name
+
+
+def test_training_runs_with_jax_and_reference_blocked():
+    proc = subprocess.run([sys.executable, "-c", _TRAINS], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "trained repro_torch.launch.train" in proc.stdout
 
 
 def test_moe_serves_with_jax_and_reference_blocked():
@@ -150,14 +186,15 @@ def test_no_module_imports_jax_or_the_reference(path):
 
 def test_ast_scan_covers_the_registry_and_model_configs():
     """The scan above walks every file of the registry, of the MoE and GNN
-    model modules, of the sharded trace pipeline and the Wigner data."""
+    model modules, of the sharded trace pipeline, the Wigner data and the
+    training substrate and trainer."""
     scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for name in CONFIG_MODULES + ("__init__",):
         assert f"configs/{name}.py" in scanned, name
     for name in GNN_MODULES:
         assert f"models/{name}.py" in scanned, name
     for name in ("distributed/__init__", "distributed/trace_shard",
-                 "data/wigner"):
+                 "data/wigner") + TRAIN_MODULES:
         assert f"{name}.py" in scanned, name
 
 
