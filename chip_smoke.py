@@ -119,8 +119,10 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    ``src/repro_torch/core`` and ``src/repro_torch/distributed`` clean;
    every mutant of the battery caught),
    the provenance table equal to ``DESIGN.md``'s committed appendix, the
-   harness on the card passing its preflight with phase 4's 204 records
-   (equal to the records with the gate bypassed), and a ``drop-sigma``
+   harness on the card passing its preflight with phase 4's 228 records
+   (204 schedule and boundary records and 24 ``collective_wire`` records
+   at 0 bytes; equal to the records with the gate bypassed), and a
+   ``drop-sigma``
    mutant of ``spmm_tiled_cta`` swapped into the registry refused before
    anything launches (every launch count unchanged); the host time of a
    cold ``audit_registry()`` and of the mutation battery;
@@ -304,7 +306,25 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    gradients and moments): K6 exactly 26 launches a step, step time,
    samples/s, peak memory and a step's device time by kind (K6, the
    ``index_add_`` backward, cuBLAS, the optimizer); 3 steps in f32 at
-   65,536-row tables, B 512, card vs CPU, losses within 1e-4.
+   65,536-row tables, B 512, card vs CPU, losses within 1e-4;
+31. the distributed substrate: one NCCL rank a visible card (world size 1
+   here, every collective a real one-rank NCCL call), after phase 30's
+   memory is freed; the kernels built by phase 2.  DLRM-MLPerf through
+   ``vocab_parallel_embeddings`` (phase 13's cut where the published
+   tables do not fit a card's shards): K6 on each rank's shards bit for
+   bit against its plain version, exactly 26 K6 launches a forward, the
+   logits bit-identical to ``serve`` on the same tables at world size 1 and
+   within 1e-4 of one card at 65,536-row tables; SmolLM-135M through the
+   policy path at phase 10's prefill, exactly 30 K5 launches when the heads
+   divide the ranks (context parallelism otherwise, none), the logits
+   bit-identical at world size 1, 8 sharded decode steps within 3e-2, and
+   in f32 at B 2 within 1e-4; one qwen3-moe-30b-a3b layer through
+   ``moe_ffn_ep`` against ``moe_ffn_capacity`` (bit-identical); the ring
+   and all-gather SpMM at ogb_products (F 100) against
+   ``gather_scatter_sum`` (1e-5) with the collective ledger equal to
+   ``ring_spmm_traffic`` and ``spmm_feature_allgather``, and their times;
+   a ring hop, GPipe and its gradient, the query-offset attention and the
+   spec trees.  It prints the world size, NCCL's version and the ledger.
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -1290,7 +1310,7 @@ def analysis_phase(dev, card: str) -> None:
     records = conformance.run_conformance(device=dev)
     bypass = conformance.run_conformance(device=dev, preflight_audit=False)
     if ([r.as_row() for r in records] != [r.as_row() for r in bypass]
-            or len(records) != 204 or not all(r.ok for r in records)):
+            or len(records) != 228 or not all(r.ok for r in records)):
         raise AssertionError(f"conformance behind the preflight: "
                              f"{len(records)} records")
     print(f"# preflight: run_conformance passed the gate with "
@@ -4553,6 +4573,622 @@ def dlrm_training_phase(dev, card: str, launches: dict) -> None:
           "clock)")
 
 
+#: Phase 31, the distributed substrate over NCCL, one rank a card.
+#: DLRM-MLPerf: the published tables where a card's shards fit (26.32 GB a
+#: card on 4 cards), else each table capped at DLRM_ROW_CAP (phase 13's
+#: cut); a few serve_p99 and serve_bulk forwards; the 4-ranks-against-1
+#: check at phase 13's 65,536-row tables, B 512.
+DIST_P99_FORWARDS, DIST_BULK_FORWARDS = 4, 2
+#: What a card keeps free beside its table shards for the uncapped tables:
+#: the bags and the all-reduce's buffer at serve_bulk (about 0.9 GB), the
+#: MLPs, cuBLAS's workspace and the rank's CUDA context.
+DIST_TABLE_HEADROOM = 8e9
+#: SmolLM-135M at phase 10's prefill (8 x 1920, max_seq 2048), then 8
+#: decode steps; the f32 check at B 2, S 256 with 8 more steps.
+DIST_DECODE_STEPS, DIST_F32_BATCH, DIST_F32_PROMPT = 8, 2, 256
+DIST_F32_TOLERANCE = 1e-4
+#: One qwen3-moe-30b-a3b layer: each rank's tokens (B 2 x 2,048).
+DIST_MOE_TOKENS = 4096
+#: qwen3-moe-30b-a3b's prefill on the policy path at full width, B 1.
+#: reduced: depth (48 -> 2), sequence (prefill_32k, 32,768 -> 4,096),
+#: capacity factor (1.25 -> n_experts / top_k = 16: an expert has a slot
+#: for every token, so neither path drops one, and ranks that each route a
+#: quarter of the tokens compare with one card that routes them all).
+DIST_QWEN_LAYERS, DIST_QWEN_PROMPT = 2, 4096
+#: The ring and all-gather SpMM on phase 22's ogb_products edges.
+DIST_SPMM_WIDTH, DIST_SPMM_REPS, DIST_SPMM_TOLERANCE = 100, 3, 1e-5
+
+
+def _rel(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+
+def _host_ms(fn, reps: int, sync) -> float:
+    """Median host-clock time of ``reps`` calls, each between two
+    synchronisations of the card (and of the ranks)."""
+    samples = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        samples.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(samples)
+
+
+def distributed_rank(rank: int, world: int, job: dict) -> dict:
+    """Phase 31 on one NCCL rank (its card is ``cuda:rank``): DLRM-MLPerf
+    vocab-parallel, SmolLM-135M through the policy path, one qwen3-moe
+    layer expert-parallel, qwen3-moe's prefill with TP heads and EP
+    experts, and the ring and all-gather SpMM, each against its
+    single-device path.  Returns the lines to print (each rank's K6
+    shard check, the rest from rank 0), the counted launches and the
+    ledger's bytes."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import backend, params
+    from repro_torch.configs import (GNN_SHAPES, RECSYS_SHAPES, dlrm_mlperf,
+                                     qwen3_moe_30b_a3b, smollm_135m)
+    from repro_torch.core import comm_model
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import comm, ring
+    from repro_torch.distributed.sharding import make_policy
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import dlrm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.gnn.layers import gather_scatter_sum
+
+    backend.full_fp32()
+    dev = rank_device(rank)
+    policy = make_policy(make_test_mesh((1, world), ("data", "model")))
+    everyone = policy.group(policy.all_axes)
+    tp_group = policy.group("model")
+    lines: list[str] = []
+    result = {"lines": lines, "launches": {}, "ledger": {}}
+
+    def say(msg: str, every: bool = False) -> None:
+        if rank == 0 or every:
+            lines.append(f"rank {rank}: {msg}" if every else msg)
+
+    def card_sync() -> None:
+        torch.cuda.synchronize(dev)
+
+    def sync() -> None:
+        card_sync()
+        dist.barrier(group=everyone)
+
+    t_rank = time.perf_counter()
+    # (a) DLRM-MLPerf, vocab-parallel.
+    cap = job["dlrm_cap"]
+    cfg = dlrm_mlperf.make_config(vocab_sizes=tuple(
+        min(v, cap) if cap else v for v in dlrm.CRITEO_1TB_VOCABS))
+    t0 = time.perf_counter()
+    model = params.shard_dlrm(None, cfg, policy, device=dev, seed=0)
+    card_sync()
+    draw_s = time.perf_counter() - t0
+    shard_gb = sum(t.numel() for t in model.tables) * 4 / 1e9
+    say(f"dlrm set-up: {cfg.name}, {sum(cfg.vocab_sizes)} table rows "
+        f"({'published' if not cap else f'40M-row tables cut to {cap}'}), "
+        f"shards {sorted(set(model.shards))}, {shard_gb:.2f} GB of tables "
+        f"on this card drawn in {draw_s:.3f} s", every=True)
+    p99_b, bulk_b = (RECSYS_SHAPES[k].params["batch"]
+                     for k in ("serve_p99", "serve_bulk"))
+
+    def criteo(step: int, b: int, vocab) -> dict:
+        return synthetic.criteo_batch(0, step, batch=b, n_dense=cfg.n_dense,
+                                      vocab_sizes=vocab, multi_hot=1)
+
+    np_batches = ([criteo(i, p99_b, cfg.vocab_sizes)
+                   for i in range(DIST_P99_FORWARDS)]
+                  + [criteo(100 + i, bulk_b, cfg.vocab_sizes)
+                     for i in range(DIST_BULK_FORWARDS)])
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in np_batches]
+    # K6 on this rank's shards, against its plain version (not counted).
+    exact, k6_err = True, 0.0
+    for t, table in enumerate(model.tables):
+        ids = dlrm.shard_ids(model, t, batches[-1]["sparse"][:, t, :])
+        got = eb.embedding_bag(table, ids)
+        want = eb.embedding_bag_plain(table, ids)
+        exact &= bool(torch.equal(got, want))
+        k6_err = max(k6_err, float((got - want).abs().max()))
+    card_sync()
+    say(f"dlrm K6 on this rank's 26 table shards (B {bulk_b}, ids outside "
+        f"a shard on its zero row) vs plain: bit-identical {exact}, max abs "
+        f"err {k6_err:.3e}", every=True)
+    if not exact:
+        raise AssertionError(f"rank {rank}: K6 differs on its shards")
+    for b in (batches[0], batches[-1]):  # warm-up: cuBLAS plans
+        dlrm.forward(cfg, model, b, policy=policy)
+    sync()
+    ops.reset_launches()
+    outs, wire = [], []
+    for b in batches:
+        with comm.recording() as ledger:
+            outs.append(dlrm.forward(cfg, model, b, policy=policy))
+        wire.append(ledger.total_wire_bytes_per_chip)
+    sync()
+    k6 = ops.LAUNCHES["embedding_bag"]
+    result["launches"]["embedding_bag"] = k6
+    forwards = len(batches)
+    if k6 != cfg.n_sparse * forwards:
+        raise AssertionError(f"K6 launched {k6} times in {forwards} "
+                             "sharded forwards")
+    bulk_ms = _host_ms(lambda: dlrm.forward(cfg, model, batches[-1],
+                                            policy=policy), 3, sync)
+    n_sharded = sum(t.shape[0] == r + 1
+                    for t, r in zip(model.tables, model.rows))
+    result["ledger"]["dlrm_serve_bulk"] = wire[-1]
+    say(f"dlrm sharded path: K6 {k6} launches over {forwards} forwards "
+        f"({cfg.n_sparse} a forward); serve_bulk forward {bulk_ms:.3f} ms "
+        f"(host clock, median of 3) = {bulk_b / bulk_ms * 1e3:.1f} samples/s;"
+        f" ledger: one all-reduce of the {n_sharded} sharded tables' "
+        f"partial bags a forward ({ledger.ops[0].result_bytes:.0f} B at B "
+        f"{bulk_b}), {wire[0]:.0f} B a rank on the wire at serve_p99, "
+        f"{wire[-1]:.0f} B at serve_bulk")
+    if world == 1:
+        view = model.single_device_view()
+        same = all(np.array_equal(out.cpu().numpy(), dlrm.serve(view, b))
+                   for out, b in zip(outs, np_batches))
+        say(f"dlrm world 1: sharded logits vs the single-device serve on "
+            f"the same tables (views shard[:rows]): bit-identical {same}")
+        if not same:
+            raise AssertionError("the sharded DLRM differs from serve")
+        del view
+    del model, batches, outs
+    torch.cuda.empty_cache()
+    # 4 ranks against 1: every table at 65,536 rows, from one numpy tree.
+    small = dlrm_mlperf.make_config(vocab_sizes=tuple(
+        min(v, DLRM_CHECK_ROW_CAP) for v in dlrm.CRITEO_1TB_VOCABS))
+    tree = params.dlrm_params(small, seed=0)
+    sm = params.shard_dlrm(tree, small, policy, device=dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in criteo(
+        7, DLRM_CHECK_BATCH, small.vocab_sizes).items()}
+    got = comm.all_gather(dlrm.forward(small, sm, b, policy=policy),
+                          everyone, 0)
+    if rank == 0:
+        ref = params.load_dlrm(tree, small, device=dev)(b)
+        err = _rel(got, ref)
+        say(f"dlrm {world} ranks vs 1 at {DLRM_CHECK_ROW_CAP}-row tables, "
+            f"B {DLRM_CHECK_BATCH}: max rel err {err:.3e} (tolerance "
+            f"{DLRM_TOLERANCE:.0e})")
+        if not err < DLRM_TOLERANCE:
+            raise AssertionError(f"sharded DLRM vs one card: {err}")
+        del ref
+    del tree, sm, b, got
+    torch.cuda.empty_cache()
+
+    # (b) SmolLM-135M through the policy path.
+    cfg = smollm_135m.make_config()
+    full = params.draw_transformer(cfg, seed=0, device=dev)
+    sharded = params.shard_transformer(full, cfg, policy, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    dec = tr.DecodePolicy(cache_seq_axes=("model",), batch_axes=("data",))
+    pre_s = tr.make_prefill_step(cfg, max_seq=SERVE_MAX_SEQ, policy=policy,
+                                 decode=dec)
+    pre_1 = tr.make_prefill_step(cfg, max_seq=SERVE_MAX_SEQ)
+    pre_s(sharded, prompts)  # warm-up
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with comm.recording() as ledger:
+        lg_s, cache_s = pre_s(sharded, prompts)
+    sync()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    k5 = ops.LAUNCHES["flash_attention"]
+    result["launches"]["flash_attention"] = k5
+    tp_heads = cfg.n_heads % world == 0 and cfg.n_kv_heads % world == 0
+    expect = cfg.n_layers if tp_heads else 0
+    if k5 != expect:
+        raise AssertionError(f"K5 launched {k5} times in the sharded "
+                             f"prefill, expected {expect}")
+    pre_1(full, prompts)  # warm-up
+    card_sync()
+    t0 = time.perf_counter()
+    lg_1, cache_1 = pre_1(full, prompts)
+    card_sync()
+    single_ms = 1e3 * (time.perf_counter() - t0)
+    err = _rel(lg_s, lg_1)
+    identical = bool(torch.equal(lg_s, lg_1))
+    mode = ("TP heads, K5 on each rank" if tp_heads
+            else "context parallel, the chunked path")
+    say(f"smollm sharded prefill ({mode}): B {SERVE_BATCH} x "
+        f"{SERVE_PROMPT}, {k5} K5 launches, {prefill_ms:.1f} ms against "
+        f"{single_ms:.1f} ms single-device on this card (host clock, one "
+        f"call each after a warm-up), ledger {ledger.counts()} "
+        f"{ledger.total_wire_bytes_per_chip:.0f} B a rank; logits vs "
+        f"make_prefill_step: bit-identical {identical}, max rel err "
+        f"{err:.3e}")
+    if (world == 1 and not identical) or not err < MOE_LOOP_TOLERANCE:
+        raise AssertionError(f"sharded prefill logits differ: {err}")
+    nccl = {"NCCL": ("nccl",)}
+    kinds = [device_time_by_kind(lambda: fn(m_, prompts), "K5",
+                                 "flash_wgmma_kernel", extra=nccl)
+             for fn, m_ in ((pre_s, sharded), (pre_1, full))]
+    say("smollm prefill device ms by kind (torch.profiler), sharded vs "
+        "single-device: " + "; ".join(
+            f"{k} {kinds[0][k]:.3f} vs {kinds[1][k]:.3f}" for k in kinds[0]))
+    step_s = tr.make_serve_step(cfg, SERVE_MAX_SEQ, policy=policy,
+                                decode=dec)
+    step_1 = tr.make_serve_step(cfg, SERVE_MAX_SEQ)
+    tok, worst = lg_1.argmax(-1, keepdim=True), 0.0
+    for i in range(DIST_DECODE_STEPS):
+        a, _ = step_1(full, cache_1, tok, SERVE_PROMPT + i)
+        b_, _ = step_s(sharded, cache_s, tok, SERVE_PROMPT + i)
+        worst = max(worst, _rel(b_, a))
+        tok = a.argmax(-1, keepdim=True)
+    say(f"smollm {DIST_DECODE_STEPS} sharded decode steps (bf16) vs "
+        f"single-device: max rel err {worst:.3e} (tolerance "
+        f"{MOE_LOOP_TOLERANCE:.0e})")
+    if not worst < MOE_LOOP_TOLERANCE:
+        raise AssertionError(f"sharded decode differs: {worst}")
+    del full, sharded, cache_s, cache_1
+    torch.cuda.empty_cache()
+    full = params.draw_transformer(cfg, seed=1, device=dev,
+                                   dtype=torch.float32)
+    sharded = params.shard_transformer(full, cfg, policy, device=dev)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (DIST_F32_BATCH, DIST_F32_PROMPT)), device=dev)
+    max_seq = DIST_F32_PROMPT + DIST_DECODE_STEPS
+    a, cache_1 = tr.make_prefill_step(cfg, max_seq=max_seq)(full, prompts)
+    b_, cache_s = tr.make_prefill_step(cfg, max_seq=max_seq, policy=policy,
+                                       decode=dec)(sharded, prompts)
+    worst = _rel(b_, a)
+    step_s = tr.make_serve_step(cfg, max_seq, policy=policy, decode=dec)
+    step_1 = tr.make_serve_step(cfg, max_seq)
+    tok = a.argmax(-1, keepdim=True)
+    for i in range(DIST_DECODE_STEPS):
+        a, _ = step_1(full, cache_1, tok, DIST_F32_PROMPT + i)
+        b_, _ = step_s(sharded, cache_s, tok, DIST_F32_PROMPT + i)
+        worst = max(worst, _rel(b_, a))
+        tok = a.argmax(-1, keepdim=True)
+    say(f"smollm f32 at B {DIST_F32_BATCH}, S {DIST_F32_PROMPT}: sharded "
+        f"prefill and {DIST_DECODE_STEPS} decode steps vs single-device, max "
+        f"rel err {worst:.3e} (tolerance {DIST_F32_TOLERANCE:.0e})")
+    if not worst < DIST_F32_TOLERANCE:
+        raise AssertionError(f"f32 sharded serving differs: {worst}")
+    del full, sharded, cache_s, cache_1
+    torch.cuda.empty_cache()
+
+    # (c) One qwen3-moe-30b-a3b layer, expert-parallel.
+    qcfg = qwen3_moe_30b_a3b.make_config()
+    m, d = qcfg.moe, qcfg.d_model
+    gen = torch.Generator(dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def draw(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * fan_in ** -0.5).to(bf16)
+
+    layer = {"router": draw((d, m.n_experts), d),
+             "w_gate": draw((m.n_experts, d, m.d_ff_expert), d),
+             "w_up": draw((m.n_experts, d, m.d_ff_expert), d),
+             "w_down": draw((m.n_experts, m.d_ff_expert, d), m.d_ff_expert)}
+    e_loc = m.n_experts // world
+    local = {k: (v if k == "router" else v[rank * e_loc:(rank + 1) * e_loc])
+             for k, v in layer.items()}
+    x = torch.randn((DIST_MOE_TOKENS, d), generator=torch.Generator(
+        dev).manual_seed(1 + rank), device=dev).to(bf16)
+    with comm.recording() as ledger:
+        y_ep, aux_ep = moe_lib.moe_ffn_ep(local, x, m, group=tp_group)
+    y_1, aux_1 = moe_lib.moe_ffn_capacity(layer, x, m)
+    card_sync()
+    identical = bool(torch.equal(y_ep, y_1))
+    err = _rel(y_ep, y_1)
+    a2a = ledger.by_kind().get("all-to-all", 0.0)
+    modelled = comm_model.moe_dispatch_sync(
+        DIST_MOE_TOKENS, d, m.top_k, world, 1).total("ici")
+    result["ledger"]["moe_all_to_all"] = a2a
+    say(f"qwen3-moe layer (E {m.n_experts}, top {m.top_k}, d {d}, f "
+        f"{m.d_ff_expert}, bf16) moe_ffn_ep over {world} ranks, T "
+        f"{DIST_MOE_TOKENS} a rank, vs moe_ffn_capacity on the rank's "
+        f"tokens: bit-identical {identical}, max rel err {err:.3e}; aux "
+        f"{float(aux_ep):.6f} vs {float(aux_1):.6f}; ledger all-to-all "
+        f"{a2a:.0f} B a rank vs moe_dispatch_sync {modelled:.0f} B")
+    if (world == 1 and not identical) or not err < MOE_LOOP_TOLERANCE:
+        raise AssertionError(f"moe_ffn_ep differs: {err}")
+    del layer, local, x, y_ep, y_1
+    torch.cuda.empty_cache()
+
+    # (c') qwen3-moe-30b-a3b's prefill through the policy path: 32 / 4
+    # heads divide 4, so K5 runs on each rank's heads, with EP experts.
+    # In bf16 a rank's reduction order can flip a token's top-8 experts
+    # against one card's, so the logits are held at world size 1 (bit for
+    # bit) and, at any world size, in f32 (1e-4).
+    qcfg = dataclasses.replace(
+        qcfg, n_layers=DIST_QWEN_LAYERS, moe=dataclasses.replace(
+            qcfg.moe, capacity_factor=qcfg.moe.n_experts / qcfg.moe.top_k))
+    q_heads = (qcfg.n_heads % world == 0 and qcfg.n_kv_heads % world == 0)
+    h_loc, hk_loc = ((qcfg.n_heads // world, qcfg.n_kv_heads // world)
+                     if q_heads else (qcfg.n_heads, qcfg.n_kv_heads))
+    prompts = torch.as_tensor(np.random.default_rng(4).integers(
+        0, qcfg.vocab, (1, DIST_QWEN_PROMPT)), device=dev)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        # K5 on a rank's operands (its heads, the whole sequence) against
+        # its plain version; not counted.
+        q, k, v = (torch.randn((1, DIST_QWEN_PROMPT, n, qcfg.d_head),
+                               generator=gen, device=dev).to(dtype)
+                   for n in (h_loc, hk_loc, hk_loc))
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        errs[f"K5 {key}"] = rel_err(got, want)
+        outside = beyond_bf16_step(got, want) if key == "bf16" else 0
+        if not errs[f"K5 {key}"] < ATTN_TOLERANCE[key] or outside:
+            raise AssertionError(f"K5 {key} on a rank's {h_loc} / {hk_loc} "
+                                 f"heads: {errs[f'K5 {key}']}, {outside} "
+                                 "elements beyond one bf16 step")
+        del q, k, v, got, want
+        full = params.draw_transformer(qcfg, seed=4, device=dev, dtype=dtype)
+        sharded = params.shard_transformer(full, qcfg, policy, device=dev)
+        pre_s = tr.make_prefill_step(qcfg, max_seq=DIST_QWEN_PROMPT,
+                                     policy=policy, decode=dec)
+        pre_1 = tr.make_prefill_step(qcfg, max_seq=DIST_QWEN_PROMPT)
+        if key == "bf16":
+            pre_s(sharded, prompts)  # warm-up
+            sync()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with comm.recording() as ledger:
+                lg_s, _ = pre_s(sharded, prompts)
+            sync()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            k5_q = ops.LAUNCHES["flash_attention"]
+            result["launches"]["flash_attention"] += k5_q
+            if k5_q != (qcfg.n_layers if q_heads else 0):
+                raise AssertionError(f"K5 launched {k5_q} times in the "
+                                     "sharded qwen3-moe prefill")
+            result["ledger"]["qwen3_moe_prefill"] = \
+                ledger.total_wire_bytes_per_chip
+        else:
+            lg_s, _ = pre_s(sharded, prompts)
+        lg_1, _ = pre_1(full, prompts)
+        card_sync()
+        errs[key] = _rel(lg_s, lg_1)
+        if key == "bf16":
+            identical = bool(torch.equal(lg_s, lg_1))
+            finite = bool(torch.isfinite(lg_s).all())
+            if not finite or (world == 1 and not identical):
+                raise AssertionError(f"sharded qwen3-moe bf16 prefill: "
+                                     f"finite {finite}, bit-identical "
+                                     f"{identical}")
+        del full, sharded, lg_s, lg_1
+        torch.cuda.empty_cache()
+    say(f"qwen3-moe prefill ({'TP heads' if q_heads else 'context parallel'}"
+        f", {h_loc} / {hk_loc} heads and {qcfg.moe.n_experts // world} "
+        f"experts a rank, {qcfg.n_layers} layers, capacity factor "
+        f"{qcfg.moe.capacity_factor:g} so that no token drops), B 1 x "
+        f"{DIST_QWEN_PROMPT}: K5 on a rank's operands vs plain, max rel err "
+        f"bf16 {errs['K5 bf16']:.3e}, f32 {errs['K5 f32']:.3e}; bf16: "
+        f"{k5_q} K5 launches, {prefill_ms:.1f} ms (host clock, one call "
+        f"after a warm-up), ledger {ledger.counts()} "
+        f"{ledger.total_wire_bytes_per_chip:.0f} B a rank, logits vs "
+        f"make_prefill_step bit-identical {identical}, max rel err "
+        f"{errs['bf16']:.3e} (held bit for bit at world size 1 only); f32 "
+        f"logits max rel err {errs['f32']:.3e} (tolerance "
+        f"{DIST_F32_TOLERANCE:.0e})")
+    if not errs["f32"] < DIST_F32_TOLERANCE:
+        raise AssertionError(f"sharded qwen3-moe f32 prefill differs: "
+                             f"{errs['f32']}")
+
+    # (d) The ring and all-gather SpMM on ogb_products' edges.
+    n_nodes, F = job["n_nodes"], DIST_SPMM_WIDTH
+    arrays = {k: np.load(v, mmap_mode="r") for k, v in job["spmm"].items()}
+    h = torch.randn((n_nodes, F), generator=torch.Generator(
+        dev).manual_seed(2), device=dev)
+    n_local = n_nodes // world
+    rows = slice(rank * n_local, (rank + 1) * n_local)
+    part = {k: torch.from_numpy(np.array(arrays[k][rank])).to(
+        dev) for k in ("ring_snd", "ring_rcv", "ring_wgt", "gather_snd",
+                       "gather_rcv", "gather_wgt")}
+    hl = h[rows].contiguous()
+    with torch.inference_mode():
+        with comm.recording() as led_r:
+            out_r = ring.ring_spmm(hl, part["ring_snd"], part["ring_rcv"],
+                                   part["ring_wgt"], group=everyone)
+        with comm.recording() as led_g:
+            out_g = ring.allgather_spmm(hl, part["gather_snd"],
+                                        part["gather_rcv"],
+                                        part["gather_wgt"], group=everyone)
+        sync()
+        ref = gather_scatter_sum(
+            h, torch.from_numpy(np.array(arrays["snd"])).to(dev).long(),
+            torch.from_numpy(np.array(arrays["rcv"])).to(dev).long(),
+            n_nodes,
+            edge_weight=torch.from_numpy(np.array(arrays["wgt"])).to(dev)
+        )[rows]
+        err_r, err_g = _rel(out_r, ref), _rel(out_g, ref)
+        del ref
+        torch.cuda.empty_cache()
+        ring_ms = _host_ms(lambda: ring.ring_spmm(
+            hl, part["ring_snd"], part["ring_rcv"], part["ring_wgt"],
+            group=everyone), DIST_SPMM_REPS, sync)
+        ag_ms = _host_ms(lambda: ring.allgather_spmm(
+            hl, part["gather_snd"], part["gather_rcv"], part["gather_wgt"],
+            group=everyone), DIST_SPMM_REPS, sync)
+
+        def compute_only():
+            acc = torch.zeros(hl.shape, dtype=torch.float64, device=dev)
+            for blk in range(world):
+                ring._accumulate(acc, hl, part["ring_snd"][blk],
+                                 part["ring_rcv"][blk], part["ring_wgt"][blk])
+
+        def hops_only():
+            block = hl
+            for _ in range(world - 1):
+                block = comm.start_hop(block, everyone).wait()
+
+        compute_ms = _host_ms(compute_only, DIST_SPMM_REPS, sync)
+        hops_ms = _host_ms(hops_only, DIST_SPMM_REPS, sync)
+    want_r = comm_model.ring_spmm_traffic(n_nodes, F, world).total("ici")
+    want_g = comm_model.spmm_feature_allgather(n_nodes, F, world).total(
+        "ici")
+    got_r, got_g = led_r.total_wire_bytes_per_chip, \
+        led_g.total_wire_bytes_per_chip
+    result["ledger"].update(ring=got_r, allgather=got_g)
+    hidden = ((compute_ms + hops_ms - ring_ms) / hops_ms if world > 1
+              else float("nan"))
+    say(f"spmm ogb_products (N {n_nodes}, E {arrays['snd'].shape[0]}, F "
+        f"{F}, f32) over {world} ranks: ring vs gather_scatter_sum max rel "
+        f"err {err_r:.3e}, all-gather {err_g:.3e} (tolerance "
+        f"{DIST_SPMM_TOLERANCE:.0e}); ledger wire bytes a rank: ring "
+        f"{got_r:.0f} (ring_spmm_traffic {want_r:.0f}), all-gather "
+        f"{got_g:.0f} (spmm_feature_allgather {want_g:.0f}); a layer: ring "
+        f"{ring_ms:.3f} ms, all-gather {ag_ms:.3f} ms, the ring's compute "
+        f"alone {compute_ms:.3f} ms, its {world - 1} hops alone "
+        f"{hops_ms:.3f} ms, share of the hops hidden {hidden:.3f} (host "
+        f"clock, median of {DIST_SPMM_REPS}); ring pad ratio "
+        f"{job['pad_ratio']['ring']:.3f}, all-gather "
+        f"{job['pad_ratio']['gather']:.3f}", every=world > 1)
+    if not (err_r < DIST_SPMM_TOLERANCE and err_g < DIST_SPMM_TOLERANCE):
+        raise AssertionError(f"spmm differs: ring {err_r}, all-gather "
+                             f"{err_g}")
+    if got_r != want_r or got_g != want_g:
+        raise AssertionError(f"ledger {got_r}, {got_g} vs models {want_r}, "
+                             f"{want_g}")
+    del h, hl, part, out_r, out_g
+    torch.cuda.empty_cache()
+
+    # (e) The rest of the slice, small: a ring hop, GPipe and its gradient
+    # with the DP gradient sync, context-parallel attention's query offset,
+    # and the spec trees.
+    from repro_torch.distributed.pipeline_par import gpipe_apply
+    from repro_torch.distributed.sharding import fsdp_specs
+    from repro_torch.models import attention as attn_lib
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randn((4, 8, 64), generator=g, device=dev)
+    hop = comm.ring_hop(x + rank, everyone)
+    hop_ok = bool(torch.equal(hop, x + (rank - 1) % world))
+    ws = torch.randn((world, 64, 64), generator=g, device=dev) / 8
+    w = ws[rank].clone().requires_grad_(True)
+    xs = x.clone().requires_grad_(True)
+    out = gpipe_apply(lambda p, a: torch.tanh(a @ p), w, xs, group=everyone)
+    (out ** 2).sum().backward()
+    comm.all_reduce_grads([xs.grad], everyone)
+    w1, x1 = ws.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    ref = x1
+    for st in range(world):
+        ref = torch.tanh(ref @ w1[st])
+    (ref ** 2).sum().backward()
+    gp_err = max(_rel(out, ref), _rel(w.grad, w1.grad[rank]),
+                 _rel(xs.grad, x1.grad))
+    q, k, v = (torch.randn((2, 256, 4, 64), generator=g, device=dev)
+               for _ in range(3))
+    full_attn = attn_lib.chunked_causal_attention(q, k, v, window=100,
+                                                  q_chunk=64)
+    part_attn = attn_lib.chunked_causal_attention(
+        q[:, 128:], k, v, window=100, q_chunk=64, q_offset=128)
+    cp_err = _rel(part_attn, full_attn[:, 128:])
+    cfg = smollm_135m.make_config()
+    specs = tr.param_pspecs(cfg, policy)
+    meta = {"embed": torch.empty((cfg.vocab, cfg.d_model), device="meta")}
+    fs = fsdp_specs(meta, {"embed": specs["embed"]}, policy)
+    card_sync()
+    say(f"ring hop (rank - 1's tensor): {hop_ok}; gpipe over {world} stages"
+        f" (4 microbatches) and its gradient with the DP sync vs one "
+        f"device: max rel err {gp_err:.3e}; chunked attention at q_offset "
+        f"128 vs the full pass's rows: {cp_err:.3e}; smollm specs: embed "
+        f"{specs['embed']}, wq {specs['blocks'][0]['wq']}, fsdp embed "
+        f"{fs['embed']}, cache {tr.cache_pspecs(cfg, policy, dec)['k0']}")
+    if not (hop_ok and gp_err < 1e-5 and cp_err < 1e-6):
+        raise AssertionError(f"ring hop {hop_ok}, gpipe {gp_err}, q_offset "
+                             f"{cp_err}")
+    say(f"rank took {time.perf_counter() - t_rank:.1f} s", every=True)
+    return result
+
+
+def rank_device(rank: int) -> torch.device:
+    """The card of phase 31's rank ``rank``."""
+    return torch.device("cuda", rank)
+
+
+def distributed_phase(dev, card: str, launches: dict,
+                      ogb_edges: tuple) -> dict:
+    """Phase 31: one NCCL rank a visible card (``repro_torch.launch.mesh.
+    spawn``), each running :func:`distributed_rank`.  The kernels were
+    built by phase 2 (the ranks load them); phase 30's memory is freed
+    first.  The DLRM tables go uncapped where a card's shards fit in its
+    free memory less :data:`DIST_TABLE_HEADROOM`.  The ogb_products
+    partitions are built here once and handed to the ranks as ``.npy``
+    files.  Adds rank 0's counted launches to ``launches`` and returns the
+    ranks' results."""
+    import tempfile
+
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.distributed import ring
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import dlrm
+
+    t_phase = time.perf_counter()
+    card = card.replace("\n", "; ")  # one line for every card's report
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    free = min(torch.cuda.mem_get_info(i)[0] for i in range(world))
+    # The published tables a card would hold, row-sharded over all ranks.
+    shard_bytes = sum(-(-v // world) * 128 * 4
+                      for v in dlrm.CRITEO_1TB_VOCABS)
+    cap = None if shard_bytes < free - DIST_TABLE_HEADROOM else DLRM_ROW_CAP
+    print(f"# dist set-up: world size {world} (NCCL "
+          f"{torch.cuda.nccl.version()}, one rank a card, mesh (1, {world}) "
+          f"over (data, model)); {free / 1e9:.2f} GB free on the emptiest "
+          f"card; DLRM tables "
+          f"{'published' if cap is None else f'capped at {cap} rows'} "
+          f"({shard_bytes / 1e9:.2f} GB a card uncapped, "
+          f"{DIST_TABLE_HEADROOM / 1e9:.0f} GB kept free) | {card}")
+    snd, rcv = ogb_edges
+    V = GNN_SHAPES["ogb_products"].params["n_nodes"]
+    n_nodes = -(-V // world) * world
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dist-") as tmp:
+        t0 = time.perf_counter()
+        wgt = np.random.default_rng(0).random(snd.shape[0]).astype(
+            np.float32)
+        rp = ring.partition_edges_ring(snd, rcv, wgt, n_nodes, world)
+        gp = ring.partition_edges_gather(snd, rcv, wgt, n_nodes, world)
+        arrays = {"snd": snd, "rcv": rcv, "wgt": wgt,
+                  "ring_snd": rp.senders, "ring_rcv": rp.receivers,
+                  "ring_wgt": rp.weights, "gather_snd": gp.senders,
+                  "gather_rcv": gp.receivers, "gather_wgt": gp.weights}
+        paths = {}
+        for k, a in arrays.items():
+            paths[k] = str(Path(tmp) / f"{k}.npy")
+            np.save(paths[k], a)
+        pad = {"ring": rp.pad_ratio, "gather": gp.pad_ratio}
+        print(f"# dist ogb_products partitions: V {V} padded to {n_nodes} "
+              f"(divisible by {world}), E {snd.shape[0]}, ring (dst shard, "
+              f"src block) blocks of {rp.senders.shape[-1]} edges (pad ratio "
+              f"{rp.pad_ratio:.3f}), all-gather dst shards of "
+              f"{gp.senders.shape[-1]} (pad ratio {gp.pad_ratio:.3f}); built "
+              f"and written in {time.perf_counter() - t0:.1f} s (host clock)")
+        del rp, gp, arrays, wgt
+        job = {"dlrm_cap": cap, "n_nodes": n_nodes, "spmm": paths,
+               "pad_ratio": pad}
+        t0 = time.perf_counter()
+        results = spawn(distributed_rank, world, backend="nccl",
+                        args=(job,))
+        ranks_s = time.perf_counter() - t0
+    for res in results:
+        for line in res["lines"]:
+            print(f"# dist {line} | {card}")
+    for kname, count in results[0]["launches"].items():
+        launches[kname] += count
+    print(f"# dist phase launches (rank 0): "
+          f"{json.dumps(results[0]['launches'], sort_keys=True)}; ledger "
+          f"(rank 0) {json.dumps(results[0]['ledger'], sort_keys=True)}; "
+          f"ranks {ranks_s:.1f} s; phase 31 took "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    return {"world": world, "results": results}
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list of arrays."""
     if isinstance(tree, dict):
@@ -4825,13 +5461,14 @@ def main() -> int:
     ogb_edges = bridge_phase(dev, card, launches)
     sharded_phase(dev, card, launches)
     gnn_phase(dev, card, ogb_edges)
-    del ogb_edges
     torch.cuda.empty_cache()
     moe_phases(dev, card, launches)
     substrate_phase(dev, card)
     lm_training_phase(dev, card)
     gnn_training_phase(dev, card)
     dlrm_training_phase(dev, card, launches)
+    distributed_phase(dev, card, launches, ogb_edges)
+    del ogb_edges
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -4852,10 +5489,10 @@ def main() -> int:
           "phase 22's trace bridges and phase 23's sharded path); K5's "
           "one layer of the SmolLM-135M prefill, bf16 (its launches: the "
           "SmolLM prefill's, the gemma2-2b prefill's, the qwen3-moe "
-          "prefill's and the arctic prefill's); K6's the 26 "
-          "tables of one serve_bulk forward of DLRM-MLPerf, f32 (its "
-          "launches: the DLRM serving path's and phase 30's training "
-          "steps')")
+          "prefill's, the arctic prefill's and phase 31's sharded SmolLM "
+          "prefill's); K6's the 26 tables of one serve_bulk forward of "
+          "DLRM-MLPerf, f32 (its launches: the DLRM serving path's, phase "
+          "30's training steps' and phase 31's sharded forwards')")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

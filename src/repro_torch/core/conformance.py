@@ -22,8 +22,12 @@ Measurement layers (each a ``ConformanceRecord.source``):
 Before any measurement, :func:`run_conformance` passes every dataflow it
 is asked for, and the kernel spec each is held to, through the static model
 auditor (:mod:`repro_torch.analysis`) and refuses a spec with a strict
-error.  The reference harness's ``cost_analysis`` and ``hlo_collectives``
-layers read XLA artefacts and have no counterpart here.
+error.  The reference harness's ``cost_analysis`` layer reads an XLA
+artefact and has no counterpart here; its ``hlo_collectives`` record is
+``collective_wire`` from the collective ledger
+(:class:`repro_torch.distributed.comm.CollectiveLedger`): the wire bytes of
+every collective issued while a program is measured, 0 for these
+single-device kernels, held to 0.
 
 Run it as ``python -m repro_torch.core.conformance [--device cuda|cpu]
 [--points M] [--execute] [--json PATH]``; it exits non-zero on any
@@ -148,7 +152,7 @@ class ConformanceRecord:
 
     dataflow: str
     movement: str          # movement-level name or an aggregate probe
-    source: str            # block_schedule | launch_boundary
+    source: str            # block_schedule | launch_boundary | collective_ledger
     point: Mapping
     analytical_bytes: float
     measured_bytes: float
@@ -225,15 +229,20 @@ def launch_boundary(tensors: Sequence[torch.Tensor]) -> float:
 
 
 def measure_program(pm: ProgramMeasurement) -> dict:
-    """Both measurement layers for one launch."""
-    per_stream = block_schedule(pm.schedule, pm.streams)
+    """The measurement layers for one launch."""
+    from ..distributed import comm
+
+    with comm.recording() as ledger:
+        per_stream = block_schedule(pm.schedule, pm.streams)
+        boundary = launch_boundary(pm.tensors)
     return {
+        "collective_wire_bytes": ledger.total_wire_bytes_per_chip,
         "label": pm.label,
         "streams": per_stream,
         "stream_total_bytes": sum(s["bytes"] for s in per_stream.values()),
         "distinct_total_bytes": sum(s["distinct_bytes"]
                                     for s in per_stream.values()),
-        "boundary_bytes": launch_boundary(pm.tensors),
+        "boundary_bytes": boundary,
     }
 
 
@@ -356,6 +365,14 @@ def conformance_records(spec: DataflowSpec, point: OperatingPoint, *,
             analytical_bytes=meas["distinct_total_bytes"],
             measured_bytes=meas["boundary_bytes"],
             tolerance=EXACT_REL_TOL))
+
+    # Single-device programs move no collective bytes; the record keeps the
+    # ledger's hook live for sharded kernels.
+    records.append(ConformanceRecord(
+        dataflow=spec.name, movement="collective_wire",
+        source="collective_ledger", point=pt, analytical_bytes=0.0,
+        measured_bytes=sum(m["collective_wire_bytes"] for m in measures),
+        tolerance=0.0))
     return records
 
 

@@ -1,8 +1,10 @@
-"""The Sec. IV golden totals and the registry crosscheck (a copy of the
-reference's ``repro/core/validation.py``, lines 42-179).
+"""The Sec. IV golden totals, the registry crosscheck and the traffic
+validation (a copy of the reference's ``repro/core/validation.py``).
 
-The reference's ``validate_traffic`` and ``measured_collective_bytes`` read
-XLA HLO and have no counterpart here (ROADMAP.md Queue 1 item 10).
+The reference's ``measured_collective_bytes`` and ``validate_traffic`` read
+the collectives out of a compiled program's HLO; here they read a rank's
+:class:`repro_torch.distributed.comm.CollectiveLedger`, which records every
+collective the rank issued.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ __all__ = [
     "SEC4_GOLDEN_TOTALS",
     "validate_dataflow_golden",
     "crosscheck_registry",
+    "measured_collective_bytes",
+    "validate_traffic",
 ]
 
 #: Pinned (total_bits, total_iterations) at the paper's Sec. IV defaults
@@ -48,6 +52,28 @@ class ValidationRecord:
     def __str__(self) -> str:  # pragma: no cover - repr
         return (f"{self.name}: analytical={self.analytical_bytes:.4g}B "
                 f"measured={self.measured_bytes:.4g}B ratio={self.ratio:.3f}")
+
+
+def measured_collective_bytes(ledger):
+    """The collective stats of a ledger: the ledger itself, which has the
+    reference's ``CollectiveStats`` interface."""
+    return ledger
+
+
+def validate_traffic(name: str, model, ledger, *,
+                     static_trip_count: int = 1) -> ValidationRecord:
+    """Compare a ``CommModel``'s per-rank ``ici`` bytes with the wire bytes
+    of the collectives a rank recorded in ``ledger``.
+
+    ``static_trip_count`` divides the analytical total when the program
+    issues the collective once inside a loop of that many trips.
+    """
+    stats = measured_collective_bytes(ledger)
+    return ValidationRecord(
+        name=name,
+        analytical_bytes=model.total("ici") / max(static_trip_count, 1),
+        measured_bytes=stats.total_wire_bytes_per_chip,
+    )
 
 
 def validate_dataflow_golden(name: str) -> ValidationRecord:

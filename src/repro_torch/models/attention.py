@@ -8,9 +8,15 @@ scores over one chunk of queries at a time, so the materialised block is
 ``(B, H, q_chunk, S)`` rather than ``(B, H, S, S)``, each chunk
 rematerialised in the backward pass.  Decode attention attends one query
 per sequence to the cache.  No TPU kernel computes either, so both stay
-plain PyTorch, as the reference's are XLA.  The reference's
-sequence-sharded partials (``decode_attention_partial``,
-``combine_decode_partials``) wait for the distributed port.
+plain PyTorch, as the reference's are XLA.
+
+A KV cache sequence-sharded over ranks is attended flash-decoding style:
+each shard computes a partial softmax over its slots
+(:func:`decode_attention_partial`) and the partials combine with a
+logsumexp reduction (:func:`combine_decode_partials`): an all-reduce max
+and all-reduce sums of ``(B, H, d + 2)`` instead of an all-gather of the
+cache.  Context parallelism reaches :func:`chunked_causal_attention` with
+``q_offset``, the global position of this rank's first query.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .common import softcap
 
-__all__ = ["repeat_kv", "chunked_causal_attention", "decode_attention"]
+__all__ = ["repeat_kv", "chunked_causal_attention", "decode_attention",
+           "decode_attention_partial", "combine_decode_partials"]
 
 _NEG_INF = -1e30
 
@@ -49,6 +56,7 @@ def chunked_causal_attention(
     window: Optional[int] = None,      # sliding window; None = global causal
     attn_softcap: Optional[float] = None,
     q_chunk: int = 1024,
+    q_offset: int = 0,                 # global position of q row 0 (context parallelism)
     score_budget_bytes: int = 1 << 29,  # cap the fp32 score block (512 MiB)
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) attention over chunks of queries,
@@ -59,16 +67,18 @@ def chunked_causal_attention(
     chunk still divides S; a chunk that does not divide S falls back to one
     block.  Each chunk runs under ``torch.utils.checkpoint`` (the
     reference's ``nothing_saveable`` remat): the backward pass recomputes
-    its scores instead of keeping every chunk's.  The reference's
-    context-parallel arguments (``q_offset``, ``shard_divisor``) come with
-    the distributed port."""
+    its scores instead of keeping every chunk's.  ``q_offset`` places the
+    queries at global positions ``q_offset + i`` among the keys (a context
+    parallel rank's sequence shard).  The shapes are this rank's own, so the
+    budget needs no divisor for sharding (the reference's ``shard_divisor``
+    corrects GSPMD's global shapes)."""
     b, s, h, d = q.shape
     s_kv = k.shape[1]
     n_rep = h // k.shape[2]
     scale = d ** -0.5
 
     q_chunk = min(q_chunk, s)
-    per_row_bytes = max(b * h, 1) * s_kv * 4
+    per_row_bytes = b * h * s_kv * 4
     while (q_chunk > 16 and q_chunk * per_row_bytes > score_budget_bytes
            and s % (q_chunk // 2) == 0):
         q_chunk //= 2
@@ -82,7 +92,8 @@ def chunked_causal_attention(
     kv_pos = torch.arange(s_kv, device=q.device)
 
     def one_chunk(ci: int, qc: torch.Tensor) -> torch.Tensor:
-        q_pos = ci * q_chunk + torch.arange(q_chunk, device=q.device)
+        q_pos = (q_offset + ci * q_chunk
+                 + torch.arange(q_chunk, device=q.device))
         scores = torch.einsum("bhqd,bhdk->bhqk", qc.float() * scale, kt)
         if attn_softcap is not None:
             scores = softcap(scores, attn_softcap)
@@ -116,3 +127,45 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scores = scores.masked_fill(~length_mask[:, None, None, :], _NEG_INF)
     out = torch.einsum("bhqs,bshd->bqhd", torch.softmax(scores, dim=-1), v)
     return out.to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_shard: torch.Tensor,
+                             v_shard: torch.Tensor, *,
+                             length_mask: torch.Tensor,
+                             attn_softcap: Optional[float] = None):
+    """Partial-softmax statistics over one sequence shard of the cache.
+
+    Returns (weighted_values (B, 1, H, D), max (B, H, 1), sumexp (B, H, 1)),
+    fp32, so that shards combine associatively: the flash-decoding split-K
+    scheme."""
+    b, _, h, d = q.shape
+    n_rep = h // k_shard.shape[2]
+    k = repeat_kv(k_shard, n_rep).float()
+    v = repeat_kv(v_shard, n_rep).float()
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float() * d ** -0.5, k)
+    if attn_softcap is not None:
+        scores = softcap(scores, attn_softcap)
+    scores = scores.masked_fill(~length_mask[:, None, None, :], _NEG_INF)
+    m = torch.amax(scores, dim=-1)                      # (B, H, 1)
+    e = torch.exp(scores - m[..., None])
+    z = torch.sum(e, dim=-1)                            # (B, H, 1)
+    wv = torch.einsum("bhqs,bshd->bqhd", e, v)          # un-normalized
+    return wv, m, z
+
+
+def combine_decode_partials(wv: torch.Tensor, m: torch.Tensor,
+                            z: torch.Tensor, group) -> torch.Tensor:
+    """Combine the flash-decoding partials of the shards of ``group``: an
+    all-reduce max of the shards' maxima, then all-reduce sums of the
+    rescaled weighted values and sums.  ``group=None`` is one shard (no
+    collective)."""
+    from ..distributed import comm
+
+    g_max = m if group is None else comm.all_reduce(m, group, "max")
+    corr = torch.exp(m - g_max)                         # (B, H, 1)
+    wv = wv * corr.transpose(1, 2)[..., None]           # (B, 1, H, D)
+    z = z * corr
+    if group is not None:
+        wv = comm.all_reduce(wv, group)
+        z = comm.all_reduce(z, group)
+    return wv / z.transpose(1, 2)[..., None]

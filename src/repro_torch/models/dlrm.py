@@ -16,9 +16,17 @@ Training (:func:`loss_fn`) takes the same forward with each bag through
 transposed gather in plain PyTorch, as the reference's gradient is XLA's
 scatter-add.
 
-Not ported here: ``vocab_parallel_embeddings`` and ``param_pspecs`` (the
-sharded tables; they come with the distributed substrate) and
-``abstract_params``.
+Distribution (``policy=``): :func:`param_pspecs` row-shards each table
+over every mesh axis where its rows divide, over ``model`` alone where only
+that divides, and replicates it otherwise; the MLPs are replicated.  One
+rank holds a :class:`ShardedDLRM` (``repro_torch.params.shard_dlrm``), and
+:func:`vocab_parallel_embeddings` pools each table's bags with K6 on the
+rank's shard, then sums the shards' partial bags with one all-reduce per
+sharding (the Megatron vocab-parallel pattern).  K6 stays as it is: each
+shard carries one zero row at local index ``rows``, and an id outside the
+shard reads it.
+
+Not ported: ``abstract_params``.
 """
 
 from __future__ import annotations
@@ -33,12 +41,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..backend import resolve_device
+from ..distributed import comm
 from ..kernels import ops
 from .common import mlp_apply
 
 __all__ = ["CRITEO_1TB_VOCABS", "DLRMConfig", "DLRM", "embedding_bag",
            "dot_interaction", "serve", "score_candidates", "logits",
-           "loss_fn"]
+           "loss_fn", "param_pspecs", "table_shards", "ShardedDLRM",
+           "shard_ids", "vocab_parallel_embeddings", "forward"]
 
 # MLPerf Criteo-1TB per-feature cardinalities (day-0..22 preprocessing,
 # capped at 40M rows as in the MLPerf reference implementation).
@@ -122,9 +132,18 @@ class DLRM(nn.Module):
     """
 
     def __init__(self, cfg: DLRMConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 tables: Optional[list] = None):
         super().__init__()
         dev = resolve_device(device)
+        if tables is not None:
+            # Wrap the caller's f32 tables (views share their storage); only
+            # the MLPs are allocated here.
+            self.cfg = cfg
+            self.tables = nn.ParameterList(
+                nn.Parameter(t, requires_grad=False) for t in tables)
+            self._mlps(cfg, dev, generator)
+            return
         if dev.type == "cuda":
             need = 4 * cfg.param_count()
             free, _ = torch.cuda.mem_get_info(dev)
@@ -133,21 +152,29 @@ class DLRM(nn.Module):
                                   f"weights, {free / 1e9:.2f} GB free on "
                                   f"{dev}")
         self.cfg = cfg
-        bot = (cfg.n_dense,) + cfg.bot_mlp
-        top = (cfg.interaction_dim(),) + cfg.top_mlp
         self.tables = nn.ParameterList(_weight(v, cfg.embed_dim, device=dev)
                                        for v in cfg.vocab_sizes)
+        with torch.no_grad():
+            for t in self.tables:
+                t.zero_()
+                if generator is not None:
+                    t.normal_(0.0, 0.02, generator=generator)
+        self._mlps(cfg, dev, generator)
+
+    def _mlps(self, cfg: DLRMConfig, dev, generator) -> None:
+        """The MLPs: zero biases, weights zero or He-normal from
+        ``generator``, drawn after the tables."""
+        bot = (cfg.n_dense,) + cfg.bot_mlp
+        top = (cfg.interaction_dim(),) + cfg.top_mlp
         for name, dims in (("bot", bot), ("top", top)):
             setattr(self, f"{name}_w", nn.ParameterList(
                 _weight(a, b, device=dev) for a, b in zip(dims[:-1], dims[1:])))
             setattr(self, f"{name}_b", nn.ParameterList(
                 _weight(b, device=dev) for b in dims[1:]))
         with torch.no_grad():
-            for p in self.parameters():
+            for p in (*self.bot_w, *self.bot_b, *self.top_w, *self.top_b):
                 p.zero_()
             if generator is not None:
-                for t in self.tables:
-                    t.normal_(0.0, 0.02, generator=generator)
                 for w in (*self.bot_w, *self.top_w):
                     w.normal_(0.0, math.sqrt(2.0 / w.shape[0]),
                               generator=generator)
@@ -225,3 +252,143 @@ def score_candidates(model: DLRM, query: dict,
     embeddings, one matrix-vector product -> (Nc,) f32."""
     bot = model.bottom(query["dense"])
     return (candidates @ bot[0]).float()
+
+
+# ---------------------------------------------------------------------------
+# Vocab-parallel tables
+# ---------------------------------------------------------------------------
+
+def table_shards(v: int, policy) -> int:
+    """How many ways a table of ``v`` rows shards: over every axis, over
+    ``model`` alone, or not at all (1)."""
+    if v % policy.n_devices == 0:
+        return policy.n_devices
+    if v % policy.tp == 0:
+        return policy.tp
+    return 1
+
+
+def param_pspecs(cfg: DLRMConfig, policy) -> dict:
+    """Tables row-sharded over ALL mesh axes where the row count divides
+    (the 40M-row Criteo tables shard 512 ways, about 10 MB a device instead
+    of 20 GB replicated); tp-only or replicated as divisibility degrades.
+    MLPs are replicated (DP)."""
+    tp = policy.tp_axis
+    all_axes = policy.all_axes
+
+    def table_spec(v: int) -> tuple:
+        if v % policy.n_devices == 0:
+            return (all_axes, None)
+        if v % policy.tp == 0:
+            return (tp, None)
+        return (None, None)
+
+    bot = {"w": [(None, None)] * len(cfg.bot_mlp),
+           "b": [(None,)] * len(cfg.bot_mlp)}
+    top = {"w": [(None, None)] * len(cfg.top_mlp),
+           "b": [(None,)] * len(cfg.top_mlp)}
+    return {"tables": [table_spec(v) for v in cfg.vocab_sizes],
+            "bot": bot, "top": top}
+
+
+class ShardedDLRM:
+    """One rank's DLRM under ``policy``: each table's shard of ``rows``
+    rows (``table_shards``) with one zero row appended (local index
+    ``rows``; a replicated table has none), and the replicated MLPs as
+    ``{"w": [...], "b": [...]}``.  ``repro_torch.params.shard_dlrm``
+    builds it."""
+
+    def __init__(self, cfg: DLRMConfig, policy, tables: list, bot: dict,
+                 top: dict):
+        self.cfg, self.policy = cfg, policy
+        self.tables, self.bot, self.top = tables, bot, top
+        self.shards = [table_shards(v, policy) for v in cfg.vocab_sizes]
+        self.rows = [v // s for v, s in zip(cfg.vocab_sizes, self.shards)]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tables[0].device
+
+    def single_device_view(self) -> DLRM:
+        """At world size 1: a :class:`DLRM` whose tables are the views
+        ``shard[:rows]`` of this one's (the card holds one copy) and whose
+        MLPs are copies."""
+        if self.policy.n_devices != 1:
+            raise ValueError("a single-device view needs world size 1")
+        model = DLRM(self.cfg, device=self.device,
+                     tables=[t[:r] for t, r in zip(self.tables, self.rows)])
+        with torch.no_grad():
+            for name in ("bot", "top"):
+                mlp = model.mlp(name)
+                for key in ("w", "b"):
+                    for dst, src in zip(mlp[key], getattr(self, name)[key]):
+                        dst.copy_(src)
+        return model
+
+
+def shard_ids(model: ShardedDLRM, t: int, ids: torch.Tensor) -> torch.Tensor:
+    """Table ``t``'s ids (int32) -> ids into this rank's shard: an id the
+    shard holds at its local row, any other at the zero row ``rows``.  A
+    table without a zero row (replicated) keeps its ids."""
+    rows, table = model.rows[t], model.tables[t]
+    if table.shape[0] != rows + 1:
+        return ids
+    policy = model.policy
+    axes = policy.all_axes if model.shards[t] == policy.n_devices \
+        else policy.tp_axis
+    loc = ids - policy.coord(axes) * rows
+    return torch.where((loc >= 0) & (loc < rows), loc, rows).to(torch.int32)
+
+
+@torch.inference_mode()
+def vocab_parallel_embeddings(cfg: DLRMConfig, model: ShardedDLRM,
+                              sparse: torch.Tensor, policy) -> torch.Tensor:
+    """Row-sharded embedding bags: K6 over each table's local shard (ids
+    outside it read the shard's zero row), then one all-reduce over every
+    rank for the tables sharded over all axes and one over ``model`` for
+    those sharded over it alone.  ``sparse`` (B, 26, hot) is the same on
+    every rank; returns (B, 26, d), the same on every rank.
+
+    Traffic: the all-reduces of (B, n_sharded_tables, d), the DLRM analogue
+    of the paper's loadvert terms; ``core.comm_model.
+    dlrm_embedding_exchange`` models the all-to-all alternative."""
+    b = sparse.shape[0]
+    out = torch.empty((b, cfg.n_sparse, cfg.embed_dim), dtype=torch.float32,
+                      device=sparse.device)
+    kinds = {policy.n_devices: [], policy.tp: []}
+    for t, (table, rows) in enumerate(zip(model.tables, model.rows)):
+        if table.shape[0] == rows + 1:
+            kinds[model.shards[t]].append(t)
+        ops.embedding_bag(table, shard_ids(model, t, sparse[:, t, :]),
+                          out=out[:, t])
+    groups = {policy.n_devices: policy.all_axes, policy.tp: policy.tp_axis}
+    for n, tabs in kinds.items():
+        if tabs:
+            red = comm.all_reduce(out[:, tabs], policy.group(groups[n]))
+            out[:, tabs] = red
+    return out
+
+
+@torch.inference_mode()
+def forward(cfg: DLRMConfig, model, batch: dict, *,
+            policy=None) -> torch.Tensor:
+    """batch: dense (B, 13) f32, sparse (B, 26, hot) int32 -> logits (B,).
+
+    Under ``policy``, ``model`` is the rank's :class:`ShardedDLRM` and
+    every rank passes the same batch: the embeddings are vocab-parallel,
+    the interaction and top MLP data-parallel over every rank, and the
+    rank gets its slice of the logits, ``B / n_devices`` rows at
+    ``policy.coord(policy.all_axes)``."""
+    if policy is None:
+        return model(batch)
+    n = policy.n_devices
+    b = batch["dense"].shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} over {n} ranks")
+    lo = policy.coord(policy.all_axes) * (b // n)
+    emb = vocab_parallel_embeddings(cfg, model, batch["sparse"], policy)
+    dense = batch["dense"][lo:lo + b // n]
+    bot = mlp_apply(model.bot, dense, final_act=True)
+    feats = torch.cat([bot[:, None], emb[lo:lo + b // n]], dim=1)
+    top_in = torch.cat([feats[:, 0], dot_interaction(feats)], dim=-1)
+    return mlp_apply(model.top, top_in)[:, 0]

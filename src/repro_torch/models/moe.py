@@ -17,10 +17,16 @@ order that decides which ones is the reference's: assignments flatten
 ``(token, k)`` token-major, an assignment's slot is its rank among the
 earlier assignments to the same expert, and the ones at rank >= C drop.
 
+* :func:`moe_ffn_ep`: expert parallelism, one rank's program.  The
+  rank's tokens pack into per-destination capacity buckets ``(ep, E_loc,
+  C, d)``, go to the experts' owners by an all-to-all (dispatch), pass
+  through the rank's own ``E_loc`` experts, and come back by a second
+  all-to-all (combine): the traffic
+  ``repro_torch.core.comm_model.moe_dispatch_sync`` models.  On one rank
+  it is :func:`moe_ffn_capacity` bit for bit.
+
 No TPU kernel computes any of this: routing, dispatch and the expert
-products are plain PyTorch, as the reference's are XLA.  The reference's
-expert-parallel ``moe_ffn_ep`` (two all-to-alls over a mesh) waits for the
-distributed port.
+products are plain PyTorch, as the reference's are XLA.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from ..backend import resolve_device
 from .common import dense_init, swiglu
 
 __all__ = ["MoEConfig", "MoE", "MOE_KEYS", "router_topk", "moe_ffn_reference",
-           "moe_ffn_capacity", "init_moe_params"]
+           "moe_ffn_capacity", "moe_ffn_ep", "init_moe_params"]
 
 #: The expert weights, in the reference's param-dict names.
 MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
@@ -118,8 +124,12 @@ _expert_ffn = swiglu
 
 
 def moe_ffn_reference(params: Mapping[str, torch.Tensor], x: torch.Tensor,
-                      cfg: MoEConfig):
-    """All-expert compute with gated combine.  x: (T, d)."""
+                      cfg: MoEConfig, *, experts: slice = slice(None)):
+    """All-expert compute with gated combine.  x: (T, d).
+
+    ``experts``: the experts whose weights ``params`` holds (an expert
+    parallel rank's slice, the router whole); the result is then their
+    share of the combine, which the ranks' shares sum to."""
     expert_idx, gates, aux = router_topk(x, params["router"], cfg)
     # (E, T, d): every expert sees every token.
     h = _expert_ffn(x[None], params["w_gate"], params["w_up"],
@@ -127,7 +137,7 @@ def moe_ffn_reference(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     weights = torch.zeros(x.shape[0], cfg.n_experts, dtype=torch.float32,
                           device=x.device).scatter_add_(
         1, expert_idx.long(), gates).to(x.dtype)                   # (T, E)
-    out = torch.einsum("te,etd->td", weights, h)
+    out = torch.einsum("te,etd->td", weights[:, experts], h)
     return out, aux
 
 
@@ -169,6 +179,19 @@ def _pack_assignments(x: torch.Tensor, expert_idx: torch.Tensor,
     return token_of, flat_e, slot, keep, flat_g
 
 
+def _dispatch_buffer(x: torch.Tensor, token_of, flat_e, slot, keep,
+                     n_experts: int, capacity: int) -> torch.Tensor:
+    """The ``(E, C, d)`` buffer: which token fills each slot, T (the zero
+    row) where none does; dropped assignments write to a spare slot past
+    the buffer."""
+    T, d = x.shape
+    E, C = n_experts, capacity
+    fills = torch.full((E * C + 1,), T, dtype=torch.long, device=x.device)
+    fills[torch.where(keep, flat_e.long() * C + slot, E * C)] = \
+        token_of.long()
+    return torch.cat([x, x.new_zeros(1, d)])[fills[:-1]].view(E, C, d)
+
+
 def moe_ffn_capacity(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                      cfg: MoEConfig):
     """Single-device capacity-bucketed dispatch.  x: (T, d).
@@ -182,17 +205,51 @@ def moe_ffn_capacity(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     expert_idx, gates, aux = router_topk(x, params["router"], cfg)
     token_of, flat_e, slot, keep, flat_g = _pack_assignments(
         x, expert_idx, gates, E, C)
-    # Which token fills each slot: T (the zero row) where none does, and
-    # dropped assignments write to a spare slot past the buffer.
-    fills = torch.full((E * C + 1,), T, dtype=torch.long, device=x.device)
-    fills[torch.where(keep, flat_e.long() * C + slot, E * C)] = token_of.long()
-    buf = torch.cat([x, x.new_zeros(1, d)])[fills[:-1]].view(E, C, d)
+    buf = _dispatch_buffer(x, token_of, flat_e, slot, keep, E, C)
     out_buf = _expert_ffn(buf, params["w_gate"], params["w_up"],
                           params["w_down"])
-    del buf, fills  # 2.7 GB at qwen3-moe's B 2 x 32,768: freed before y_a
+    del buf  # 2.7 GB at qwen3-moe's B 2 x 32,768: freed before y_a
     weight = (keep.to(torch.float32) * flat_g).to(x.dtype)
     y_a = out_buf.view(E * C, d)[flat_e.long() * C + slot] * weight[:, None]
     del out_buf
+    return y_a.view(T, cfg.top_k, d).sum(dim=1), aux
+
+
+def moe_ffn_ep(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+               cfg: MoEConfig, *, group):
+    """Expert-parallel dispatch, one rank's program.
+
+    x: this rank's (T_loc, d) tokens; ``params``: the replicated router and
+    this rank's slice ``(E_loc, ...)`` of the expert weights (rank j of
+    ``group`` owns experts ``j * E_loc ..``).  The capacity C comes from
+    the local T.  Two all-to-alls of ``(ep, E_loc, C, d)`` buckets move
+    them to and from the experts' owners; the balance loss, computed on the
+    local routing, is averaged over the group."""
+    from ..distributed import comm
+
+    ep = comm.group_size(group)
+    E = cfg.n_experts
+    if E % ep:
+        raise ValueError(f"{E} experts over {ep} ranks")
+    E_loc = E // ep
+    T, d = x.shape
+    C = _capacity(T, cfg)
+    expert_idx, gates, aux = router_topk(x, params["router"], cfg)
+    token_of, flat_e, slot, keep, flat_g = _pack_assignments(
+        x, expert_idx, gates, E, C)
+    send = _dispatch_buffer(x, token_of, flat_e, slot, keep, E, C).view(
+        ep, E_loc, C, d)
+    recv = comm.all_to_all(send, group)       # (ep_src, E_loc, C, d)
+    del send
+    # (ep_src, E_loc, C, d) -> (E_loc, ep_src * C, d): the local experts.
+    h = recv.transpose(0, 1).reshape(E_loc, ep * C, d)
+    out = _expert_ffn(h, params["w_gate"], params["w_up"], params["w_down"])
+    del h, recv
+    back = out.view(E_loc, ep, C, d).transpose(0, 1)
+    ret = comm.all_to_all(back, group)        # (ep_dst, E_loc, C, d)
+    weight = (keep.to(torch.float32) * flat_g).to(x.dtype)
+    y_a = ret.reshape(E * C, d)[flat_e.long() * C + slot] * weight[:, None]
+    aux = comm.all_reduce(aux, group) / ep
     return y_a.view(T, cfg.top_k, d).sum(dim=1), aux
 
 

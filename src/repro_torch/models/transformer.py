@@ -26,8 +26,36 @@ does: the blocks are cast to the compute dtype, attention is
 package, and the reference trains through the same chunked path), each
 decoder group is rematerialised under ``cfg.remat``, and a large
 vocabulary's cross-entropy is computed and rematerialised a sequence chunk
-at a time.  The expert-parallel dispatch and the sharded and
-context-parallel paths are not ported.
+at a time.
+
+Distribution (``policy=``, a :class:`repro_torch.distributed.sharding.
+ShardingPolicy`): each rank runs the serving functions over its own
+:class:`ShardedTransformer` (its slices of the weights by
+:func:`param_pspecs`, from ``repro_torch.params.shard_transformer``), with
+the collectives the reference leaves to GSPMD written out:
+
+* the batch splits over the dp axes, and the residual stream's sequence
+  over the ``model`` axis when ``policy.seq_parallel_residual`` (the
+  reference's ``act_spec``): an all-gather of the sequence before each
+  column-parallel product, a reduce-scatter after each row-parallel one;
+  without it the row-parallel products end in an all-reduce;
+* attention is tensor-parallel over heads when both head counts divide
+  ``tp`` (K5 on the rank's heads in prefill), else context-parallel: the
+  queries stay sequence-sharded, keys and values are all-gathered, and the
+  chunked path takes ``q_offset`` (neither the TPU kernel nor K5 takes a
+  query offset);
+* the dense FFN is column- then row-parallel; MoE experts shard over
+  ``model`` (:func:`repro_torch.models.moe.moe_ffn_ep`, its balance loss
+  averaged over every rank), the arctic residual branch beside them
+  column- and row-parallel;
+* the embedding and the logits are vocab-parallel where the vocabulary
+  divides ``tp``: a masked local lookup summed over the ranks, and each
+  rank's vocabulary columns of the logits;
+* decode keeps the cache sequence-sharded over ``DecodePolicy.
+  cache_seq_axes`` and its batch over ``batch_axes``; each shard attends
+  over its slots and the flash-decoding partials combine over the shards.
+
+Training under a policy (distributed training) is not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +71,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..backend import resolve_device
+from ..distributed import comm
 from ..kernels import ops
 from ..optim.optimizers import make_step
 from . import attention as attn_lib
@@ -54,7 +83,9 @@ from .moe import MOE_KEYS, MoE, MoEConfig
 __all__ = ["TransformerConfig", "DecoderLayer", "Transformer", "LAYER_KEYS",
            "RESIDUAL_KEYS", "layer_keys", "forward", "forward_hidden",
            "make_prefill_step", "make_serve_step", "cache_shapes",
-           "init_cache", "loss_fn", "make_train_step"]
+           "init_cache", "loss_fn", "make_train_step", "param_pspecs",
+           "DecodePolicy", "cache_pspecs", "ShardedTransformer",
+           "gather_logits"]
 
 #: Per-layer weights of a dense config, in the reference's block-dict names
 #: and (in, out) layout: ``x @ w``.
@@ -206,14 +237,222 @@ class Transformer(nn.Module):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 
 
+# ---------------------------------------------------------------------------
+# Sharding: the spec trees and one rank's view
+# ---------------------------------------------------------------------------
+
+def _tp_heads(cfg: TransformerConfig, policy) -> bool:
+    return cfg.n_heads % policy.tp == 0 and cfg.n_kv_heads % policy.tp == 0
+
+
+def param_pspecs(cfg: TransformerConfig, policy) -> dict:
+    """Spec tree matching the reference layout (each entry an axis name or
+    None per dim, the reference's ``PartitionSpec`` entries)."""
+    tp = policy.tp_axis
+    hspec = tp if _tp_heads(cfg, policy) else None
+
+    def block_spec() -> dict:
+        blk = {
+            "ln1": (None, None), "ln2": (None, None),
+            "wq": (None, None, hspec),
+            "wk": (None, None, hspec),
+            "wv": (None, None, hspec),
+            "wo": (None, hspec, None),
+        }
+        if cfg.moe is not None:
+            blk["moe"] = {
+                "router": (None, None, None),
+                "w_gate": (None, tp, None, None),
+                "w_up": (None, tp, None, None),
+                "w_down": (None, tp, None, None),
+            }
+            if cfg.moe.dense_residual_d_ff:
+                blk["res_gate"] = (None, None, tp)
+                blk["res_up"] = (None, None, tp)
+                blk["res_down"] = (None, tp, None)
+        else:
+            blk["w_gate"] = (None, None, tp)
+            blk["w_up"] = (None, None, tp)
+            blk["w_down"] = (None, tp, None)
+        return blk
+
+    vocab = cfg.vocab % policy.tp == 0
+    specs = {
+        "embed": (tp, None) if vocab else (None, None),
+        "final_norm": (None,),
+        "blocks": [block_spec() for _ in cfg.window_pattern],
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = (None, tp) if vocab else (None, None)
+    return specs
+
+
+class ShardedTransformer:
+    """One rank's slices of a transformer's weights under ``policy``, by
+    :func:`param_pspecs`: ``embed`` (and ``unembed``), ``final_norm`` and
+    one object per layer holding the reference's names (``moe`` a dict),
+    in one dtype on one device.  ``repro_torch.params.shard_transformer``
+    builds it; the serving functions take it in place of a
+    :class:`Transformer` when given the same ``policy``."""
+
+    def __init__(self, cfg: TransformerConfig, policy, embed: torch.Tensor,
+                 final_norm: torch.Tensor, layers: list,
+                 unembed: Optional[torch.Tensor] = None):
+        if cfg.moe is not None and cfg.moe.n_experts % policy.tp:
+            raise ValueError(f"{cfg.name}: {cfg.moe.n_experts} experts do "
+                             f"not shard over tp={policy.tp}")
+        self.cfg, self.policy = cfg, policy
+        self.embed, self.final_norm, self.layers = embed, final_norm, layers
+        self.unembed = unembed
+
+    def unembed_weight(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.unembed
+
+
+class _RankView:
+    """What one rank's program needs of the policy: its groups, its
+    coordinates, its local head counts, and the collectives around the
+    column- and row-parallel products."""
+
+    def __init__(self, cfg: TransformerConfig, policy):
+        self.policy = policy
+        self.tp = policy.tp
+        self.tp_group = policy.group(policy.tp_axis)
+        self.ti = policy.coord(policy.tp_axis)
+        self.sp = policy.seq_parallel_residual
+        self.tp_heads = _tp_heads(cfg, policy)
+        div = self.tp if self.tp_heads else 1
+        self.n_heads, self.n_kv = cfg.n_heads // div, cfg.n_kv_heads // div
+        self.vocab = cfg.vocab % self.tp == 0
+
+    def batch(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """This rank's slice along dim 0 over ``axes``."""
+        n = self.policy.size(axes) if axes else 1
+        if t.shape[0] % n:
+            raise ValueError(f"batch {t.shape[0]} over {n} ranks")
+        b = t.shape[0] // n
+        lo = self.policy.coord(axes) * b if axes else 0
+        return t[lo:lo + b]
+
+    def seq_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's sequence shard of a full-sequence ``x``."""
+        s = x.shape[1] // self.tp
+        return x[:, self.ti * s:(self.ti + 1) * s]
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual layout -> the full sequence (before a
+        column-parallel product)."""
+        return comm.all_gather(x, self.tp_group, 1) if self.sp else x
+
+    def reduce_out(self, partial: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums -> the residual layout."""
+        if self.sp:
+            return comm.reduce_scatter(partial, self.tp_group, 1)
+        return comm.all_reduce(partial, self.tp_group)
+
+    def embed(self, model, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B_l, S) -> the residual layout, vocab-parallel where the
+        vocabulary shards: a masked local lookup, summed over ``tp``."""
+        if not self.vocab:
+            x = model.embed[tokens.long()]
+            return self.seq_slice(x) if self.sp else x
+        rows = model.embed.shape[0]
+        loc = tokens.long() - self.ti * rows
+        ok = (loc >= 0) & (loc < rows)
+        part = model.embed[loc.clamp(0, rows - 1)] * ok[..., None].to(
+            model.embed.dtype)
+        return self.reduce_out(part)
+
+    def logits(self, cfg: TransformerConfig, model,
+               x: torch.Tensor) -> torch.Tensor:
+        """Normed hidden (B_l, S', d) -> logits: this rank's vocabulary
+        columns where the vocabulary shards, else all of them."""
+        logits = rms_norm(x, model.final_norm) @ model.unembed_weight()
+        if cfg.final_softcap is not None:
+            logits = softcap(logits, cfg.final_softcap)
+        return logits
+
+    def full_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        return comm.all_gather(logits, self.tp_group, -1) if self.vocab \
+            else logits
+
+    def attention(self, cfg: TransformerConfig, layer, x: torch.Tensor,
+                  freqs: torch.Tensor, attend):
+        """x + the attention block's output, and the layer's roped keys and
+        values: the rank's heads over the full sequence (tensor parallel),
+        or all heads over the full sequence (context parallel)."""
+        h = rms_norm(x, layer.ln1)
+        if self.tp_heads:
+            hf = self.gather_seq(h)
+            b, s, _ = hf.shape
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device)[None]
+            q, k, v = _project_qkv(cfg, layer, hf, positions, freqs,
+                                   self.n_heads, self.n_kv)
+            out = attend(cfg, layer, q, k, v)
+            part = out.reshape(b, s, self.n_heads * cfg.d_head) @ layer.wo
+            return x + self.reduce_out(part), k, v
+        hl = h if self.sp else self.seq_slice(h)
+        b, s_loc, _ = hl.shape
+        offset = self.ti * s_loc
+        positions = (offset + torch.arange(s_loc, dtype=torch.int32,
+                                           device=x.device))[None]
+        q, k, v = _project_qkv(cfg, layer, hl, positions, freqs,
+                               cfg.n_heads, cfg.n_kv_heads)
+        kg = comm.all_gather(k, self.tp_group, 1)
+        vg = comm.all_gather(v, self.tp_group, 1)
+        out = attn_lib.chunked_causal_attention(
+            q, kg, vg, window=layer.window, attn_softcap=cfg.attn_softcap,
+            q_chunk=min(cfg.q_chunk, s_loc), q_offset=offset)
+        out = out.reshape(b, s_loc, cfg.n_heads * cfg.d_head) @ layer.wo
+        if not self.sp:
+            out = comm.all_gather(out, self.tp_group, 1)
+        return x + out, kg, vg
+
+    def full_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """A layer's keys or values (from :meth:`attention`) -> every kv
+        head."""
+        return comm.all_gather(t, self.tp_group, 2) if self.tp_heads else t
+
+    def ffn(self, cfg: TransformerConfig, layer, x: torch.Tensor):
+        """x + the FFN block's output, and the MoE balance loss (None for a
+        dense config)."""
+        h = rms_norm(x, layer.ln2)
+        if cfg.moe is None:
+            part = swiglu(self.gather_seq(h), layer.w_gate, layer.w_up,
+                          layer.w_down)
+            return x + self.reduce_out(part), None
+        hl = h if self.sp else self.seq_slice(h)
+        b, s, d = hl.shape
+        out, aux = moe_lib.moe_ffn_ep(layer.moe, hl.reshape(b * s, d),
+                                      cfg.moe, group=self.tp_group)
+        # Replicated over every rank (routing differs per data shard).
+        everyone = self.policy.group(self.policy.all_axes)
+        aux = comm.all_reduce(aux, everyone) / self.policy.n_devices
+        out = out.reshape(b, s, d)
+        if not self.sp:
+            out = comm.all_gather(out, self.tp_group, 1)
+        if cfg.moe.dense_residual_d_ff:
+            out = out + self.reduce_out(swiglu(
+                self.gather_seq(h), layer.res_gate, layer.res_up,
+                layer.res_down))
+        return x + out, aux
+
+
+def _project_qkv(cfg: TransformerConfig, layer, h: torch.Tensor,
+                 positions: torch.Tensor, freqs: torch.Tensor, n_heads: int,
+                 n_kv: int):
+    b, s, _ = h.shape
+    q = (h @ layer.wq).reshape(b, s, n_heads, cfg.d_head)
+    k = (h @ layer.wk).reshape(b, s, n_kv, cfg.d_head)
+    v = (h @ layer.wv).reshape(b, s, n_kv, cfg.d_head)
+    return apply_rope(q, positions, freqs), apply_rope(k, positions, freqs), v
+
+
 def _qkv(cfg: TransformerConfig, layer: DecoderLayer, x: torch.Tensor,
          positions: torch.Tensor, freqs: torch.Tensor):
-    b, s, _ = x.shape
-    h = rms_norm(x, layer.ln1)
-    q = (h @ layer.wq).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (h @ layer.wk).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = (h @ layer.wv).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    return apply_rope(q, positions, freqs), apply_rope(k, positions, freqs), v
+    return _project_qkv(cfg, layer, rms_norm(x, layer.ln1), positions, freqs,
+                        cfg.n_heads, cfg.n_kv_heads)
 
 
 def _ffn(cfg: TransformerConfig, layer: DecoderLayer, x: torch.Tensor, *,
@@ -265,20 +504,28 @@ def _positions(cfg: TransformerConfig, s: int, device):
 
 def _layers(cfg: TransformerConfig, layers, x: torch.Tensor,
             positions: torch.Tensor, freqs: torch.Tensor, attend,
-            on_kv=None) -> tuple[torch.Tensor, torch.Tensor]:
+            on_kv=None, rank: Optional[_RankView] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The one layer loop, for serving and training alike: ``x`` through
     ``layers``, attention through ``attend(cfg, layer, q, k, v)`` (K5 in
     serving, the chunked path in training), then the FFN.  Returns (x, the
     layers' MoE balance losses summed in fp32, 0 for a dense config);
     ``on_kv(n, k, v)`` receives the n-th layer's roped keys and values
-    (B, S, Hk, d_head)."""
+    (B, S, Hk, d_head).  With a ``rank`` view, ``x`` is the rank's residual
+    layout and each block runs sharded (:class:`_RankView`); ``on_kv`` then
+    receives the rank's keys and values as :meth:`_RankView.attention`
+    returns them."""
     b, s, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for n, layer in enumerate(layers):
-        q, k, v = _qkv(cfg, layer, x, positions, freqs)
-        out = attend(cfg, layer, q, k, v)
-        x = x + out.reshape(b, s, cfg.n_heads * cfg.d_head) @ layer.wo
-        x, a = _ffn(cfg, layer, x)
+        if rank is not None:
+            x, k, v = rank.attention(cfg, layer, x, freqs, attend)
+            x, a = rank.ffn(cfg, layer, x)
+        else:
+            q, k, v = _qkv(cfg, layer, x, positions, freqs)
+            out = attend(cfg, layer, q, k, v)
+            x = x + out.reshape(b, s, cfg.n_heads * cfg.d_head) @ layer.wo
+            x, a = _ffn(cfg, layer, x)
         if on_kv is not None:
             on_kv(n, k, v)
         if a is not None:
@@ -286,11 +533,28 @@ def _layers(cfg: TransformerConfig, layers, x: torch.Tensor,
     return x, aux
 
 
-def _prefill_layers(cfg: TransformerConfig, model: Transformer,
-                    tokens: torch.Tensor,
-                    on_kv=None) -> tuple[torch.Tensor, torch.Tensor]:
+def _rank_view(cfg: TransformerConfig, model, policy):
+    if policy is None:
+        return None
+    if not isinstance(model, ShardedTransformer) or model.policy is not policy:
+        raise TypeError("a policy path takes the ShardedTransformer built "
+                        "for that policy (params.shard_transformer)")
+    return _RankView(cfg, policy)
+
+
+def _prefill_layers(cfg: TransformerConfig, model, tokens: torch.Tensor,
+                    on_kv=None, rank: Optional[_RankView] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The serving pass: (the residual stream after every layer, the MoE
-    balance loss), K5 on every layer; ``on_kv`` as in :func:`_layers`."""
+    balance loss), K5 on every layer (on the rank's heads under tensor
+    parallelism; context parallelism takes the chunked path); ``on_kv`` as
+    in :func:`_layers`.  With a ``rank`` view, ``tokens`` is the rank's
+    batch slice (B_l, S)."""
+    if rank is not None:
+        x = rank.embed(model, tokens)
+        freqs = rope_freqs(cfg.d_head, theta=cfg.rope_theta, device=x.device)
+        return _layers(cfg, model.layers, x, None, freqs, _k5_attention,
+                       on_kv, rank)
     x = model.embed[tokens.long()]
     positions, freqs = _positions(cfg, tokens.shape[1], x.device)
     return _layers(cfg, model.layers, x, positions, freqs, _k5_attention,
@@ -298,21 +562,53 @@ def _prefill_layers(cfg: TransformerConfig, model: Transformer,
 
 
 @torch.inference_mode()
-def forward_hidden(cfg: TransformerConfig, model: Transformer,
-                   tokens: torch.Tensor):
+def forward_hidden(cfg: TransformerConfig, model, tokens: torch.Tensor, *,
+                   policy=None):
     """tokens (B, S) -> (final normed hidden (B, S, d), aux_loss): the MoE
-    balance loss summed over the layers in fp32, 0 for a dense config."""
-    x, aux = _prefill_layers(cfg, model, tokens)
+    balance loss summed over the layers in fp32, 0 for a dense config.
+
+    Under ``policy`` every rank passes the same tokens and ``model`` is its
+    :class:`ShardedTransformer`; the hidden is the rank's block of the
+    residual layout (``policy.act_spec()``), the loss the global one."""
+    rank = _rank_view(cfg, model, policy)
+    if rank is not None:
+        tokens = rank.batch(tokens, policy.dp_axes)
+    x, aux = _prefill_layers(cfg, model, tokens, rank=rank)
     return rms_norm(x, model.final_norm), aux
 
 
 @torch.inference_mode()
-def forward(cfg: TransformerConfig, model: Transformer,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: TransformerConfig, model, tokens: torch.Tensor, *,
+            policy=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V).  S must meet K5's block contract
     (S <= 128 or S % 128 == 0).  The reference returns the MoE balance loss
-    beside the logits; here :func:`forward_hidden` does."""
-    return _logits(cfg, model, _prefill_layers(cfg, model, tokens)[0])
+    beside the logits; here :func:`forward_hidden` does.
+
+    Under ``policy`` every rank passes the same tokens and gets its block of
+    the logits: its batch slice, all of the sequence and its vocabulary
+    columns where the vocabulary divides ``tp`` (the reference's
+    vocab-parallel logits), else its residual block of positions and every
+    column.  :func:`gather_logits` assembles them."""
+    rank = _rank_view(cfg, model, policy)
+    if rank is None:
+        return _logits(cfg, model, _prefill_layers(cfg, model, tokens)[0])
+    x, _ = _prefill_layers(cfg, model, rank.batch(tokens, policy.dp_axes),
+                           rank=rank)
+    if rank.vocab:
+        x = rank.gather_seq(x)
+    return rank.logits(cfg, model, x)
+
+
+def gather_logits(cfg: TransformerConfig, logits: torch.Tensor,
+                  policy) -> torch.Tensor:
+    """Every rank's block of :func:`forward`'s logits -> the global (B, S,
+    V) logits on every rank (all-gathers, recorded like any other)."""
+    rank = _RankView(cfg, policy)
+    if rank.vocab:
+        logits = comm.all_gather(logits, rank.tp_group, 2)
+    elif rank.sp:
+        logits = comm.all_gather(logits, rank.tp_group, 1)
+    return comm.all_gather(logits, policy.group(policy.dp_axes), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -453,6 +749,20 @@ def make_train_step(cfg: TransformerConfig, optimizer):
     return train_step
 
 
+@dataclass(frozen=True)
+class DecodePolicy:
+    """How the KV cache is laid out on the mesh.
+
+    cache_seq_axes: mesh axes sharding the cache sequence dimension.  decode
+    shapes use ("model",); the 500k single-sequence shape uses ("data",
+    "model") so 256 devices each hold 2k slots.
+    batch_axes: axes sharding the decode batch (() when batch == 1).
+    """
+
+    cache_seq_axes: tuple[str, ...] = ("model",)
+    batch_axes: tuple[str, ...] = ("data",)
+
+
 def cache_shapes(cfg: TransformerConfig, batch: int,
                  max_seq: int) -> list[tuple]:
     """Per-pattern-entry cache shapes (G, B, S_entry, Hk, d_head)."""
@@ -461,85 +771,199 @@ def cache_shapes(cfg: TransformerConfig, batch: int,
              cfg.n_kv_heads, cfg.d_head) for window in cfg.window_pattern]
 
 
+def cache_pspecs(cfg: TransformerConfig, policy,
+                 decode: DecodePolicy) -> dict:
+    """The cache's spec per entry: (None, batch axes, sequence axes, None,
+    None)."""
+    seq = decode.cache_seq_axes if len(decode.cache_seq_axes) > 1 else (
+        decode.cache_seq_axes[0] if decode.cache_seq_axes else None)
+    bat = decode.batch_axes if len(decode.batch_axes) > 1 else (
+        decode.batch_axes[0] if decode.batch_axes else None)
+    spec = (None, bat, seq, None, None)
+    out = {}
+    for i in range(len(cfg.window_pattern)):
+        out[f"k{i}"] = spec
+        out[f"v{i}"] = spec
+    return out
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, *,
-               dtype: Optional[torch.dtype] = None, device=None) -> dict:
+               dtype: Optional[torch.dtype] = None, device=None,
+               policy=None, decode: Optional[DecodePolicy] = None) -> dict:
     """Zeroed caches ``{"k{i}", "v{i}"}`` per pattern entry ``i``, in the
-    compute dtype, on CUDA unless ``device`` says otherwise."""
+    compute dtype, on CUDA unless ``device`` says otherwise.  Under
+    ``policy`` (with ``decode``, default :class:`DecodePolicy`), this rank's
+    block of the global caches by :func:`cache_pspecs`."""
     dev = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     cache = {}
     for i, shape in enumerate(cache_shapes(cfg, batch, max_seq)):
+        if policy is not None:
+            shape = _local_cache_shape(shape, policy,
+                                       decode or DecodePolicy())
         cache[f"k{i}"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache[f"v{i}"] = torch.zeros(shape, dtype=dtype, device=dev)
     return cache
 
 
+def _local_cache_shape(shape: tuple, policy, decode: DecodePolicy) -> tuple:
+    g, b, s, hk, dh = shape
+    nb = policy.size(decode.batch_axes) if decode.batch_axes else 1
+    ns = policy.size(decode.cache_seq_axes) if decode.cache_seq_axes else 1
+    if b % nb or s % ns:
+        raise ValueError(f"cache (B {b}, S {s}) over {nb} x {ns} ranks")
+    return (g, b // nb, s // ns, hk, dh)
+
+
+def _seq_block(policy, decode: DecodePolicy, s_entry: int) -> tuple:
+    """(this rank's first slot, its slot count) of an entry's sequence,
+    and the group of the sequence shards (None for one shard)."""
+    axes = decode.cache_seq_axes
+    if not axes:
+        return 0, s_entry, None
+    s_loc = s_entry // policy.size(axes)
+    return policy.coord(axes) * s_loc, s_loc, policy.group(axes)
+
+
 def make_prefill_step(cfg: TransformerConfig, *,
-                      max_seq: Optional[int] = None):
+                      max_seq: Optional[int] = None, policy=None,
+                      decode: DecodePolicy = DecodePolicy()):
     """Returns prefill(model, tokens (B, S)) -> (last logits (B, V), cache).
 
     One inference prefill: the forward pass plus the KV cache, sized for
     ``max_seq`` positions (default S) so decode continues at pos = S.  A
     windowed entry keeps the last ``window`` positions in ring layout (slot
     ``p % window`` holds position p); a longer entry is zero past S.
+
+    Under ``policy`` every rank passes the same tokens and its
+    :class:`ShardedTransformer`, and gets its batch slice (over the dp
+    axes) of the logits, every column, and its block of the cache in
+    ``decode``'s layout, which :func:`make_serve_step` with the same
+    policies continues (``decode.batch_axes`` must be the dp axes).
     """
     P = len(cfg.window_pattern)
 
     @torch.inference_mode()
-    def prefill(model: Transformer, tokens: torch.Tensor):
+    def prefill(model, tokens: torch.Tensor):
+        rank = _rank_view(cfg, model, policy)
+        b_all = tokens.shape[0]
+        if rank is not None:
+            if tuple(decode.batch_axes) != tuple(policy.dp_axes):
+                raise ValueError(f"the prefill's batch shards over "
+                                 f"{policy.dp_axes}, the cache's over "
+                                 f"{decode.batch_axes}")
+            tokens = rank.batch(tokens, policy.dp_axes)
         b, s = tokens.shape
         target = max_seq or s
         if target < s:
             raise ValueError(f"max_seq={target} is shorter than the prompt "
                              f"({s})")
-        cache = init_cache(cfg, b, target, dtype=model.embed.dtype,
-                           device=model.embed.device)
+        cache = init_cache(cfg, b_all, target, dtype=model.embed.dtype,
+                           device=model.embed.device,
+                           policy=policy, decode=decode)
+        entries = [shape[2] for shape in cache_shapes(cfg, b, target)]
+        blocks = [_seq_block(policy, decode, e)[:2] if rank is not None
+                  else (0, e) for e in entries]
 
         def store(n: int, k: torch.Tensor, v: torch.Tensor) -> None:
+            """Slots [lo, lo + n_slots) of the full-sequence entry: all of
+            it on one device, the rank's block of it under a policy."""
             g, i = divmod(n, P)
+            s_entry, (lo, n_slots) = entries[i], blocks[i]
             for name, t in (("k", k), ("v", v)):
+                if rank is not None:
+                    t = rank.full_kv(t)
                 slots = cache[f"{name}{i}"][g]
-                s_entry = slots.shape[1]
                 if s > s_entry:  # a windowed entry: the last s_entry, rolled
                     slots.copy_(torch.roll(t[:, s - s_entry:],
                                            shifts=(s - s_entry) % s_entry,
-                                           dims=1))
-                else:
-                    slots[:, :s] = t
+                                           dims=1)[:, lo:lo + n_slots])
+                elif lo < s:
+                    hi = min(lo + n_slots, s)
+                    slots[:, :hi - lo] = t[:, lo:hi]
 
-        x, _ = _prefill_layers(cfg, model, tokens, on_kv=store)
-        return _logits(cfg, model, x[:, -1:])[:, 0], cache
+        x, _ = _prefill_layers(cfg, model, tokens, on_kv=store, rank=rank)
+        if rank is None:
+            return _logits(cfg, model, x[:, -1:])[:, 0], cache
+        # The whole sequence, so that the last position is a view of it as
+        # on one device (the same product, bit for bit at world size 1).
+        x = rank.gather_seq(x)
+        logits = rank.full_vocab(rank.logits(cfg, model, x[:, -1:]))[:, 0]
+        return logits, cache
 
     return prefill
 
 
-def make_serve_step(cfg: TransformerConfig, max_seq: int):
+def _decode_attention_sharded(cfg: TransformerConfig, policy,
+                              decode: DecodePolicy, q, k_cache, v_cache,
+                              k_new, v_new, pos: int,
+                              window: Optional[int]) -> torch.Tensor:
+    """Decode attention over this rank's shard of the cache: write the new
+    key and value where ``pos`` lands in the shard (in place), attend over
+    the shard's valid slots, and combine the flash-decoding partials over
+    the cache's sequence shards."""
+    s_loc = k_cache.shape[1]
+    n = policy.size(decode.cache_seq_axes) if decode.cache_seq_axes else 1
+    s_entry = s_loc * n
+    lo, _, group = _seq_block(policy, decode, s_entry)
+    write = pos % s_entry if window is not None else pos
+    if lo <= write < lo + s_loc:
+        k_cache[:, write - lo] = k_new[:, 0]
+        v_cache[:, write - lo] = v_new[:, 0]
+    slots = lo + torch.arange(s_loc, device=q.device)
+    valid = (slots <= pos) | (window is not None and pos >= s_entry)
+    wv, m, z = attn_lib.decode_attention_partial(
+        q, k_cache, v_cache,
+        length_mask=valid[None].expand(q.shape[0], s_loc),
+        attn_softcap=cfg.attn_softcap)
+    return attn_lib.combine_decode_partials(wv, m, z, group).to(q.dtype)
+
+
+def make_serve_step(cfg: TransformerConfig, max_seq: int, *, policy=None,
+                    decode: DecodePolicy = DecodePolicy()):
     """Returns serve_step(model, cache, tokens (B, 1), pos) ->
     (logits (B, V), cache).
 
     One decode step: write the token's roped key and value at ``pos`` (the
     ring slot ``pos % window`` of a windowed entry) and attend over the
-    valid slots.  MoE layers run every expert (the reference's decode).  The cache is updated in place, where the reference
-    returns an updated copy; the same dict is returned.
+    valid slots.  MoE layers run every expert (the reference's decode).
+    The cache is updated in place, where the reference returns an updated
+    copy; the same dict is returned.
+
+    Under ``policy`` every rank passes the same tokens, its
+    :class:`ShardedTransformer` and its block of the cache (``decode``'s
+    layout), and gets its batch slice (over ``decode.batch_axes``) of the
+    logits, every column.  The residual is not sequence-sharded in a
+    decode step: the row-parallel products end in an all-reduce, and the
+    attention gathers the rank's query heads (tensor parallel) before it
+    attends over the sequence shard.
     """
     P = len(cfg.window_pattern)
 
     @torch.inference_mode()
-    def serve_step(model: Transformer, cache: dict, tokens: torch.Tensor,
-                   pos: int):
+    def serve_step(model, cache: dict, tokens: torch.Tensor, pos: int):
+        rank = _rank_view(cfg, model, policy)
+        if rank is not None:
+            tokens = rank.batch(tokens, decode.batch_axes)
+            rank.sp = False
         b = tokens.shape[0]
         pos = int(pos)
-        x = model.embed[tokens.long()]
+        x = model.embed[tokens.long()] if rank is None else \
+            rank.embed(model, tokens)
         dev = x.device
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
         freqs = rope_freqs(cfg.d_head, theta=cfg.rope_theta, device=dev)
         for n, layer in enumerate(model.layers):
             g, i = divmod(n, P)
             window = layer.window
+            kc, vc = cache[f"k{i}"][g], cache[f"v{i}"][g]
+            if rank is not None:
+                x = _sharded_decode_layer(cfg, rank, decode, layer, x,
+                                          positions, freqs, kc, vc, pos)
+                continue
             s_entry = min(window, max_seq) if window is not None else max_seq
             q, kn, vn = _qkv(cfg, layer, x, positions, freqs)
             write = pos % s_entry if window is not None else pos
-            kc, vc = cache[f"k{i}"][g], cache[f"v{i}"][g]
             # In place: the reference returns an updated copy instead.
             kc[:, write] = kn[:, 0]
             vc[:, write] = vn[:, 0]
@@ -550,6 +974,40 @@ def make_serve_step(cfg: TransformerConfig, max_seq: int):
                 attn_softcap=cfg.attn_softcap)
             x = x + out.reshape(b, 1, cfg.n_heads * cfg.d_head) @ layer.wo
             x, _ = _ffn(cfg, layer, x, decode=True)
-        return _logits(cfg, model, x)[:, 0], cache
+        if rank is None:
+            return _logits(cfg, model, x)[:, 0], cache
+        return rank.full_vocab(rank.logits(cfg, model, x))[:, 0], cache
 
     return serve_step
+
+
+def _sharded_decode_layer(cfg: TransformerConfig, rank: _RankView,
+                          decode: DecodePolicy, layer, x, positions, freqs,
+                          kc, vc, pos: int) -> torch.Tensor:
+    """One layer of a decode step on one rank (the residual replicated
+    over ``tp``): attention over the rank's cache shard, every query head,
+    then the FFN (MoE: the rank's experts, every token), each
+    row-parallel product summed over ``tp``."""
+    b = x.shape[0]
+    q, kn, vn = _project_qkv(cfg, layer, rms_norm(x, layer.ln1), positions,
+                             freqs, rank.n_heads, rank.n_kv)
+    q, kn, vn = (rank.full_kv(t) for t in (q, kn, vn))
+    out = _decode_attention_sharded(cfg, rank.policy, decode, q, kc, vc, kn,
+                                    vn, pos, layer.window)
+    if rank.tp_heads:
+        lo = rank.ti * rank.n_heads
+        out = out[:, :, lo:lo + rank.n_heads]
+    out = out.reshape(b, 1, rank.n_heads * cfg.d_head) @ layer.wo
+    x = x + (rank.reduce_out(out) if rank.tp_heads else out)
+    h = rms_norm(x, layer.ln2)
+    if cfg.moe is None:
+        return x + rank.reduce_out(swiglu(h, layer.w_gate, layer.w_up,
+                                          layer.w_down))
+    e_loc = cfg.moe.n_experts // rank.tp
+    y, _ = moe_lib.moe_ffn_reference(
+        layer.moe, h.reshape(b, cfg.d_model), cfg.moe,
+        experts=slice(rank.ti * e_loc, (rank.ti + 1) * e_loc))
+    y = y.reshape(b, 1, cfg.d_model)
+    if cfg.moe.dense_residual_d_ff:
+        y = y + swiglu(h, layer.res_gate, layer.res_up, layer.res_down)
+    return x + rank.reduce_out(y)

@@ -54,6 +54,7 @@ differentiates a module's own weights.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -62,14 +63,18 @@ from torch import nn
 
 from .backend import resolve_device
 from .models.common import dense_init, embed_init, mlp_init
-from .models.dlrm import DLRM, DLRMConfig
+from .distributed.sharding import shard_slices
+from .models.dlrm import DLRM, DLRMConfig, ShardedDLRM
+from .models.dlrm import param_pspecs as dlrm_pspecs
 from .models.gnn.equiformer_v2 import EquiformerV2, EquiformerV2Config
 from .models.gnn.gatedgcn import LAYER_KEYS as GATEDGCN_KEYS
 from .models.gnn.gatedgcn import GatedGCN, GatedGCNConfig
 from .models.gnn.gcn import GCN, GCNConfig, layer_dims
 from .models.gnn.meshgraphnet import MeshGraphNet, MeshGraphNetConfig, mlp_dims
 from .models.moe import MOE_KEYS, init_moe_params
-from .models.transformer import Transformer, TransformerConfig, layer_keys
+from .models.transformer import (ShardedTransformer, Transformer,
+                                 TransformerConfig, layer_keys)
+from .models.transformer import param_pspecs as transformer_pspecs
 from .tree import tree_map
 
 __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
@@ -77,7 +82,8 @@ __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
            "load_dlrm", "gnn_params", "load_gcn", "load_gatedgcn",
            "load_meshgraphnet", "load_equiformer_v2", "module_tree",
            "dump_transformer", "dump_dlrm", "dump_gnn", "tensor_tree",
-           "to_numpy", "bind", "tree_loss"]
+           "to_numpy", "bind", "tree_loss", "shard_transformer",
+           "shard_dlrm"]
 
 
 def gcn_params(dims: Sequence[int], seed: int = 0) -> dict:
@@ -566,3 +572,121 @@ def tree_loss(model: nn.Module, fn: Callable) -> Callable:
         return torch.func.functional_call(wrapper, weights, args)
 
     return loss
+
+
+# ---------------------------------------------------------------------------
+# One rank's slices of a sharded model
+# ---------------------------------------------------------------------------
+
+def _cut(src, spec: tuple, policy, *, device, dtype) -> torch.Tensor:
+    """This rank's block of ``src`` (a numpy array or a tensor) by
+    ``spec``, on ``device`` in ``dtype``: a view where ``src`` is already
+    there in that dtype."""
+    block = src[shard_slices(src.shape, spec, policy)]
+    if isinstance(block, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(block, np.float32)).to(
+            device=device, dtype=dtype)
+    return block.to(device=device, dtype=dtype)
+
+
+def shard_transformer(source, cfg: TransformerConfig, policy, *,
+                      device=None, dtype: Optional[torch.dtype] = None
+                      ) -> ShardedTransformer:
+    """This rank's :class:`ShardedTransformer`: ``source``, a
+    reference-layout numpy tree (:func:`transformer_params`, or the
+    reference's ``init_params`` after ``np.asarray``) or a
+    :class:`Transformer`, cut by ``transformer.param_pspecs(cfg, policy)``,
+    in ``dtype`` (by default the module's, or the config's compute dtype
+    for a tree) on ``device`` (CUDA by default).  From a module already on
+    the device in that dtype, the slices are views."""
+    dev = resolve_device(device)
+    module = isinstance(source, Transformer)
+    dtype = dtype or (source.embed.dtype if module else cfg.compute_dtype)
+    specs = transformer_pspecs(cfg, policy)
+    P = len(cfg.window_pattern)
+    kw = {"device": dev, "dtype": dtype}
+
+    def top(name: str) -> torch.Tensor:
+        src = getattr(source, name) if module else source[name]
+        return _cut(src.detach() if module else src, specs[name], policy,
+                    **kw)
+
+    layers = []
+    for n in range(cfg.n_layers):
+        g, i = divmod(n, P)
+        spec = specs["blocks"][i]
+        if module:
+            mod = source.layers[n]
+            leaf = lambda key, sp=None: _cut(  # noqa: E731
+                getattr(mod, key).detach(), (sp or spec[key])[1:], policy,
+                **kw)
+            expert = lambda key: _cut(  # noqa: E731
+                mod.moe[key].detach(), spec["moe"][key][1:], policy, **kw)
+        else:
+            blk = source["blocks"][i]
+            leaf = lambda key: _cut(  # noqa: E731
+                np.asarray(blk[key])[g], spec[key][1:], policy, **kw)
+            expert = lambda key: _cut(  # noqa: E731
+                np.asarray(blk["moe"][key])[g], spec["moe"][key][1:],
+                policy, **kw)
+        layer = SimpleNamespace(window=cfg.window_pattern[i],
+                                **{key: leaf(key) for key in layer_keys(cfg)})
+        if cfg.moe is not None:
+            layer.moe = {key: expert(key) for key in MOE_KEYS}
+        layers.append(layer)
+    return ShardedTransformer(
+        cfg, policy, top("embed"), top("final_norm"), layers,
+        None if cfg.tie_embeddings else top("unembed"))
+
+
+def shard_dlrm(source, cfg: DLRMConfig, policy, *, device=None,
+               seed: int = 0) -> ShardedDLRM:
+    """This rank's :class:`ShardedDLRM`, f32 on ``device`` (CUDA by
+    default): each table's shard by ``dlrm.param_pspecs(cfg, policy)``,
+    with a zero row appended where the table is sharded, and the MLPs.
+
+    ``source`` is a reference-layout numpy tree (:func:`dlrm_params`, or the
+    reference's ``init_params`` after ``np.asarray``), or None to draw in
+    place on the device: table ``t``'s shard 0.02-normal from a generator
+    seeded with ``seed``, ``t`` and the rank's index along the axes that
+    shard the table (0 for a replicated table), so a shard is the same on
+    every rank that holds it; the MLPs He-normal (zero biases) from one
+    seeded with ``seed``, the same on every rank."""
+    dev = resolve_device(device)
+    specs = dlrm_pspecs(cfg, policy)
+    d = cfg.embed_dim
+    tables = []
+    for t, (v, spec) in enumerate(zip(cfg.vocab_sizes, specs["tables"])):
+        pad = spec[0] is not None
+        if source is not None:
+            table = _cut(np.asarray(source["tables"][t]), spec, policy,
+                         device=dev, dtype=torch.float32)
+            if pad:
+                table = torch.cat([table, table.new_zeros(1, d)])
+        else:
+            rows = v // policy.size(spec[0]) if pad else v
+            shard = policy.coord(spec[0]) if pad else 0
+            gen = torch.Generator(device=dev).manual_seed(
+                (1_000_003 * seed + t) * 1_000_033 + shard)
+            table = torch.empty((rows + pad, d), dtype=torch.float32,
+                                device=dev)
+            with torch.no_grad():
+                table[:rows].normal_(0.0, 0.02, generator=gen)
+                table[rows:].zero_()
+        tables.append(table)
+    if source is not None:
+        mlps = {name: {key: [torch.as_tensor(np.asarray(a, np.float32),
+                                             device=dev)
+                             for a in source[name][key]]
+                       for key in ("w", "b")} for name in ("bot", "top")}
+    else:
+        mgen = torch.Generator(device=dev).manual_seed(seed)
+        mlps = {}
+        for name, dims in (("bot", (cfg.n_dense,) + cfg.bot_mlp),
+                           ("top", (cfg.interaction_dim(),) + cfg.top_mlp)):
+            ws = [torch.empty((a, b), device=dev).normal_(
+                0.0, (2.0 / a) ** 0.5, generator=mgen)
+                for a, b in zip(dims[:-1], dims[1:])]
+            mlps[name] = {"w": ws, "b": [torch.zeros(b, device=dev)
+                                         for b in dims[1:]]}
+    return ShardedDLRM(cfg, policy, tables, mlps["bot"], mlps["top"])

@@ -413,7 +413,9 @@ def test_preflight_passes_the_real_specs_with_the_same_records():
     gated = conformance.run_conformance(device="cpu")
     bypass = conformance.run_conformance(points=points, device="cpu",
                                          preflight_audit=False)
-    assert len(gated) == 204 and all(r.ok for r in gated)
+    # 204 schedule and boundary records, and one collective_wire record
+    # per dataflow and point (2 x 12).
+    assert len(gated) == 228 and all(r.ok for r in gated)
     assert [r.as_row() for r in gated] == [r.as_row() for r in bypass]
     fused = conformance.run_conformance(names=["spmm_tiled"],
                                         points=points[:2], device="cpu")

@@ -25,6 +25,12 @@ TRAIN_MODULES = ("tree", "optim/__init__", "optim/optimizers",
                  "checkpoint/manager", "distributed/resilience",
                  "launch/__init__", "launch/train")
 
+#: The distributed substrate: collectives, sharding, ring SpMM, GPipe, the
+#: meshes and the byte models.
+DISTRIBUTED_MODULES = ("distributed/comm", "distributed/sharding",
+                       "distributed/ring", "distributed/pipeline_par",
+                       "launch/mesh", "core/comm_model")
+
 #: The MoE layer and every module of the GNN models.
 GNN_MODULES = ("moe", "gnn/__init__", "gnn/graph", "gnn/layers", "gnn/gcn",
                "gnn/gatedgcn", "gnn/meshgraphnet", "gnn/equiformer_v2")
@@ -138,7 +144,7 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "repro_torch.distributed.trace_shard",
                  "repro_torch.data.wigner"):
         assert name in walked, name
-    for name in TRAIN_MODULES:
+    for name in TRAIN_MODULES + DISTRIBUTED_MODULES:
         module = name.replace("/__init__", "").replace("/", ".")
         assert f"repro_torch.{module}" in walked, name
 
@@ -194,8 +200,46 @@ def test_ast_scan_covers_the_registry_and_model_configs():
     for name in GNN_MODULES:
         assert f"models/{name}.py" in scanned, name
     for name in ("distributed/__init__", "distributed/trace_shard",
-                 "data/wigner") + TRAIN_MODULES:
+                 "data/wigner") + TRAIN_MODULES + DISTRIBUTED_MODULES:
         assert f"{name}.py" in scanned, name
+
+
+#: Each name of ``repro_torch.distributed.__all__``, read in a fresh
+#: process both ways: ``from repro_torch.distributed import NAME`` and as
+#: an attribute of the package.
+_DISTRIBUTED_NAME = _REFUSE + r"""
+import importlib, types
+name = sys.argv[1]
+pkg = importlib.import_module("repro_torch.distributed")
+ns = {}
+exec(f"from repro_torch.distributed import {name} as got", ns)
+got, attr = ns["got"], getattr(pkg, name)
+assert got is attr, (got, attr)
+home = got.__name__ if isinstance(got, types.ModuleType) else got.__module__
+print("RESULT", got.__name__, home)
+"""
+
+
+def _distributed_names() -> list[str]:
+    import repro_torch.distributed as pkg
+    return list(pkg.__all__)
+
+
+@pytest.mark.parametrize("name", _distributed_names())
+def test_distributed_package_answers_each_name(name):
+    """Each exported name resolves to itself (a submodule to that
+    submodule, ``ShardingPolicy`` and ``make_policy`` to the sharding
+    module's), by import and by attribute, with jax and the reference
+    blocked."""
+    proc = subprocess.run([sys.executable, "-c", _DISTRIBUTED_NAME, name],
+                          cwd=ROOT, env=_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got, home = proc.stdout.split("RESULT")[1].split()
+    if name in ("ShardingPolicy", "make_policy"):
+        assert (got, home) == (name, "repro_torch.distributed.sharding")
+    else:
+        assert got == home == f"repro_torch.distributed.{name}"
 
 
 def _run_smoke(cwd: Path):
