@@ -324,7 +324,22 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    ``gather_scatter_sum`` (1e-5) with the collective ledger equal to
    ``ring_spmm_traffic`` and ``spmm_feature_allgather``, and their times;
    a ring hop, GPipe and its gradient, the query-offset attention and the
-   spec trees.  It prints the world size, NCCL's version and the ledger.
+   spec trees.  It prints the world size, NCCL's version and the ledger;
+32. training under a sharding policy (``launch.steps``), one NCCL rank a
+   visible card: on one card SmolLM-135M at ``train_4k`` (B 8) and
+   gemma2-2b at full width and depth (bf16 state, drawn a block at a time)
+   take 2 policy steps each against the single-device step on the same
+   weights (the first loss bit-identical, then 1e-5 / 3e-2), with host
+   ms a step, peak memory and the ledger; DLRM-MLPerf at 4M-row tables and
+   B 65,536 takes 3, K6 bit-identical on every shard, exactly 26 K6
+   launches a step, the zero rows exactly zero, against phase 30's
+   single-device step within 1e-5; then ``minibatch_lg``: a Reddit-sized
+   power-law CSR, 1,024 seeds sampled with fanout (15, 10) into (169,984,
+   168,960), and one step of each GNN at its published config, held card
+   vs CPU within 1e-4 (EquiformerV2 at 64 seeds, its backward's memory).
+   On more cards the rank program runs on a (2, n / 2) mesh and adds
+   gemma2-2b at 2 layers in f32 and DLRM at 65,536-row tables against one
+   card (1e-4).
 
 The last three lines of standard output are the ``kernels`` JSON line, the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -646,6 +661,15 @@ TRAIN_TOLERANCE = 1e-4
 #: turns such an entry's rounding into a step of up to lr either way; above
 #: the share that rounding moves the update by at most about 1e-4 of lr.
 GRAD_ROUNDING_SHARE = 1e-3
+#: A leaf whose largest gradient entry is under f32's epsilon times the
+#: model's largest is zero but for rounding: no f32 sum that made it can
+#: resolve it.  EquiformerV2's last attention bias (``layers/attn_mlp/b[1]``)
+#: is one: a bias shared by all the scores of a head does not move their
+#: softmax, so its gradient is zero, and its f32 value (5.2e-10 of the
+#: model's largest on the CPU at minibatch_lg's 4-seed sample) is the
+#: rounding of each device.  The GNN checks hold no entry of such a leaf,
+#: and print it.
+GRAD_ZERO_SHARE = 2.0 ** -23
 #: What every card-vs-CPU training check holds to TRAIN_TOLERANCE: the loss
 #: of each step taken from the CPU's state, and the update of one gradient
 #: by the card's optimizer against the CPU's.  Where f32 resolves the
@@ -5189,6 +5213,726 @@ def distributed_phase(dev, card: str, launches: dict,
     return {"world": world, "results": results}
 
 
+#: Phase 32: training under a sharding policy (``launch.steps``), one NCCL
+#: rank a visible card; on one card the policy steps run at world size 1
+#: against the single-device steps on the same weights.  SmolLM-135M at
+#: ``train_4k`` with B 8 as phase 28; gemma2-2b at ``train_4k`` at full
+#: width and depth, its weights drawn a block at a time
+#: (``shard_transformer_tree(None)``), stored in bf16 by the reference's
+#: rule on one card (f32 on four).
+#: gemma2-2b's B is bound by the card's memory: its bf16 state is not
+#: donated (``launch.steps.lm_train_cell`` donates only f32 state), so a
+#: step holds the old and the new parameters and moments at once, and B 2
+#: peaks at 69.40 GB of the card's 80 GB (this phase on an H100 80GB HBM3
+#: at 700 W); B 4 would add B 2's activations again.
+#: reduced: batch (train_4k, 256 -> 8 for SmolLM-135M; 256 -> 2 for
+#: gemma2-2b, the largest power of two whose step fits the card's memory).
+POLICY_LM_BATCH, POLICY_GEMMA2_BATCH, POLICY_LM_STEPS = 8, 2, 2
+#: The world-1 policy step against the single-device step on one card:
+#: the first loss bit for bit; later losses and the parameters within the
+#: repo's f32 tolerance (the card sums the embedding's and the attention's
+#: gradients in no fixed order), bf16's 3e-2 for gemma2-2b's bf16 state.
+POLICY_TOLERANCE, POLICY_BF16_TOLERANCE = 1e-5, 3e-2
+#: DLRM-MLPerf at ``train_batch`` (B 65,536) under the vocab-parallel
+#: policy, tables capped as phase 30 (DLRM_TRAIN_ROW_CAP) on one card; on
+#: more, the largest power-of-two cap whose training state fits each
+#: card's measured free memory less DIST_TABLE_HEADROOM.
+POLICY_DLRM_STEPS = 3
+#: Four cards: gemma2-2b at full width and 2 layers in f32 from one numpy
+#: tree, and DLRM at 65,536-row tables, against one card: the repo's model
+#: tolerance.
+POLICY_CHECK_LAYERS, POLICY_CHECK_BATCH, POLICY_CHECK_SEQ = 2, 2, 1024
+POLICY_CHECK_STEPS, POLICY_CHECK_TOLERANCE = 3, 1e-4
+POLICY_DLRM_CHECK_BATCH = 4096
+#: ``minibatch_lg`` (configs/base.py): a synthetic power-law graph at
+#: Reddit's size, built as a CSR from a seed; 1,024 seeds, fanout (15, 10).
+#: GCN and GatedGCN are held card vs CPU on the full sample, MeshGraphNet
+#: and EquiformerV2 on a 64-seed sample of the same CSR (the full sample
+#: only timed for them).
+MINIBATCH_GRAPH = {"n_nodes": 232_965, "n_edges": 114_615_892, "seed": 0,
+                   "alpha": 1.6}
+MINIBATCH_CHECK_SEEDS = 64
+#: EquiformerV2 keeps (N, 49, 128) f32 node states and (E, 29, 128) edge
+#: messages for the backward of each of its 12 layers, about 2.9 MB a
+#: padded node and edge (8.9 GB at (3,072, 3,072) on the CPU): the full
+#: sample's (169,984, 168,960) would take about 490 GB.  It takes its
+#: timed step on the 64-seed sample and its card-vs-CPU check on a 4-seed
+#: one (its CPU step at 16 seeds took 26 s).
+#: reduced: EquiformerV2's minibatch_lg seeds (1,024 -> 64 timed, 4 held).
+EQV2_TIMED_SEEDS, EQV2_CHECK_SEEDS = 64, 4
+
+
+def power_law_csr(n_nodes: int, n_edges: int, seed: int, alpha: float):
+    """A power-law graph generated straight into CSR form: destination
+    degrees multinomial over rank weights ``r^-alpha`` (a seeded
+    permutation of the vertices), each edge's sender drawn from the same
+    weights; neighbors unordered within a row (the sampler draws uniformly
+    within it).  ``col`` is int32."""
+    from repro_torch.data.sampler import CSRGraph
+
+    rng = np.random.default_rng(seed)
+    w = np.arange(1, n_nodes + 1, dtype=np.float64) ** (-alpha)
+    w /= w.sum()
+    perm = rng.permutation(n_nodes)
+    deg = np.zeros(n_nodes, np.int64)
+    deg[perm] = rng.multinomial(n_edges, w)
+    ptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(deg, out=ptr[1:])
+    cdf = np.cumsum(w)
+    cdf /= cdf[-1]
+    col = np.empty(n_edges, np.int32)
+    step = 1 << 24
+    for lo in range(0, n_edges, step):
+        hi = min(lo + step, n_edges)
+        rank = np.searchsorted(cdf, rng.random(hi - lo), side="right")
+        np.minimum(rank, n_nodes - 1, out=rank)
+        col[lo:hi] = perm[rank]
+    return CSRGraph(ptr=ptr, col=col, n_nodes=n_nodes)
+
+
+def _card_rel(got, want, masks=None) -> float:
+    """The worst leaf of two trees of tensors: max abs error over its kept
+    entries relative to the leaf's largest entry, on ``want``'s device
+    (a leaf of ``got`` is moved there one at a time)."""
+    from repro_torch.tree import tree_leaves
+
+    g, w = tree_leaves(got), tree_leaves(want)
+    m = [None] * len(w) if masks is None else tree_leaves(masks)
+    if len(g) != len(w) or len(m) != len(w):
+        raise AssertionError(f"{len(g)} leaves against {len(w)}")
+    worst = 0.0
+    for a, b, k in zip(g, w, m):
+        diff = (a.to(b.device).float() - b.float()).abs()
+        if k is not None:
+            diff = diff[k]
+        if diff.numel():
+            worst = max(worst, float(diff.max()) / max(
+                float(b.float().abs().max()), 1e-30))
+    return worst
+
+
+def _resolved(mu, dropped: list | None = None) -> object:
+    """Masks of the entries whose first gradient (``mu`` after one step,
+    0.1 times it) passes GRAD_ROUNDING_SHARE of its leaf's largest.  With
+    ``dropped`` (a list), a leaf whose largest is under GRAD_ZERO_SHARE of
+    the model's largest holds no entry, and its path and its largest as a
+    share of the model's are appended to ``dropped``."""
+    from repro_torch.tree import tree_map, tree_paths
+
+    leaf_max = [float(t.float().abs().max()) for _, t in tree_paths(mu)]
+    top = max(leaf_max)
+    if dropped is not None:
+        dropped += [(path, m / top) for (path, _), m in zip(tree_paths(mu),
+                                                            leaf_max)
+                    if 0.0 < m < GRAD_ZERO_SHARE * top]
+    zero = {path for path, _ in dropped or ()}
+    maxes = iter(zip(tree_paths(mu), leaf_max))
+
+    def mask(t):
+        (path, _), m = next(maxes)
+        if path in zero:
+            return torch.zeros_like(t, dtype=torch.bool)
+        return t.float().abs() > GRAD_ROUNDING_SHARE * m
+    return tree_map(mask, mu)
+
+
+def _lm_batches(cfg, b: int, s: int, n: int, dev) -> list:
+    from repro_torch.data import synthetic
+    return [{k: torch.from_numpy(v).to(dev) for k, v in synthetic.lm_batch(
+        0, i, batch=b, seq=s, vocab=cfg.vocab).items()} for i in range(n)]
+
+
+def _policy_steps(cell, batches, sync) -> tuple:
+    """The cell's steps over ``batches``: (params, opt state, losses, host
+    ms a step, the ledger's wire bytes a rank by tag and kind)."""
+    from repro_torch.distributed import comm
+
+    params, state = cell.params, cell.opt_state
+    losses, ms = [], []
+    with comm.recording() as ledger:
+        for batch in batches:
+            sync()
+            t0 = time.perf_counter()
+            params, state, metrics = cell.step(params, state, batch)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(metrics["loss"]))
+    return params, state, losses, ms, ledger.by_tag()
+
+
+def _hold_to_single(cfg, optimizer, params, batches, sync, got,
+                    losses) -> tuple:
+    """The single-device step (``transformer.make_train_step`` without a
+    policy) from ``params`` over ``batches``, against a policy run's
+    ``losses`` and final parameters ``got`` (whole leaves): (the
+    single-device losses, host ms a step, max rel err of each loss, max
+    rel err of the parameters over the entries whose first gradient is
+    resolved)."""
+    from repro_torch.models import transformer as tr
+
+    step = tr.make_train_step(cfg, optimizer)
+    state = optimizer.init(params)
+    want_losses, ms, masks = [], [], None
+    for batch in batches:
+        sync()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        want_losses.append(float(metrics["loss"]))
+        if masks is None:
+            masks = _resolved(state.mu)
+    loss_errs = [abs(a - c) / abs(c) for a, c in zip(losses, want_losses)]
+    return want_losses, ms, loss_errs, _card_rel(got, params, masks)
+
+
+def policy_lm_cell(name: str, b: int, policy, dev, say, sync,
+                   compare: bool) -> None:
+    """One LM train cell at full width and depth under ``policy``; at
+    world size 1 (``compare``) held to the single-device step on the same
+    weights."""
+    import dataclasses
+
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.params import shard_transformer_tree
+    from repro_torch.tree import is_spec, tree_leaves, tree_map
+
+    arch = get_arch(name)
+    shape = LM_SHAPES["train_4k"]
+    shape = dataclasses.replace(shape, params={**shape.params, "batch": b})
+    s = shape.params["seq"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cell = steps.lm_train_cell(arch, shape, policy, None, seed=0,
+                               device=dev)
+    sync()
+    draw_s = time.perf_counter() - t0
+    cfg, dtype = cell.cfg, cell.meta["dtype"]
+    batches = _lm_batches(cfg, b, s, POLICY_LM_STEPS, dev)
+    params, state, losses, ms, ledger = _policy_steps(cell, batches, sync)
+    peak = torch.cuda.max_memory_allocated(dev)
+    fsdp = sum(1 for spec in tree_leaves(cell.specs, is_spec)
+               if policy.dp_spec in spec)
+    say(f"{name} policy train: mesh {tuple(policy.axis_sizes.values())} "
+        f"(data, model), {cfg.n_layers} layers d {cfg.d_model}, "
+        f"{cfg.param_count()} parameters stored {str(dtype)[6:]} (the "
+        f"storage rule: 12 B x parameters / devices "
+        f"{12 * cfg.param_count() / policy.n_devices / 1e9:.2f} GB against "
+        f"9 GB), {fsdp} FSDP leaves, compute {cfg.dtype}; blocks drawn in "
+        f"{draw_s:.2f} s; B {b} x S {s} (train_4k's B "
+        f"{LM_SHAPES['train_4k'].params['batch']} cut to {b}); losses "
+        f"{losses}; step ms {[round(x, 1) for x in ms]} (host clock); peak "
+        f"{peak / 1e9:.2f} GB; ledger a rank over the {len(ms)} steps "
+        f"{json.dumps(ledger, sort_keys=True)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite policy losses {losses}")
+    if not compare:
+        return
+    # The policy's result waits on the host while the single-device step
+    # runs from the same weights: the same seeded draw again (at world
+    # size 1 a rank's blocks are the whole tree).
+    opt = cell.meta["optimizer"]
+    params = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    specs = cell.specs
+    del state, cell
+    torch.cuda.empty_cache()
+    init = shard_transformer_tree(None, cfg, policy, specs=specs,
+                                  device=dev, dtype=dtype, seed=0)
+    single = adamw(3e-4, weight_decay=0.1,
+                   state_dtype=(torch.bfloat16 if dtype == torch.bfloat16
+                                else torch.float32),
+                   donate=opt.donate)
+    want_losses, want_ms, loss_errs, param_err = _hold_to_single(
+        cfg, single, init, batches, sync, params, losses)
+    tol = POLICY_BF16_TOLERANCE if dtype == torch.bfloat16 else \
+        POLICY_TOLERANCE
+    loss_err = max(loss_errs[1:])
+    say(f"{name} world-1 policy step vs the single-device step (same "
+        f"weights and batches): first loss {losses[0]!r} vs "
+        f"{want_losses[0]!r} (bit-identical {losses[0] == want_losses[0]}), "
+        f"later losses max rel err {loss_err:.3e}, parameters max rel err "
+        f"{param_err:.3e} over the entries whose first gradient passes "
+        f"{GRAD_ROUNDING_SHARE:.0e} of its leaf's largest (tolerance "
+        f"{tol:.0e}); single-device step ms "
+        f"{[round(x, 1) for x in want_ms]} (host clock)")
+    if losses[0] != want_losses[0]:
+        raise AssertionError(f"{name}: world-1 first loss {losses[0]!r} vs "
+                             f"{want_losses[0]!r}")
+    if not (loss_err < tol and param_err < tol):
+        raise AssertionError(f"{name}: world-1 policy step vs one device: "
+                             f"losses {loss_err}, parameters {param_err}")
+
+
+def policy_gemma2_check(policy, dev, say, sync, rank: int,
+                        seed: int = 1) -> None:
+    """Four cards: gemma2-2b at full width and POLICY_CHECK_LAYERS layers in
+    f32, one numpy tree (drawn from ``seed``) cut by every rank,
+    POLICY_CHECK_STEPS policy steps against the single-device step on rank
+    0's card."""
+    import dataclasses
+
+    from repro_torch import params as P
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.distributed import comm
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.tree import (is_spec, tree_flatten, tree_leaves,
+                                  tree_unflatten)
+
+    arch = get_arch("gemma2-2b")
+    cfg = dataclasses.replace(arch.make_config(), n_layers=POLICY_CHECK_LAYERS,
+                              dtype="float32")
+    shape = dataclasses.replace(LM_SHAPES["train_4k"], params={
+        "batch": POLICY_CHECK_BATCH, "seq": POLICY_CHECK_SEQ})
+    tree = P.transformer_params(cfg, seed=seed)
+    cell = steps.lm_train_cell(arch, shape, policy, tree, cfg=cfg,
+                               device=dev)
+    batches = _lm_batches(cfg, POLICY_CHECK_BATCH, POLICY_CHECK_SEQ,
+                          POLICY_CHECK_STEPS, dev)
+    params, state, losses, ms, _ = _policy_steps(cell, batches, sync)
+    ok = True
+    whole = []
+    for t, spec in zip(tree_leaves(params), tree_leaves(cell.specs,
+                                                          is_spec)):
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                t = comm.all_gather(t.contiguous(), policy.group(entry), d)
+        whole.append(t)
+    del params, state
+    if rank == 0:
+        single = adamw(3e-4, weight_decay=0.1, donate=True)
+        init = P.tensor_tree(tree, device=dev)
+        got = tree_unflatten(tree_flatten(init)[1], whole)
+        want_losses, _, loss_errs, param_err = _hold_to_single(
+            cfg, single, init, batches, lambda: torch.cuda.synchronize(dev),
+            got, losses)
+        loss_err = max(loss_errs)
+        say(f"gemma2-2b {POLICY_CHECK_LAYERS} layers f32 (full width, one "
+            f"numpy tree, seed {seed}), {POLICY_CHECK_STEPS} steps at B "
+            f"{POLICY_CHECK_BATCH} x S {POLICY_CHECK_SEQ}: policy losses "
+            f"{losses} vs one card {want_losses}: max rel err "
+            f"{loss_err:.3e}, parameters {param_err:.3e} (resolved entries; "
+            f"tolerance {POLICY_CHECK_TOLERANCE:.0e})")
+        ok = (loss_err < POLICY_CHECK_TOLERANCE
+              and param_err < POLICY_CHECK_TOLERANCE)
+    _agree(ok, policy, dev, "gemma2-2b policy vs one card")
+
+
+def _agree(ok: bool, policy, dev, what: str) -> None:
+    """Raise on every rank when a check failed on any (rank 0 holds the
+    one-card side): a rank that raised alone would leave the others
+    waiting in their next collective until NCCL's timeout."""
+    from repro_torch.distributed import comm
+
+    failed = torch.tensor(0.0 if ok else 1.0, device=dev)
+    if float(comm.all_reduce(failed, policy.group(policy.all_axes),
+                             "max")):
+        raise AssertionError(f"{what}: failed (rank 0 printed the numbers)")
+
+
+def _dlrm_policy_cap(policy, dev) -> int:
+    """The largest power-of-two row cap (or none: the published tables)
+    whose training state (16 B a parameter) fits every card's measured
+    free memory less DIST_TABLE_HEADROOM."""
+    from repro_torch.distributed import comm
+    from repro_torch.models import dlrm
+
+    torch.cuda.empty_cache()
+    free = torch.tensor(float(torch.cuda.mem_get_info(dev)[0]), device=dev)
+    free = float(-comm.all_reduce(-free, policy.group(policy.all_axes),
+                                  "max"))
+
+    def need(cap) -> float:
+        rows = 0
+        for v in dlrm.CRITEO_1TB_VOCABS:
+            v = min(v, cap) if cap else v
+            rows += v // dlrm.table_shards(v, policy)
+        return 16.0 * rows * 128
+    if need(None) < free - DIST_TABLE_HEADROOM:
+        return 0
+    cap = 1 << 26
+    while cap > 1 and need(cap) >= free - DIST_TABLE_HEADROOM:
+        cap //= 2
+    return cap
+
+
+def _hold_dlrm_to_single(single, batches, first, losses) -> tuple:
+    """Phase 30's single-device step (AdamW at the cell's 1e-3) on the
+    :class:`DLRM` ``single`` over ``batches``, against a policy run's
+    ``losses`` and its first step's parameters ``first`` (whole tables):
+    every loss, and the first step's update, since the trajectories part
+    after it (``index_add_``'s float atomics, and AdamW's normalised
+    steps).  Returns (the single-device losses, max rel err of the losses,
+    of the first step's parameters over the entries whose gradient is
+    resolved)."""
+    from repro_torch import params as P
+    from repro_torch.models import dlrm
+    from repro_torch.optim.optimizers import adamw, make_step
+
+    opt = adamw(1e-3, donate=True)
+    step_fn = make_step(P.tree_loss(single, dlrm.loss_fn), opt)
+    tree = P.module_tree(single)
+    st = (tree, opt.init(tree))
+    want_losses, param_err = [], None
+    for batch in batches:
+        st, metrics = step_fn(st, batch)
+        want_losses.append(float(metrics["loss"]))
+        if param_err is None:
+            param_err = _card_rel(first, st[0], _resolved(st[1].mu))
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(losses, want_losses))
+    return want_losses, loss_err, param_err
+
+
+def policy_dlrm_cell(policy, dev, say, sync, rank: int, world: int,
+                     result: dict) -> None:
+    """DLRM-MLPerf at train_batch under the vocab-parallel policy: K6 on
+    every table shard (exactly 26 launches a step, counted), against the
+    plain bag bit for bit; at world size 1 against phase 30's single-device
+    step on the same weights (a second draw with the same seeds), and the
+    zero rows exactly zero after the steps."""
+    from repro_torch import params as P
+    from repro_torch.configs import RECSYS_SHAPES, get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import dlrm
+
+    arch = get_arch("dlrm-mlperf")
+    if world == 1:
+        cap = DLRM_TRAIN_ROW_CAP
+    else:
+        cap = _dlrm_policy_cap(policy, dev)
+    cfg = arch.make_config(vocab_sizes=tuple(
+        min(v, cap) if cap else v for v in dlrm.CRITEO_1TB_VOCABS))
+    b = RECSYS_SHAPES["train_batch"].params["batch"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cell = steps.dlrm_train_cell(arch, "train_batch", policy, None, cfg=cfg,
+                                 seed=0, device=dev)
+    sync()
+    draw_s = time.perf_counter() - t0
+    model = dlrm.ShardedDLRM.from_tree(cfg, policy, cell.params)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                synthetic.criteo_batch(0, i, batch=b, n_dense=cfg.n_dense,
+                                       vocab_sizes=cfg.vocab_sizes,
+                                       multi_hot=cfg.multi_hot).items()}
+               for i in range(POLICY_DLRM_STEPS)]
+    exact = True
+    for t, table in enumerate(model.tables):
+        ids = dlrm.shard_ids(model, t, batches[0]["sparse"][:, t, :])
+        exact &= bool(torch.equal(eb.embedding_bag(table, ids),
+                                  eb.embedding_bag_plain(table, ids)))
+    sync()
+    say(f"dlrm policy K6 on this rank's 26 table shards (B {b}) vs plain: "
+        f"bit-identical {exact}", every=True)
+    if not exact:
+        raise AssertionError(f"rank {rank}: K6 differs on its shards")
+    from repro_torch.tree import tree_map
+    ops.reset_launches()
+    params, state, losses, ms, ledger = _policy_steps(cell, batches[:1],
+                                                      sync)
+    # The first step's result (world size 1: for the single-device check).
+    first = (tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+             if world == 1 else None)
+    cell.params, cell.opt_state = params, state
+    params, state, more, more_ms, _ = _policy_steps(cell, batches[1:], sync)
+    losses, ms = losses + more, ms + more_ms
+    k6 = ops.LAUNCHES["embedding_bag"]
+    result["launches"]["embedding_bag"] = k6
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = list(model.rows)
+    held = sum(t.shape[0] for t in model.tables)
+    pad = max([float(t[r:].abs().max()) for t, r in zip(params["tables"],
+                                                         rows)
+               if t.shape[0] > r] + [0.0])
+    say(f"dlrm policy train: {'published tables' if not cap else f'tables capped at {cap} rows'} "
+        f"({sum(cfg.vocab_sizes)} rows; on this card "
+        f"{held * 128 * 4 / 1e9:.2f} GB of shards with their zero "
+        f"rows, drawn in {draw_s:.2f} s), B {b}: losses {losses}; step ms "
+        f"{[round(x, 2) for x in ms]} (host clock); K6 launches {k6} "
+        f"({k6 / POLICY_DLRM_STEPS:.0f} a step); zero rows' largest entry "
+        f"{pad!r}; peak {peak / 1e9:.2f} GB; ledger a rank a step "
+        f"{json.dumps(ledger, sort_keys=True)}", every=True)
+    if k6 != cfg.n_sparse * POLICY_DLRM_STEPS:
+        raise AssertionError(f"{k6} K6 launches in {POLICY_DLRM_STEPS} "
+                             "policy steps")
+    if pad != 0.0:
+        raise AssertionError(f"a zero row moved: {pad}")
+    if world > 1:
+        return
+    # Phase 30's single-device step on the same weights: the same seeded
+    # draw again (its tables as the module's), AdamW at the cell's 1e-3.
+    # As phase 30 holds the card to the CPU: every step's loss, and the
+    # first step's update (the trajectories part after it: float
+    # atomics, and AdamW's normalised steps).
+    del params, state, model, cell
+    torch.cuda.empty_cache()
+    again = P.shard_dlrm(None, cfg, policy, device=dev, seed=0)
+    single = again.single_device_view()
+    del again
+    first["tables"] = [t[:r] for t, r in zip(first["tables"], rows)]
+    want_losses, loss_err, param_err = _hold_dlrm_to_single(
+        single, batches, first, losses)
+    sync()
+    say(f"dlrm world-1 policy step vs phase 30's single-device step (same "
+        f"weights): losses {losses} vs {want_losses}, max rel err "
+        f"{loss_err:.3e}; the first step's parameters max rel err "
+        f"{param_err:.3e} over the entries whose gradient passes "
+        f"{GRAD_ROUNDING_SHARE:.0e} of its leaf's largest (tolerance "
+        f"{POLICY_TOLERANCE:.0e}: index_add_'s float atomics)")
+    if not (loss_err < POLICY_TOLERANCE and param_err < POLICY_TOLERANCE):
+        raise AssertionError(f"dlrm world-1 policy vs one device: losses "
+                             f"{loss_err}, parameters {param_err}")
+
+
+def policy_dlrm_check(policy, dev, say, sync, rank: int) -> None:
+    """Four cards: DLRM at 65,536-row tables from one numpy tree,
+    POLICY_CHECK_STEPS policy steps against one card (rank 0): every loss
+    and the first step's update."""
+    from repro_torch import params as P
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import comm
+    from repro_torch.launch import steps
+    from repro_torch.models import dlrm
+
+    arch = get_arch("dlrm-mlperf")
+    cfg = arch.make_config(vocab_sizes=tuple(
+        min(v, DLRM_TRAIN_CHECK_CAP) for v in dlrm.CRITEO_1TB_VOCABS))
+    tree = P.dlrm_params(cfg, seed=1)
+    cell = steps.dlrm_train_cell(arch, "train_batch", policy, tree, cfg=cfg,
+                                 device=dev)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                synthetic.criteo_batch(1, i, batch=POLICY_DLRM_CHECK_BATCH,
+                                       n_dense=cfg.n_dense,
+                                       vocab_sizes=cfg.vocab_sizes,
+                                       multi_hot=cfg.multi_hot).items()}
+               for i in range(POLICY_CHECK_STEPS)]
+    # Every loss, and the first step's update: the trajectories part after
+    # it (index_add_'s float atomics, and AdamW's normalised steps).
+    params, state, losses, _, _ = _policy_steps(cell, batches[:1], sync)
+    model = dlrm.ShardedDLRM.from_tree(cfg, policy, params)
+    tables = []
+    for t, (spec, r) in enumerate(zip(cell.specs["tables"], model.rows)):
+        x = params["tables"][t][:r].contiguous()
+        if spec[0] is not None:
+            x = comm.all_gather(x, policy.group(spec[0]), 0)
+        tables.append(x.clone())
+    first = {"tables": tables,
+             "bot": {k: [t.clone() for t in v] for k, v in
+                     params["bot"].items()},
+             "top": {k: [t.clone() for t in v] for k, v in
+                     params["top"].items()}}
+    cell.params, cell.opt_state = params, state
+    _, _, more, _, _ = _policy_steps(cell, batches[1:], sync)
+    losses += more
+    ok = True
+    if rank == 0:
+        want_losses, loss_err, param_err = _hold_dlrm_to_single(
+            P.load_dlrm(tree, cfg, device=dev), batches, first, losses)
+        say(f"dlrm at {DLRM_TRAIN_CHECK_CAP}-row tables (one numpy tree), "
+            f"{POLICY_CHECK_STEPS} steps at B {POLICY_DLRM_CHECK_BATCH}: "
+            f"policy losses {losses} vs one card {want_losses}, max rel err "
+            f"{loss_err:.3e}; the first step's parameters {param_err:.3e} "
+            f"(entries whose gradient passes {GRAD_ROUNDING_SHARE:.0e} of "
+            f"its leaf's largest; tolerance {POLICY_CHECK_TOLERANCE:.0e})")
+        ok = (loss_err < POLICY_CHECK_TOLERANCE
+              and param_err < POLICY_CHECK_TOLERANCE)
+    _agree(ok, policy, dev, "dlrm policy vs one card")
+
+
+def policy_train_rank(rank: int, world: int, job: dict) -> dict:
+    """Phase 32 on one NCCL rank (its card is ``cuda:rank``), on a (1, 1)
+    mesh on one card and (2, world / 2) over (data, model) on more:
+    SmolLM-135M and gemma2-2b through ``launch.steps.lm_train_cell`` and
+    DLRM-MLPerf through ``dlrm_train_cell``; on more than one card also
+    the 2-layer gemma2-2b and 65,536-row DLRM checks against one card.
+    Prints its lines as they come; returns the counted K6 launches."""
+    import torch.distributed as dist
+
+    from repro_torch import backend
+    from repro_torch.distributed.sharding import make_policy
+    from repro_torch.launch.mesh import make_test_mesh
+
+    backend.full_fp32()
+    dev = rank_device(rank)
+    shape = (1, 1) if world == 1 else (2, world // 2)
+    policy = make_policy(make_test_mesh(shape, ("data", "model")))
+    everyone = policy.group(policy.all_axes)
+    result = {"launches": {}}
+
+    def say(msg: str, every: bool = False) -> None:
+        # Printed as it comes (a later failure keeps the earlier lines).
+        if rank == 0 or every:
+            line = f"rank {rank}: {msg}" if every else msg
+            print(f"# policy {line} | {job['card']}", flush=True)
+
+    def sync() -> None:
+        torch.cuda.synchronize(dev)
+        dist.barrier(group=everyone)
+
+    t_rank = time.perf_counter()
+    compare = world == 1
+    policy_lm_cell("smollm-135m", POLICY_LM_BATCH, policy, dev, say, sync,
+                   compare)
+    policy_lm_cell("gemma2-2b", POLICY_GEMMA2_BATCH, policy, dev, say, sync,
+                   compare)
+    if world > 1:
+        policy_gemma2_check(policy, dev, say, sync, rank)
+    policy_dlrm_cell(policy, dev, say, sync, rank, world, result)
+    if world > 1:
+        policy_dlrm_check(policy, dev, say, sync, rank)
+    say(f"rank program {time.perf_counter() - t_rank:.1f} s (host clock)")
+    return result
+
+
+def minibatch_phase(dev, card: str) -> None:
+    """Phase 32's GNN cell: ``minibatch_lg`` at world size 1.  The graph is
+    generated straight into CSR form on the host, 1,024 seeds are sampled
+    with fanout (15, 10) into the padded sizes of
+    ``steps.sampled_subgraph_sizes``, and each GNN at its published config
+    for the shape takes one timed step through ``steps.gnn_train_cell`` on
+    the card, then one step held against the CPU: GCN and GatedGCN on the
+    full sample, MeshGraphNet on a 64-seed sample of the same CSR,
+    EquiformerV2 timed on the 64-seed sample and held on a 4-seed one
+    (:data:`EQV2_TIMED_SEEDS`)."""
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.data.sampler import sample_subgraph
+    from repro_torch.launch import steps
+    from repro_torch.params import gnn_params
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    p = GNN_SHAPES["minibatch_lg"].params
+    g = MINIBATCH_GRAPH
+    csr = power_law_csr(g["n_nodes"], g["n_edges"], g["seed"], g["alpha"])
+    rng = np.random.default_rng(g["seed"])
+    V, d_feat = g["n_nodes"], p["d_feat"]
+    feats = rng.standard_normal((V, d_feat), dtype=np.float32)
+    labels = rng.integers(0, steps.GNN_N_CLASSES["minibatch_lg"], V)
+    positions = rng.standard_normal((V, 3))
+    graph_s = time.perf_counter() - t0
+    fanout = tuple(p["fanout"])
+    seeds = rng.choice(V, p["batch_nodes"], replace=False)
+    samples, sample_ms = {}, {}
+    for n in (p["batch_nodes"], MINIBATCH_CHECK_SEEDS, EQV2_CHECK_SEEDS):
+        n_pad, e_pad = steps.sampled_subgraph_sizes(n, fanout)
+        t0 = time.perf_counter()
+        samples[n] = sample_subgraph(csr, seeds[:n], fanout,
+                                     rng=np.random.default_rng(n),
+                                     n_pad=n_pad, e_pad=e_pad)
+        sample_ms[n] = 1e3 * (time.perf_counter() - t0)
+    full = samples[p["batch_nodes"]]
+    print(f"# minibatch_lg set-up: power-law CSR V {V} E {g['n_edges']} "
+          f"(alpha {g['alpha']}, col {csr.col.nbytes / 1e6:.0f} MB int32), "
+          f"{d_feat} features and {steps.GNN_N_CLASSES['minibatch_lg']} "
+          f"classes, {graph_s:.1f} s (host); fanout {fanout}: "
+          + "; ".join(f"{n} seeds {sub.n_real_nodes} nodes "
+                      f"{sub.n_real_edges} edges padded to "
+                      f"{steps.sampled_subgraph_sizes(n, fanout)}, sampled "
+                      f"in {sample_ms[n]:.1f} ms" for n, sub in
+                      samples.items())
+          + f" (host clock) | {card}")
+    del csr
+    plan = {"gcn-cora": (p["batch_nodes"], p["batch_nodes"]),
+            "gatedgcn": (p["batch_nodes"], p["batch_nodes"]),
+            "meshgraphnet": (p["batch_nodes"], MINIBATCH_CHECK_SEEDS),
+            "equiformer-v2": (EQV2_TIMED_SEEDS, EQV2_CHECK_SEEDS)}
+    for arch, (timed_n, held_n) in plan.items():
+        cfg = steps.gnn_config(arch, "minibatch_lg")
+        rng_l = np.random.default_rng(3)
+        if arch == "meshgraphnet":
+            lab = rng_l.standard_normal((V, cfg.d_out)).astype(np.float32)
+        elif arch == "equiformer-v2":
+            lab = rng_l.standard_normal((1, cfg.d_out)).astype(np.float32)
+        else:
+            lab = labels
+        tree = gnn_params(cfg, seed=0)
+        t0 = time.perf_counter()
+        batches = {n: steps.subgraph_batch(arch, cfg, samples[n], feats, lab,
+                                           positions=positions)
+                   for n in {timed_n, held_n}}
+        batch_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cell = steps.gnn_train_cell(arch, "minibatch_lg", None, tree,
+                                    cfg=cfg, device=dev)
+        gd = batches[timed_n].to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = cell.step(cell.params, cell.opt_state, gd)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        timed_loss = float(metrics["loss"])
+        del cell, gd
+        cell = steps.gnn_train_cell(arch, "minibatch_lg", None, tree,
+                                    cfg=cfg, device=dev)
+        params, _, metrics = cell.step(cell.params, cell.opt_state,
+                                       batches[held_n].to(dev))
+        loss = float(metrics["loss"])
+        cpu = steps.gnn_train_cell(arch, "minibatch_lg", None, tree, cfg=cfg,
+                                   device="cpu")
+        c_params, c_state, c_metrics = cpu.step(
+            cpu.params, cpu.opt_state, batches[held_n].to("cpu"))
+        c_loss = float(c_metrics["loss"])
+        loss_err = abs(loss - c_loss) / max(abs(c_loss), 1e-30)
+        dropped = []
+        param_err = _card_rel(tree_map(lambda t: t.cpu(), params), c_params,
+                              _resolved(c_state.mu, dropped))
+        zero_s = ", ".join(f"{'/'.join(map(str, path))} ({share:.3e} of the "
+                           "model's largest)" for path, share in dropped)
+        print(f"# minibatch_lg {arch}: {cfg.name} (d_in {cfg.d_in}), batches "
+              f"laid out in {batch_s:.2f} s (host); one step on the "
+              f"{timed_n}-seed sample {step_ms:.1f} ms (host clock, first "
+              f"call), loss {timed_loss!r}, peak {peak / 1e9:.2f} GB; card "
+              f"vs CPU on the {held_n}-seed sample: loss {loss!r} vs "
+              f"{c_loss!r} (rel err {loss_err:.3e}), parameters max rel err "
+              f"{param_err:.3e} (the entries whose gradient passes "
+              f"{GRAD_ROUNDING_SHARE:.0e} of its leaf's largest; tolerance "
+              f"{GNN_TOLERANCE:.0e}; leaves zero to rounding, under "
+              f"{GRAD_ZERO_SHARE:.2e} of the model's largest gradient, held "
+              f"at no entry: {zero_s or 'none'}) | {card}")
+        if not np.isfinite(timed_loss):
+            raise AssertionError(f"minibatch_lg {arch}: loss {timed_loss}")
+        if not (loss_err < GNN_TOLERANCE and param_err < GNN_TOLERANCE):
+            raise AssertionError(f"minibatch_lg {arch}: card vs CPU loss "
+                                 f"{loss_err}, parameters {param_err}")
+        del cell, params, cpu, c_params, c_state
+
+
+def policy_training_phase(dev, card: str, launches: dict) -> None:
+    """Phase 32: training under a sharding policy, one NCCL rank a visible
+    card (:func:`policy_train_rank`), then the ``minibatch_lg`` GNN cell
+    (:func:`minibatch_phase`) on one card.  Adds rank 0's counted K6
+    launches to ``launches``."""
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.perf_counter()
+    card = card.replace("\n", "; ")
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    results = spawn(policy_train_rank, world, backend="nccl",
+                    args=({"card": card},))
+    ranks_s = time.perf_counter() - t0
+    for kname, count in results[0]["launches"].items():
+        launches[kname] += count
+    print(f"# policy phase launches (rank 0): "
+          f"{json.dumps(results[0]['launches'], sort_keys=True)}; ranks "
+          f"{ranks_s:.1f} s (host clock)")
+    if world == 1:
+        minibatch_phase(dev, card)
+    print(f"# phase 32 took {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock)")
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list of arrays."""
     if isinstance(tree, dict):
@@ -5469,6 +6213,7 @@ def main() -> int:
     dlrm_training_phase(dev, card, launches)
     distributed_phase(dev, card, launches, ogb_edges)
     del ogb_edges
+    policy_training_phase(dev, card, launches)
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -5492,7 +6237,8 @@ def main() -> int:
           "prefill's, the arctic prefill's and phase 31's sharded SmolLM "
           "prefill's); K6's the 26 tables of one serve_bulk forward of "
           "DLRM-MLPerf, f32 (its launches: the DLRM serving path's, phase "
-          "30's training steps' and phase 31's sharded forwards')")
+          "30's training steps', phase 31's sharded forwards' and phase 32's "
+          "policy training steps')")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,8 @@
 ``workload_scenarios()``, the workload bridges' one-liner.
 
 Each ``configs/<id>.py`` publishes one architecture's config, a reduced
-config of the same family and its ``ARCH`` record.  The GNN and MoE
-architectures construct their configs only: their models are not ported
-yet.
+config of the same family and its ``ARCH`` record; every family's model
+is ported (``repro_torch.models``).
 """
 
 from . import (arctic_480b, dlrm_mlperf, equiformer_v2, gatedgcn, gcn_cora,

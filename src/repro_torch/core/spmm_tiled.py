@@ -34,12 +34,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..kernels.edge_aggregate import ACC_ELEMS
+from ..kernels.edge_aggregate import ACC_ELEMS, DEFAULT_BLOCK_K, DEFAULT_BLOCK_N
 from .dataflow import DataflowSpec, MovementSpec, SpecModel
 from .notation import GraphTileParams, TiledSpMMHardwareParams
 from .terms import ceil
 
-__all__ = ["SPMM_TILED_SPEC", "TiledSpMMModel", "SPMM_TILED_CTA_SPEC", "feature_chunks"]
+__all__ = ["SPMM_TILED_SPEC", "TiledSpMMModel", "SPMM_TILED_CTA_SPEC", "feature_chunks",
+           "kernel_matched_hw"]
 
 
 def _f64(x) -> np.ndarray:
@@ -187,6 +188,14 @@ SPMM_TILED_CTA_SPEC = DataflowSpec(
                 "buffer.",
     runnable=_runnable_analogue,
 )
+
+
+def kernel_matched_hw(**overrides) -> TiledSpMMHardwareParams:
+    """Hardware params with Bn/Bk taken from the kernel module K1 runs
+    (``kernels.edge_aggregate.DEFAULT_BLOCK_{N,K}``); ``overrides`` win."""
+    overrides.setdefault("Bn", DEFAULT_BLOCK_N)
+    overrides.setdefault("Bk", DEFAULT_BLOCK_K)
+    return TiledSpMMHardwareParams(**overrides)
 
 
 class TiledSpMMModel(SpecModel):

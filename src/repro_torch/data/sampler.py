@@ -18,9 +18,14 @@ seed batch with ``rng.choice(n_nodes, size=batch_nodes, replace=False)``,
 then samples hops via :func:`_sample_edge_stream`: one
 ``rng.choice(deg, size=take, replace=False)`` call per frontier node with
 nonzero in-degree, in frontier order.  The streams are the reference's,
-call for call, so episode counts are bit-identical to its.  The padded
-training subgraphs (the reference's ``sample_subgraph``) come with the
-training substrate.
+call for call, so episode counts are bit-identical to its.
+
+The training half: :func:`sample_subgraph` consumes the identical call
+sequence and emits a padded :class:`SampledSubgraph` with static shapes
+(the padded sizes of ``repro_torch.launch.steps.sampled_subgraph_sizes``,
+so one step serves every sampled batch); it is bit-identical, array for
+array, to the reference's and to :func:`_sample_subgraph_reference`, the
+per-pick implementation kept as its regression pin.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ __all__ = [
     "CSRGraph",
     "build_csr",
     "csr_from_trace",
+    "sample_subgraph",
+    "SampledSubgraph",
     "minibatch_schedule",
     "minibatch_oracle_counts",
 ]
@@ -96,13 +103,28 @@ def csr_from_trace(trace) -> CSRGraph:
                     n_nodes=int(trace.n_nodes))
 
 
+@dataclass
+class SampledSubgraph:
+    """Padded sampled subgraph with LOCAL node ids (0..n_sub)."""
+
+    node_ids: np.ndarray       # (N_pad,) global ids (0-padded)
+    senders: np.ndarray        # (E_pad,) local ids
+    receivers: np.ndarray      # (E_pad,) local ids
+    node_mask: np.ndarray      # (N_pad,) float {0,1}
+    edge_mask: np.ndarray      # (E_pad,) float {0,1}
+    seed_mask: np.ndarray      # (N_pad,) float: the loss is over the seeds
+    n_real_nodes: int
+    n_real_edges: int
+
+
 def _sample_edge_stream(g: CSRGraph, seeds: np.ndarray,
                         fanout: tuple[int, ...],
                         rng: np.random.Generator
                         ) -> tuple[np.ndarray, np.ndarray]:
     """Sampled message edges as GLOBAL-id streams (senders, receivers).
 
-    The core of :func:`minibatch_schedule`.  Only the per-node
+    The shared core of :func:`sample_subgraph` and
+    :func:`minibatch_schedule`.  Only the per-node
     ``rng.choice(deg, size=take, replace=False)`` draws stay in a Python
     loop — they are an inherently sequential rng-stream protocol — and
     they are issued in exactly the frontier order of the original
@@ -142,6 +164,91 @@ def _sample_edge_stream(g: CSRGraph, seeds: np.ndarray,
 # ---------------------------------------------------------------------------
 # Sampled-minibatch episodes as a trace schedule
 # ---------------------------------------------------------------------------
+
+
+def _check_padding(n_real: int, e_real: int, n_pad: int, e_pad: int) -> None:
+    if n_real > n_pad or e_real > e_pad:
+        raise ValueError(f"sample exceeds padding: nodes {n_real}>{n_pad} "
+                         f"or edges {e_real}>{e_pad}")
+
+
+def _padded(ids_real, snd_real, rcv_real, n_seeds: int, n_pad: int,
+            e_pad: int) -> SampledSubgraph:
+    n_real, e_real = len(ids_real), len(snd_real)
+    ids = np.zeros(n_pad, np.int32)
+    ids[:n_real] = ids_real
+    snd = np.zeros(e_pad, np.int32)
+    snd[:e_real] = snd_real
+    rcv = np.zeros(e_pad, np.int32)
+    rcv[:e_real] = rcv_real
+    nmask = np.zeros(n_pad, np.float32)
+    nmask[:n_real] = 1.0
+    emask = np.zeros(e_pad, np.float32)
+    emask[:e_real] = 1.0
+    smask = np.zeros(n_pad, np.float32)
+    smask[:n_seeds] = 1.0
+    return SampledSubgraph(ids, snd, rcv, nmask, emask, smask, n_real,
+                           e_real)
+
+
+def sample_subgraph(g: CSRGraph, seeds: np.ndarray, fanout: tuple[int, ...],
+                    *, rng: np.random.Generator, n_pad: int,
+                    e_pad: int) -> SampledSubgraph:
+    """Vectorized sampler: one edge-stream pass plus an O(V + E) remap.
+
+    Bit-identical to :func:`_sample_subgraph_reference` under the same
+    rng: local ids are assigned in first-appearance order over the
+    concatenated pick stream (seeds first), which is exactly the discovery
+    order of the per-pick dict insert.  ``seeds`` must be duplicate-free
+    (they are drawn without replacement).
+    """
+    seeds = np.asarray(seeds, dtype=np.int64)
+    snd_g, rcv_g = _sample_edge_stream(g, seeds, fanout, rng)
+    loc = np.full(g.n_nodes, -1, dtype=np.int64)
+    loc[seeds] = np.arange(seeds.size)
+    uniq, first = np.unique(snd_g, return_index=True)
+    new_mask = loc[uniq] < 0
+    new_vals = uniq[new_mask][np.argsort(first[new_mask])]
+    loc[new_vals] = seeds.size + np.arange(new_vals.size)
+    _check_padding(int(seeds.size + new_vals.size), int(snd_g.size), n_pad,
+                   e_pad)
+    return _padded(np.concatenate([seeds, new_vals]), loc[snd_g],
+                   loc[rcv_g], seeds.size, n_pad, e_pad)
+
+
+def _sample_subgraph_reference(g: CSRGraph, seeds: np.ndarray,
+                               fanout: tuple[int, ...],
+                               *, rng: np.random.Generator, n_pad: int,
+                               e_pad: int) -> SampledSubgraph:
+    """The per-pick implementation, kept as the bit-identity regression
+    pin for :func:`sample_subgraph`: a dict of local ids filled in
+    discovery order, one ``rng.choice`` per frontier node."""
+    node_ids: list[int] = list(seeds)
+    local = {int(v): i for i, v in enumerate(seeds)}
+    snd_l: list[int] = []
+    rcv_l: list[int] = []
+    frontier = list(seeds)
+    for f in fanout:
+        nxt: list[int] = []
+        for v in frontier:
+            lo, hi = g.ptr[v], g.ptr[v + 1]
+            deg = hi - lo
+            if deg == 0:
+                continue
+            take = min(f, int(deg))
+            picks = g.col[lo + rng.choice(deg, size=take, replace=False)]
+            for u in picks:
+                u = int(u)
+                if u not in local:
+                    local[u] = len(node_ids)
+                    node_ids.append(u)
+                snd_l.append(local[u])
+                rcv_l.append(local[int(v)])
+                nxt.append(u)
+        frontier = nxt
+    _check_padding(len(node_ids), len(snd_l), n_pad, e_pad)
+    return _padded(node_ids, snd_l, rcv_l, len(seeds), n_pad, e_pad)
+
 
 def _episode_stream(g: CSRGraph, *, batch_nodes: int,
                     fanout: tuple[int, ...], episode: int,

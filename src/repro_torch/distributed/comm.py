@@ -18,6 +18,9 @@ its use in the models needs:
   heads, queries or destination rows), so each holds a part of the
   gradient and the parts are summed.
 * :func:`reduce_scatter`: backward all-gathers the gradient.
+* :func:`split` (this rank's slice of a tensor every rank holds alike, no
+  traffic): backward all-gathers the gradient, as each rank's slice feeds
+  its own part of the computation.
 * :func:`all_reduce` (sum or max): backward passes the gradient through
   unchanged.  Its result is the same on every rank and is consumed alike
   (a loss that every rank computes the same way), so each rank's gradient
@@ -46,17 +49,19 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["CollectiveOp", "CollectiveLedger", "recording", "group_size",
-           "group_rank", "all_gather", "reduce_scatter", "all_reduce",
+           "group_rank", "all_gather", "reduce_scatter", "split", "all_reduce",
            "all_to_all", "ring_hop", "start_hop", "all_reduce_grads"]
 
 @dataclass(frozen=True)
 class CollectiveOp:
     """One collective on this rank: the reference's ``CollectiveOp``
-    without the HLO line number."""
+    without the HLO line number, and the caller's ``tag`` (what the
+    collective is for, such as ``"fsdp"``; empty by default)."""
 
     kind: str
     result_bytes: float
     group_size: int
+    tag: str = ""
 
     @property
     def wire_bytes_per_chip(self) -> float:
@@ -99,6 +104,14 @@ class CollectiveLedger:
             out[op.kind] = out.get(op.kind, 0.0) + op.wire_bytes_per_chip
         return out
 
+    def by_tag(self) -> dict[str, dict[str, float]]:
+        """``{tag: {kind: wire bytes a rank}}``."""
+        out: dict[str, dict[str, float]] = {}
+        for op in self.ops:
+            kinds = out.setdefault(op.tag, {})
+            kinds[op.kind] = kinds.get(op.kind, 0.0) + op.wire_bytes_per_chip
+        return out
+
     def counts(self) -> dict[str, int]:
         out: dict[str, int] = {}
         for op in self.ops:
@@ -131,11 +144,11 @@ def recording(ledger: Optional[CollectiveLedger] = None
         _ACTIVE.remove(ledger)
 
 
-def _record(kind: str, result: torch.Tensor, group) -> None:
+def _record(kind: str, result: torch.Tensor, group, tag: str = "") -> None:
     if not _ACTIVE:
         return
     op = CollectiveOp(kind, float(result.numel() * result.element_size()),
-                      group_size(group))
+                      group_size(group), tag)
     for ledger in _ACTIVE:
         ledger.ops.append(op)
 
@@ -159,16 +172,16 @@ _scatter_single = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
-def _gather(x: torch.Tensor, group, dim: int):
+def _gather(x: torch.Tensor, group, dim: int, tag: str = ""):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((group_size(group) * xt.shape[0], *xt.shape[1:]))
     _gather_single(out, xt, group=group)
     out = out.movedim(0, dim).contiguous()
-    _record("all-gather", out, group)
+    _record("all-gather", out, group, tag)
     return out
 
 
-def _scatter(x: torch.Tensor, group, dim: int):
+def _scatter(x: torch.Tensor, group, dim: int, tag: str = ""):
     g = group_size(group)
     xt = x.movedim(dim, 0).contiguous()
     if xt.shape[0] % g:
@@ -177,38 +190,38 @@ def _scatter(x: torch.Tensor, group, dim: int):
     out = xt.new_empty((xt.shape[0] // g, *xt.shape[1:]))
     _scatter_single(out, xt, op=dist.ReduceOp.SUM, group=group)
     out = out.movedim(0, dim).contiguous()
-    _record("reduce-scatter", out, group)
+    _record("reduce-scatter", out, group, tag)
     return out
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _gather(x, group, dim)
+    def forward(ctx, x, group, dim, tag):
+        ctx.group, ctx.dim, ctx.tag = group, dim, tag
+        return _gather(x, group, dim, tag)
 
     @staticmethod
     def backward(ctx, grad):
-        return _scatter(grad, ctx.group, ctx.dim), None, None
+        return _scatter(grad, ctx.group, ctx.dim, ctx.tag), None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _scatter(x, group, dim)
+    def forward(ctx, x, group, dim, tag):
+        ctx.group, ctx.dim, ctx.tag = group, dim, tag
+        return _scatter(x, group, dim, tag)
 
     @staticmethod
     def backward(ctx, grad):
-        return _gather(grad, ctx.group, ctx.dim), None, None
+        return _gather(grad, ctx.group, ctx.dim, ctx.tag), None, None, None
 
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, op):
+    def forward(ctx, x, group, op, tag):
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=op, group=group)
-        _record("all-reduce", out, group)
+        _record("all-reduce", out, group, tag)
         if op == dist.ReduceOp.MAX:
             ctx.save_for_backward(x, out)
         ctx.op = op
@@ -218,8 +231,23 @@ class _AllReduce(torch.autograd.Function):
     def backward(ctx, grad):
         if ctx.op == dist.ReduceOp.MAX:
             x, out = ctx.saved_tensors
-            return grad * (x == out).to(grad.dtype), None, None
-        return grad, None, None
+            return grad * (x == out).to(grad.dtype), None, None, None
+        return grad, None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, tag):
+        ctx.group, ctx.dim, ctx.tag = group, dim, tag
+        g = group_size(group)
+        if x.shape[dim] % g:
+            raise ValueError(f"split of {x.shape[dim]} rows over {g} ranks")
+        n = x.shape[dim] // g
+        return x.narrow(dim, group_rank(group) * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.group, ctx.dim, ctx.tag), None, None, None
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
@@ -286,22 +314,35 @@ class _RingHop(torch.autograd.Function):
         return start_hop(grad, ctx.group, -ctx.shift).wait(), None, None
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
-    return _AllGather.apply(x, group, dim)
+def all_gather(x: torch.Tensor, group, dim: int = 0, *,
+               tag: str = "") -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order.  ``tag``
+    labels the ledger entries of this gather and of its backward's
+    reduce-scatter."""
+    return _AllGather.apply(x, group, dim, tag)
 
 
-def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0, *,
+                   tag: str = "") -> torch.Tensor:
     """The sum over ranks of ``x``, this rank's ``1/g`` slice along
     ``dim``."""
-    return _ReduceScatter.apply(x, group, dim)
+    return _ReduceScatter.apply(x, group, dim, tag)
 
 
-def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+def split(x: torch.Tensor, group, dim: int = 0, *,
+          tag: str = "") -> torch.Tensor:
+    """This rank's ``1/g`` slice along ``dim`` of an ``x`` that every rank
+    of ``group`` holds alike (no traffic); the backward all-gathers the
+    slices' gradients (tagged ``tag``)."""
+    return _Split.apply(x, group, dim, tag)
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum", *,
+               tag: str = "") -> torch.Tensor:
     """The sum (``op="sum"``) or maximum (``"max"``) over ranks of ``x``,
     as a new tensor."""
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
-    return _AllReduce.apply(x, group, ops[op])
+    return _AllReduce.apply(x, group, ops[op], tag)
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -317,12 +358,13 @@ def ring_hop(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
 
 
 @torch.no_grad()
-def all_reduce_grads(tensors, group, *, mean: bool = False) -> None:
+def all_reduce_grads(tensors, group, *, mean: bool = False,
+                     tag: str = "") -> None:
     """Data-parallel gradient sync: sum (or average) each tensor over the
     group in place, one all-reduce per tensor."""
     g = group_size(group)
     for t in tensors:
         dist.all_reduce(t, group=group)
-        _record("all-reduce", t, group)
+        _record("all-reduce", t, group, tag)
         if mean:
             t.div_(g)

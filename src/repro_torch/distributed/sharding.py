@@ -26,7 +26,8 @@ from typing import Any, Union
 
 from ..launch.mesh import AbstractMesh, axis_sizes
 
-__all__ = ["ShardingPolicy", "make_policy", "fsdp_specs", "shard_slices"]
+__all__ = ["ShardingPolicy", "make_policy", "fsdp_specs", "shard_slices",
+           "spec_axes", "sharded_global_norm"]
 
 Axes = Union[str, tuple]
 
@@ -203,3 +204,38 @@ def shard_slices(shape, spec: tuple, policy: ShardingPolicy) -> tuple:
         lo = policy.coord(entry) * step
         index.append(slice(lo, lo + step))
     return tuple(index)
+
+
+def spec_axes(spec: tuple, policy: ShardingPolicy) -> tuple[str, ...]:
+    """The mesh axes a leaf laid out by ``spec`` is split over, in the
+    order of ``policy.all_axes`` (empty for a replicated leaf)."""
+    named = set()
+    for entry in spec:
+        if entry is not None:
+            named.update(_axes(entry))
+    return tuple(a for a in policy.all_axes if a in named)
+
+
+def sharded_global_norm(tree, specs, policy: ShardingPolicy):
+    """The global norm of a tree of this rank's blocks (``specs`` its
+    layout): each leaf's f32 squares summed locally, the sums of the
+    leaves split over the same axes summed over those axes' group (one
+    all-reduce per set of axes, tagged ``"grad_norm"``), a replicated
+    leaf counted once.  Every rank gets the same value, the norm of the
+    whole gradient, so clipping scales every shard alike."""
+    import torch
+
+    from ..tree import is_spec, tree_leaves
+    from . import comm
+
+    parts: dict[tuple, object] = {}
+    for leaf, spec in zip(tree_leaves(tree), tree_leaves(specs, is_spec)):
+        sq = torch.sum(torch.square(leaf.float()))
+        axes = spec_axes(spec, policy)
+        parts[axes] = sq if axes not in parts else parts[axes] + sq
+    total = None
+    for axes, sq in parts.items():
+        if axes:
+            sq = comm.all_reduce(sq, policy.group(axes), tag="grad_norm")
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)

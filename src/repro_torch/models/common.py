@@ -17,7 +17,7 @@ from torch import nn
 
 from ..tree import tree_leaves
 
-__all__ = ["dense_init", "he_init", "embed_init", "rms_norm", "layer_norm",
+__all__ = ["Initializer", "dense_init", "he_init", "embed_init", "rms_norm", "layer_norm",
            "softcap", "swiglu", "mlp_init", "mlp_apply", "MLP", "rope_freqs",
            "apply_rope", "segment_sum", "segment_softmax", "cross_entropy_loss",
            "count_params"]
@@ -48,6 +48,10 @@ def he_init(rng: np.random.Generator, shape: Sequence[int], *,
 
 def embed_init(rng: np.random.Generator, shape: Sequence[int]) -> np.ndarray:
     return rng.standard_normal(tuple(shape), dtype=np.float32) * np.float32(0.02)
+
+
+#: The reference's name for the default matrix initializer.
+Initializer = dense_init
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,

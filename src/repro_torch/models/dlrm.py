@@ -14,7 +14,10 @@ keeps.
 Training (:func:`loss_fn`) takes the same forward with each bag through
 ``ops.embedding_bag_autograd``: K6 forward, and the table gradient by the
 transposed gather in plain PyTorch, as the reference's gradient is XLA's
-scatter-add.
+scatter-add.  Under a policy it runs K6 the same way on each rank's table
+shards (:func:`logits` with ``policy=``), and :func:`sync_grads` makes the
+gradients whole and keeps every shard's zero row zero.  Serving under a
+policy (:func:`forward`) is that same :func:`logits` with no gradient.
 
 Distribution (``policy=``): :func:`param_pspecs` row-shards each table
 over every mesh axis where its rows divide, over ``model`` alone where only
@@ -48,7 +51,8 @@ from .common import mlp_apply
 __all__ = ["CRITEO_1TB_VOCABS", "DLRMConfig", "DLRM", "embedding_bag",
            "dot_interaction", "serve", "score_candidates", "logits",
            "loss_fn", "param_pspecs", "table_shards", "ShardedDLRM",
-           "shard_ids", "vocab_parallel_embeddings", "forward"]
+           "shard_ids", "vocab_parallel_embeddings", "forward",
+           "sync_grads"]
 
 # MLPerf Criteo-1TB per-feature cardinalities (day-0..22 preprocessing,
 # capped at 40M rows as in the MLPerf reference implementation).
@@ -213,10 +217,21 @@ class DLRM(nn.Module):
         return self.top_logits(feats)
 
 
-def logits(model: DLRM, batch: dict) -> torch.Tensor:
+def logits(model, batch: dict, *, policy=None) -> torch.Tensor:
     """The forward that autograd can differentiate: batch dense (B, 13) f32,
     sparse (B, 26, multi_hot) int32 -> logits (B,), each bag through
-    ``ops.embedding_bag_autograd`` (K6 on the card)."""
+    ``ops.embedding_bag_autograd`` (K6 on the card).
+
+    Under ``policy``, ``model`` is the rank's :class:`ShardedDLRM` and
+    every rank passes the same batch: K6 pools each table's bags on the
+    rank's shard, the shards' partial bags are summed (``comm.all_reduce``,
+    whose backward passes the gradient through), and the rank takes its
+    ``B / n_devices`` rows (``comm.split``, whose backward all-gathers
+    their gradients, so each shard's gradient covers the whole batch) for
+    the data-parallel interaction and top MLP; returns those rows'
+    logits."""
+    if policy is not None:
+        return _sharded_logits(model, batch, policy)
     dense, sparse = batch["dense"], batch["sparse"]
     feats = torch.stack([model.bottom(dense)] + [
         ops.embedding_bag_autograd(table, sparse[:, t, :])
@@ -224,15 +239,31 @@ def logits(model: DLRM, batch: dict) -> torch.Tensor:
     return model.top_logits(feats)
 
 
-def loss_fn(model: DLRM, batch: dict) -> tuple[torch.Tensor, dict]:
+def loss_fn(model, batch: dict, *, policy=None
+            ) -> tuple[torch.Tensor, dict]:
     """Binary cross-entropy on the click labels (B,) and accuracy, in f32;
-    ``(loss, {"loss", "acc"})``."""
-    lg = logits(model, batch)
-    labels = batch["labels"].float()
-    loss = -torch.mean(labels * F.logsigmoid(lg)
+    ``(loss, {"loss", "acc"})``.
+
+    Under ``policy`` (see :func:`logits`) the first value is this rank's
+    share of the global mean, its rows' sum over the global B, whose
+    gradients :func:`sync_grads` makes whole; the metrics are global."""
+    if policy is None:
+        lg = logits(model, batch)
+        labels = batch["labels"].float()
+        loss = -torch.mean(labels * F.logsigmoid(lg)
+                           + (1 - labels) * F.logsigmoid(-lg))
+        acc = torch.mean(((lg > 0) == (labels > 0.5)).float())
+        return loss, {"loss": loss, "acc": acc}
+    b = batch["labels"].shape[0]
+    lg = logits(model, batch, policy=policy)
+    labels = _rows(batch["labels"], policy).float()
+    total = -torch.sum(labels * F.logsigmoid(lg)
                        + (1 - labels) * F.logsigmoid(-lg))
-    acc = torch.mean(((lg > 0) == (labels > 0.5)).float())
-    return loss, {"loss": loss, "acc": acc}
+    hits = torch.sum(((lg > 0) == (labels > 0.5)).float())
+    everyone = policy.group(policy.all_axes)
+    sums = comm.all_reduce(torch.stack([total.detach(), hits]), everyone,
+                           tag="metrics")
+    return total / b, {"loss": sums[0] / b, "acc": sums[1] / b}
 
 
 def serve(model: DLRM, batch: dict) -> np.ndarray:
@@ -309,6 +340,16 @@ class ShardedDLRM:
     def device(self) -> torch.device:
         return self.tables[0].device
 
+    def tree(self) -> dict:
+        """The rank's state as a tree: ``{"tables", "bot", "top"}``, the
+        reference's layout with the rank's table shards (zero rows
+        included)."""
+        return {"tables": self.tables, "bot": self.bot, "top": self.top}
+
+    @classmethod
+    def from_tree(cls, cfg: DLRMConfig, policy, tree: dict) -> "ShardedDLRM":
+        return cls(cfg, policy, tree["tables"], tree["bot"], tree["top"])
+
     def single_device_view(self) -> DLRM:
         """At world size 1: a :class:`DLRM` whose tables are the views
         ``shard[:rows]`` of this one's (the card holds one copy) and whose
@@ -340,39 +381,85 @@ def shard_ids(model: ShardedDLRM, t: int, ids: torch.Tensor) -> torch.Tensor:
     return torch.where((loc >= 0) & (loc < rows), loc, rows).to(torch.int32)
 
 
-@torch.inference_mode()
 def vocab_parallel_embeddings(cfg: DLRMConfig, model: ShardedDLRM,
                               sparse: torch.Tensor, policy) -> torch.Tensor:
-    """Row-sharded embedding bags: K6 over each table's local shard (ids
-    outside it read the shard's zero row), then one all-reduce over every
-    rank for the tables sharded over all axes and one over ``model`` for
-    those sharded over it alone.  ``sparse`` (B, 26, hot) is the same on
-    every rank; returns (B, 26, d), the same on every rank.
+    """Row-sharded embedding bags: K6 over each table's local shard
+    (``ops.embedding_bag_autograd``; ids outside the shard read its zero
+    row), then one all-reduce over every rank for the tables sharded over
+    all axes and one over ``model`` for those sharded over it alone
+    (``comm.all_reduce``, whose backward passes the gradient through).
+    ``sparse`` (B, 26, hot) is the same on every rank; returns (B, 26, d),
+    the same on every rank.
 
     Traffic: the all-reduces of (B, n_sharded_tables, d), the DLRM analogue
     of the paper's loadvert terms; ``core.comm_model.
     dlrm_embedding_exchange`` models the all-to-all alternative."""
-    b = sparse.shape[0]
-    out = torch.empty((b, cfg.n_sparse, cfg.embed_dim), dtype=torch.float32,
-                      device=sparse.device)
+    bags = [ops.embedding_bag_autograd(table, shard_ids(model, t,
+                                                        sparse[:, t, :]))
+            for t, table in enumerate(model.tables)]
     kinds = {policy.n_devices: [], policy.tp: []}
     for t, (table, rows) in enumerate(zip(model.tables, model.rows)):
         if table.shape[0] == rows + 1:
             kinds[model.shards[t]].append(t)
-        ops.embedding_bag(table, shard_ids(model, t, sparse[:, t, :]),
-                          out=out[:, t])
     groups = {policy.n_devices: policy.all_axes, policy.tp: policy.tp_axis}
     for n, tabs in kinds.items():
         if tabs:
-            red = comm.all_reduce(out[:, tabs], policy.group(groups[n]))
-            out[:, tabs] = red
-    return out
+            red = comm.all_reduce(torch.stack([bags[t] for t in tabs], 1),
+                                  policy.group(groups[n]), tag="embedding")
+            for j, t in enumerate(tabs):
+                bags[t] = red[:, j]
+    return torch.stack(bags, 1)
+
+
+def _rows(t: torch.Tensor, policy) -> torch.Tensor:
+    """This rank's ``B / n_devices`` rows of a batch tensor."""
+    n = policy.n_devices
+    if t.shape[0] % n:
+        raise ValueError(f"batch {t.shape[0]} over {n} ranks")
+    lo = policy.coord(policy.all_axes) * (t.shape[0] // n)
+    return t[lo:lo + t.shape[0] // n]
+
+
+def _sharded_logits(model: ShardedDLRM, batch: dict,
+                    policy) -> torch.Tensor:
+    emb = vocab_parallel_embeddings(model.cfg, model, batch["sparse"], policy)
+    emb = comm.split(emb, policy.group(policy.all_axes), 0, tag="embedding")
+    bot = mlp_apply(model.bot, _rows(batch["dense"], policy), final_act=True)
+    feats = torch.cat([bot[:, None], emb], dim=1)
+    top_in = torch.cat([feats[:, 0], dot_interaction(feats)], dim=-1)
+    return mlp_apply(model.top, top_in)[:, 0]
+
+
+@torch.no_grad()
+def sync_grads(cfg: DLRMConfig, policy, grads: dict) -> torch.Tensor:
+    """One rank's DLRM gradients (``{"tables", "bot", "top"}``, the
+    :class:`ShardedDLRM` layout) made whole, in place, and their global
+    norm.  Each sharded table's zero row gets a zero gradient: out-of-shard
+    ids read it, so their gradients land there, and an optimizer step would
+    make it non-zero and add garbage to every later out-of-shard bag.  The
+    tables' gradients are whole already (every rank pools the whole batch);
+    the MLPs', each rank's rows only, are summed over every rank (tagged
+    ``"grad_dp"``).  The norm sums each table shard's squares over the axes
+    that shard it and counts replicated leaves once."""
+    from ..distributed.sharding import sharded_global_norm
+
+    specs = param_pspecs(cfg, policy)
+    for g, v, spec in zip(grads["tables"], cfg.vocab_sizes, specs["tables"]):
+        if spec[0] is not None:
+            g[v // policy.size(spec[0]):].zero_()
+    mlps = [t for name in ("bot", "top") for key in ("w", "b")
+            for t in grads[name][key]]
+    if policy.n_devices > 1:
+        comm.all_reduce_grads(mlps, policy.group(policy.all_axes),
+                              tag="grad_dp")
+    return sharded_global_norm(grads, specs, policy)
 
 
 @torch.inference_mode()
 def forward(cfg: DLRMConfig, model, batch: dict, *,
             policy=None) -> torch.Tensor:
-    """batch: dense (B, 13) f32, sparse (B, 26, hot) int32 -> logits (B,).
+    """batch: dense (B, 13) f32, sparse (B, 26, hot) int32 -> logits (B,):
+    :func:`logits` with no gradient.
 
     Under ``policy``, ``model`` is the rank's :class:`ShardedDLRM` and
     every rank passes the same batch: the embeddings are vocab-parallel,
@@ -381,14 +468,4 @@ def forward(cfg: DLRMConfig, model, batch: dict, *,
     ``policy.coord(policy.all_axes)``."""
     if policy is None:
         return model(batch)
-    n = policy.n_devices
-    b = batch["dense"].shape[0]
-    if b % n:
-        raise ValueError(f"batch {b} over {n} ranks")
-    lo = policy.coord(policy.all_axes) * (b // n)
-    emb = vocab_parallel_embeddings(cfg, model, batch["sparse"], policy)
-    dense = batch["dense"][lo:lo + b // n]
-    bot = mlp_apply(model.bot, dense, final_act=True)
-    feats = torch.cat([bot[:, None], emb[lo:lo + b // n]], dim=1)
-    top_in = torch.cat([feats[:, 0], dot_interaction(feats)], dim=-1)
-    return mlp_apply(model.top, top_in)[:, 0]
+    return logits(model, batch, policy=policy)

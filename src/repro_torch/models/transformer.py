@@ -55,7 +55,26 @@ the collectives the reference leaves to GSPMD written out:
   cache_seq_axes`` and its batch over ``batch_axes``; each shard attends
   over its slots and the flash-decoding partials combine over the shards.
 
-Training under a policy (distributed training) is not ported.
+Training under a policy (:func:`loss_fn` and :func:`make_train_step` with
+``policy=``) runs the same layer loop over a tree of this rank's blocks in
+the reference's layout, laid out by :func:`train_pspecs` (FSDP over the dp
+axes on top of :func:`param_pspecs`, the reference's ``fsdp_specs``):
+
+* each FSDP leaf is all-gathered over dp on use (a block's slice, in the
+  compute dtype, inside its rematerialised group, so the backward's
+  recompute gathers again; a top-level leaf once a step, in its stored
+  dtype), and the gather's backward reduce-scatters its gradient;
+* the cross-entropy is vocab-parallel where the vocabulary divides ``tp``
+  (each rank's logits columns, the logsumexp from an all-reduce max and an
+  all-reduce sum, the gold logit a masked local gather summed over tp),
+  on the sequence-chunked path too; a tied embedding takes gradient from
+  both its uses;
+* after the backward the gradients are made whole: leaves replicated over
+  ``tp`` whose inputs are sharded (the sequence-parallel residual's norms,
+  the context-parallel path's weights, the router) are summed over tp,
+  leaves replicated over dp are averaged with ``comm.all_reduce_grads``,
+  FSDP leaves divided by dp; clipping reads the global norm
+  (``sharding.sharded_global_norm``), so every rank clips alike.
 """
 
 from __future__ import annotations
@@ -72,8 +91,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..backend import resolve_device
 from ..distributed import comm
+from ..distributed.sharding import (fsdp_specs, sharded_global_norm,
+                                    spec_axes as sharding_axes)
 from ..kernels import ops
 from ..optim.optimizers import make_step
+from ..tree import is_spec, tree_map, tree_paths
 from . import attention as attn_lib
 from . import moe as moe_lib
 from .common import (apply_rope, cross_entropy_loss, rms_norm, rope_freqs,
@@ -85,7 +107,7 @@ __all__ = ["TransformerConfig", "DecoderLayer", "Transformer", "LAYER_KEYS",
            "make_prefill_step", "make_serve_step", "cache_shapes",
            "init_cache", "loss_fn", "make_train_step", "param_pspecs",
            "DecodePolicy", "cache_pspecs", "ShardedTransformer",
-           "gather_logits"]
+           "gather_logits", "abstract_params", "train_pspecs"]
 
 #: Per-layer weights of a dense config, in the reference's block-dict names
 #: and (in, out) layout: ``x @ w``.
@@ -353,14 +375,15 @@ class _RankView:
     def embed(self, model, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B_l, S) -> the residual layout, vocab-parallel where the
         vocabulary shards: a masked local lookup, summed over ``tp``."""
+        # F.embedding: its backward sums the rows in a fixed order.
         if not self.vocab:
-            x = model.embed[tokens.long()]
+            x = F.embedding(tokens.long(), model.embed)
             return self.seq_slice(x) if self.sp else x
         rows = model.embed.shape[0]
         loc = tokens.long() - self.ti * rows
         ok = (loc >= 0) & (loc < rows)
-        part = model.embed[loc.clamp(0, rows - 1)] * ok[..., None].to(
-            model.embed.dtype)
+        part = F.embedding(loc.clamp(0, rows - 1), model.embed) * ok[
+            ..., None].to(model.embed.dtype)
         return self.reduce_out(part)
 
     def logits(self, cfg: TransformerConfig, model,
@@ -615,18 +638,10 @@ def gather_logits(cfg: TransformerConfig, logits: torch.Tensor,
 # Training: loss and train step over a reference-layout tree of tensors
 # ---------------------------------------------------------------------------
 
-def _tree_layers(cfg: TransformerConfig, params: dict) -> list:
-    """Layer ``g * P + i`` of a reference-layout tree: block ``i``'s slice
-    ``g`` of every weight, cast to the compute dtype (stacks are cast
-    whole, then unbound: the backward stacks the slices' gradients).
-
-    The GNNs and DLRM bind a tree to their module with
-    ``params.tree_loss`` (``torch.func.functional_call``); the transformer
-    cannot.  ``functional_call`` swaps the tree in only for the call, and
-    the group remat recomputes each group in the backward pass, after the
-    call has returned, so the recompute would read the module's own
-    weights and give wrong gradients without an error.  The layers here
-    are plain objects that the recompute's closures hold."""
+def _tree_entries(cfg: TransformerConfig, params: dict) -> list:
+    """Per pattern entry of a reference-layout tree: each weight's (G, ...)
+    stack cast to the compute dtype (whole, then unbound into its G slices:
+    the backward stacks the slices' gradients)."""
     cdt = cfg.compute_dtype
 
     def cast(a: torch.Tensor) -> tuple:
@@ -640,26 +655,60 @@ def _tree_layers(cfg: TransformerConfig, params: dict) -> list:
         if cfg.moe is not None:
             entry["moe"] = {key: cast(blk["moe"][key]) for key in MOE_KEYS}
         entries.append(entry)
-    layers = []
-    for n in range(cfg.n_layers):
-        g, i = divmod(n, len(cfg.window_pattern))
-        e = entries[i]
-        layer = SimpleNamespace(window=cfg.window_pattern[i],
-                                **{k: e[k][g] for k in layer_keys(cfg)})
-        if cfg.moe is not None:
-            layer.moe = {k: e["moe"][k][g] for k in MOE_KEYS}
-        layers.append(layer)
-    return layers
+    return entries
+
+
+def _entry_layer(cfg: TransformerConfig, entry: dict, i: int, g: int,
+                 get=None) -> SimpleNamespace:
+    """Layer ``g * P + i``: slice ``g`` of pattern entry ``i``'s weights,
+    each through ``get(path, slice)`` when given (the FSDP gather)."""
+    get = get or (lambda path, t: t)
+    layer = SimpleNamespace(window=cfg.window_pattern[i],
+                            **{k: get((k,), entry[k][g])
+                               for k in layer_keys(cfg)})
+    if cfg.moe is not None:
+        layer.moe = {k: get(("moe", k), entry["moe"][k][g])
+                     for k in MOE_KEYS}
+    return layer
+
+
+def _tree_layers(cfg: TransformerConfig, params: dict) -> list:
+    """Layer ``g * P + i`` of a reference-layout tree: block ``i``'s slice
+    ``g`` of every weight, cast to the compute dtype.
+
+    The GNNs and DLRM bind a tree to their module with
+    ``params.tree_loss`` (``torch.func.functional_call``); the transformer
+    cannot.  ``functional_call`` swaps the tree in only for the call, and
+    the group remat recomputes each group in the backward pass, after the
+    call has returned, so the recompute would read the module's own
+    weights and give wrong gradients without an error.  The layers here
+    are plain objects that the recompute's closures hold."""
+    entries = _tree_entries(cfg, params)
+    P = len(cfg.window_pattern)
+    return [_entry_layer(cfg, entries[n % P], n % P, n // P)
+            for n in range(cfg.n_layers)]
+
+
+def _run_groups(cfg: TransformerConfig, group, x: torch.Tensor):
+    """``group(x, g) -> (x, aux)`` over the decoder groups, each under
+    ``torch.utils.checkpoint`` unless ``cfg.remat`` is ``"none"``; the
+    balance losses summed in fp32."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_groups):
+        if cfg.remat == "none":
+            x, a = group(x, g)
+        else:
+            x, a = checkpoint(group, x, g, use_reentrant=False)
+        aux = aux + a
+    return x, aux
 
 
 def _train_hidden(cfg: TransformerConfig, params: dict,
                   tokens: torch.Tensor):
     """tokens (B, S) -> (final normed hidden (B, S, d), aux_loss): the
-    reference's ``forward_hidden`` over a tree, differentiable, each
-    decoder group under ``torch.utils.checkpoint`` unless ``cfg.remat`` is
-    ``"none"``."""
-    if cfg.remat not in ("none", "full", "dots"):
-        raise ValueError(f"remat {cfg.remat!r}")
+    reference's ``forward_hidden`` over a tree, differentiable."""
     cdt = cfg.compute_dtype
     # F.embedding: its backward sums the rows in a fixed order on both
     # devices (indexing's backward accumulates them in no fixed order).
@@ -672,13 +721,7 @@ def _train_hidden(cfg: TransformerConfig, params: dict,
         return _layers(cfg, layers[g * P:(g + 1) * P], x, positions, freqs,
                        _chunked_attention)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.n_groups):
-        if cfg.remat == "none":
-            x, a = group(x, g)
-        else:
-            x, a = checkpoint(group, x, g, use_reentrant=False)
-        aux = aux + a
+    x, aux = _run_groups(cfg, group, x)
     return rms_norm(x, params["final_norm"].to(cdt)), aux
 
 
@@ -694,59 +737,356 @@ _CE_CHUNK_THRESHOLD = 1 << 24
 _CE_CHUNK = 256
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor,
+         rank: Optional[_RankView] = None) -> torch.Tensor:
+    """Per-token negative log-likelihood in fp32.  With a vocab-parallel
+    ``rank`` the logits are its vocabulary columns: the logsumexp combines
+    the ranks' from an all-reduce max and an all-reduce sum, and the gold
+    logit is a masked local gather summed over ``tp``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    if rank is None:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return logz - gold
+    rows = logits.shape[-1]
+    loc = labels.long() - rank.ti * rows
+    ok = (loc >= 0) & (loc < rows)
+    gold = torch.gather(logits, -1, loc.clamp(0, rows - 1)[..., None])[
+        ..., 0] * ok.to(logits.dtype)
+    if rank.tp > 1:
+        m = comm.all_reduce(logz.detach(), rank.tp_group, "max", tag="ce")
+        logz = m + torch.log(comm.all_reduce(torch.exp(logz - m),
+                                             rank.tp_group, tag="ce"))
+        gold = comm.all_reduce(gold, rank.tp_group, tag="ce")
+    return logz - gold
+
+
 def _ce_token_nll(cfg: TransformerConfig, x_chunk: torch.Tensor,
-                  unembed: torch.Tensor,
-                  labels_chunk: torch.Tensor) -> torch.Tensor:
+                  unembed: torch.Tensor, labels_chunk: torch.Tensor,
+                  rank: Optional[_RankView] = None) -> torch.Tensor:
     """(B, c, d) -> the summed nll over one sequence chunk, fp32."""
     logits = x_chunk @ unembed
     if cfg.final_softcap is not None:
         logits = softcap(logits, cfg.final_softcap)
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_chunk.long()[..., None])[..., 0]
-    return torch.sum(logz - gold)
+    return torch.sum(_nll(logits, labels_chunk, rank))
 
 
-def loss_fn(cfg: TransformerConfig, params: dict,
-            batch: dict) -> tuple[torch.Tensor, dict]:
+def _chunked_ce(cfg: TransformerConfig, x: torch.Tensor,
+                unembed: torch.Tensor, labels: torch.Tensor,
+                rank: Optional[_RankView] = None) -> torch.Tensor:
+    """The summed nll of one sequence chunk at a time, each chunk's logits
+    rematerialised in the backward pass."""
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, x.shape[1], _CE_CHUNK):
+        total = total + checkpoint(
+            _ce_token_nll, cfg, x[:, lo:lo + _CE_CHUNK], unembed,
+            labels[:, lo:lo + _CE_CHUNK], rank, use_reentrant=False)
+    return total
+
+
+def _chunks_ce(cfg: TransformerConfig, b: int, s: int) -> bool:
+    """The reference's rule: chunk the CE past the threshold when the
+    sequence divides into chunks (``b`` is the global batch)."""
+    return not (b * s * cfg.vocab <= _CE_CHUNK_THRESHOLD or s % _CE_CHUNK)
+
+
+def loss_fn(cfg: TransformerConfig, params: dict, batch: dict, *,
+            policy=None, specs: Optional[dict] = None
+            ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy plus the MoE balance loss, over a
     reference-layout tree of tensors; ``(loss, {"loss", "ce", "aux"})``.
     ``batch``: int ``tokens`` and ``labels`` (B, S), optionally a ``mask``
-    (the unchunked path only, as in the reference)."""
+    (the unchunked path on one device only, as in the reference).
+
+    Under ``policy`` every rank passes the same batch and its blocks of the
+    tree, laid out by ``specs`` (default :func:`train_pspecs` in the
+    tree's dtype); the first value is this rank's objective, whose
+    gradients :func:`make_train_step` makes whole, and the metrics are the
+    global loss, cross-entropy and balance loss."""
+    if policy is not None:
+        return _policy_loss(cfg, params, batch, policy, specs)
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
     x, aux = _train_hidden(cfg, params, tokens)
     unembed = _unembed_weight(cfg, params)
-    if b * s * cfg.vocab <= _CE_CHUNK_THRESHOLD or s % _CE_CHUNK:
+    if not _chunks_ce(cfg, b, s):
         logits = x @ unembed
         if cfg.final_softcap is not None:
             logits = softcap(logits, cfg.final_softcap)
         ce = cross_entropy_loss(logits, labels, mask=batch.get("mask"))
     else:
-        # Sequence-chunked CE: one chunk's logits at a time, rematerialised
-        # in the backward pass.
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lo in range(0, s, _CE_CHUNK):
-            total = total + checkpoint(
-                _ce_token_nll, cfg, x[:, lo:lo + _CE_CHUNK], unembed,
-                labels[:, lo:lo + _CE_CHUNK], use_reentrant=False)
-        ce = total / (b * s)
+        ce = _chunked_ce(cfg, x, unembed, labels) / (b * s)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
-def make_train_step(cfg: TransformerConfig, optimizer):
+def make_train_step(cfg: TransformerConfig, optimizer, *, policy=None,
+                    specs: Optional[dict] = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), the reference's signature over ``optimizers.make_step`` of
     :func:`loss_fn`: gradients by autograd, then the optimizer's update,
-    applied in place when ``optimizer.donate``."""
-    step_fn = make_step(partial(loss_fn, cfg), optimizer)
+    applied in place when ``optimizer.donate``.
+
+    Under ``policy`` each rank passes its blocks of the parameters and of
+    the moments (``specs``, default :func:`train_pspecs` in the
+    parameters' dtype) and the same global batch; between the backward
+    and the update the gradients are made whole and the clipping reads
+    their global norm (:func:`_sync_grads`)."""
+    sync = None
+    if policy is not None:
+        sync = partial(_sync_grads, cfg, policy, specs)
+    step_fn = make_step(partial(loss_fn, cfg, policy=policy, specs=specs),
+                        optimizer, sync=sync)
 
     def train_step(params, opt_state, batch):
         (params, opt_state), metrics = step_fn((params, opt_state), batch)
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Training under a policy
+# ---------------------------------------------------------------------------
+
+def _param_shapes(cfg: TransformerConfig) -> dict:
+    """The reference layout's global shapes (tuples as leaves)."""
+    d, H, Hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                       cfg.d_ff)
+    G = cfg.n_groups
+
+    def ffn(width: int, prefix: str) -> dict:
+        return {f"{prefix}gate": (G, d, width), f"{prefix}up": (G, d, width),
+                f"{prefix}down": (G, width, d)}
+
+    def block() -> dict:
+        blk = {"ln1": (G, d), "ln2": (G, d), "wq": (G, d, H * dh),
+               "wk": (G, d, Hk * dh), "wv": (G, d, Hk * dh),
+               "wo": (G, H * dh, d)}
+        if cfg.moe is None:
+            return {**blk, **ffn(f, "w_")}
+        E, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        blk["moe"] = {"router": (G, d, E), "w_gate": (G, E, d, fe),
+                      "w_up": (G, E, d, fe), "w_down": (G, E, fe, d)}
+        if cfg.moe.dense_residual_d_ff:
+            blk.update(ffn(cfg.moe.dense_residual_d_ff, "res_"))
+        return blk
+
+    shapes = {"embed": (cfg.vocab, d), "final_norm": (d,),
+              "blocks": [block() for _ in cfg.window_pattern]}
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = (d, cfg.vocab)
+    return shapes
+
+
+def abstract_params(cfg: TransformerConfig, *,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """The reference layout as ``meta`` tensors of the global shapes in
+    ``dtype``: nothing is allocated."""
+    return tree_map(lambda shape: torch.empty(shape, dtype=dtype,
+                                              device="meta"),
+                    _param_shapes(cfg), is_leaf=is_spec)
+
+
+def train_pspecs(cfg: TransformerConfig, policy, *,
+                 dtype: torch.dtype = torch.float32,
+                 min_bytes: int = 1 << 20) -> dict:
+    """The training state's layout, the reference's ``_lm_plan``:
+    :func:`param_pspecs` with every leaf of at least ``min_bytes`` (in
+    ``dtype``) also sharded over the dp axes (``sharding.fsdp_specs``).
+    AdamW's moments take the same layout."""
+    return fsdp_specs(abstract_params(cfg, dtype=dtype),
+                      param_pspecs(cfg, policy), policy, min_bytes=min_bytes)
+
+
+class _GradScale(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+class _Fsdp:
+    """The FSDP side of one rank's training pass: which dim of each leaf
+    is split over dp (by ``specs``), and the tagged all-gather over the dp
+    group that rebuilds the rank's tensor-parallel block on use."""
+
+    def __init__(self, policy, specs: dict):
+        self.policy, self.specs = policy, specs
+        self.group = policy.group(policy.dp_axes) if policy.dp > 1 else None
+
+    def dim(self, spec: tuple) -> Optional[int]:
+        for d, entry in enumerate(spec):
+            if entry == self.policy.dp_spec:
+                return d
+        return None
+
+    def gather(self, t: torch.Tensor, spec: tuple,
+               stacked: bool = False) -> torch.Tensor:
+        """``t`` (a leaf, or with ``stacked`` one layer's slice of a
+        (G, ...) leaf) gathered along its FSDP dim, if it has one."""
+        d = self.dim(spec) if self.group is not None else None
+        if d is None:
+            return t
+        if stacked:
+            if d == 0:
+                raise ValueError(f"FSDP over the layer dim of {spec}: a "
+                                 "layer's slice cannot be gathered alone")
+            d -= 1
+        return comm.all_gather(t, self.group, d, tag="fsdp")
+
+
+def _check_blocks(cfg: TransformerConfig, params: dict, specs: dict,
+                  policy) -> None:
+    """Each leaf must be this rank's block of the global shape by its
+    spec."""
+    want = dict(tree_paths(_param_shapes(cfg), is_spec))
+    laid = dict(tree_paths(specs, is_spec))
+    for path, leaf in tree_paths(params, is_spec):
+        shape = tuple(want[path])
+        spec = laid[path]
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                shape = shape[:d] + (shape[d] // policy.size(entry),) + \
+                    shape[d + 1:]
+        if tuple(leaf.shape) != shape:
+            raise ValueError(f"{path}: a block of {tuple(leaf.shape)}, "
+                             f"expected {shape} by the spec {spec}")
+
+
+def _resolve_specs(cfg: TransformerConfig, params: dict, policy,
+                   specs: Optional[dict]) -> dict:
+    if specs is None:
+        specs = train_pspecs(cfg, policy, dtype=params["embed"].dtype)
+    _check_blocks(cfg, params, specs, policy)
+    return specs
+
+
+def _policy_loss(cfg: TransformerConfig, params: dict, batch: dict, policy,
+                 specs: Optional[dict]) -> tuple[torch.Tensor, dict]:
+    """One rank's objective and the global metrics (:func:`loss_fn`)."""
+    if batch.get("mask") is not None:
+        raise ValueError("a loss mask is taken on one device only")
+    rank = _RankView(cfg, policy)
+    if not rank.sp:
+        raise ValueError("training under a policy runs the "
+                         "sequence-parallel residual "
+                         "(seq_parallel_residual=True)")
+    specs = _resolve_specs(cfg, params, policy, specs)
+    fsdp = _Fsdp(policy, specs)
+    cdt = cfg.compute_dtype
+    b_all, s = batch["tokens"].shape
+    tokens = rank.batch(batch["tokens"], policy.dp_axes)
+    labels = rank.batch(batch["labels"], policy.dp_axes)
+    b = tokens.shape[0]
+
+    # The top-level leaves are gathered once, in the stored dtype, and cast
+    # for each use: the tied embedding's two gradients then add in the
+    # stored dtype, as on one device.
+    embed = fsdp.gather(params["embed"], specs["embed"])
+    x = rank.embed(SimpleNamespace(embed=embed.to(cdt)), tokens)
+    freqs = rope_freqs(cfg.d_head, theta=cfg.rope_theta, device=x.device)
+    entries = _tree_entries(cfg, params)
+    P = len(cfg.window_pattern)
+
+    def group(x: torch.Tensor, g: int):
+        layers = []
+        for i in range(P):
+            spec = specs["blocks"][i]
+            get = lambda path, t, spec=spec: fsdp.gather(  # noqa: E731
+                t, spec[path[0]] if len(path) == 1 else spec["moe"][path[1]],
+                stacked=True)
+            layers.append(_entry_layer(cfg, entries[i], i, g, get))
+        return _layers(cfg, layers, x, None, freqs, _chunked_attention,
+                       rank=rank)
+
+    x, aux = _run_groups(cfg, group, x)
+    x = rms_norm(x, fsdp.gather(params["final_norm"],
+                                specs["final_norm"]).to(cdt))
+    unembed = (embed.T if cfg.tie_embeddings else fsdp.gather(
+        params["unembed"], specs["unembed"])).to(cdt)
+    chunked = _chunks_ce(cfg, b_all, s)
+    if rank.vocab:
+        # Vocab-parallel: the whole sequence, this rank's columns.
+        x = rank.gather_seq(x)
+        if chunked:
+            ce = _chunked_ce(cfg, x, unembed, labels, rank) / (b * s)
+        else:
+            logits = x @ unembed
+            if cfg.final_softcap is not None:
+                logits = softcap(logits, cfg.final_softcap)
+            ce = torch.mean(_nll(logits, labels, rank))
+    else:
+        # Every column on the rank's sequence shard, summed over tp.
+        labels = rank.seq_slice(labels)
+        if chunked and labels.shape[1] % _CE_CHUNK == 0:
+            part = _chunked_ce(cfg, x, unembed, labels)
+        else:
+            part = _ce_token_nll(cfg, x, unembed, labels)
+        ce = comm.all_reduce(part, rank.tp_group, tag="ce") / (b * s)
+    dp_group = policy.group(policy.dp_axes)
+    ce_all = comm.all_reduce(ce.detach(), dp_group, tag="metrics") / policy.dp
+    aux_all = aux.detach()
+    # The balance loss is averaged over every rank on its way out of each
+    # layer (two all-reduces whose backward passes the gradient through),
+    # and the dp mean of the gradients divides once more: the factor puts
+    # each rank's share of its gradient back at 1 / n_devices.
+    objective = ce + _GradScale.apply(aux, policy.n_devices)
+    loss_all = ce_all + aux_all
+    return objective, {"loss": loss_all, "ce": ce_all, "aux": aux_all}
+
+
+def _tp_partial(cfg: TransformerConfig, policy) -> set:
+    """Paths of the leaves replicated over ``tp`` whose inputs are sharded
+    over it, so that each rank holds a part of their gradient: the
+    sequence-parallel residual's norms, the context-parallel path's
+    attention weights, the MoE router, and the embedding (and unembedding)
+    where the vocabulary does not shard."""
+    keys = {"ln1", "ln2"}
+    if not _tp_heads(cfg, policy):
+        keys |= {"wq", "wk", "wv", "wo"}
+    out = {("final_norm",)}
+    for i in range(len(cfg.window_pattern)):
+        out |= {("blocks", i, k) for k in keys}
+        if cfg.moe is not None:
+            out.add(("blocks", i, "moe", "router"))
+    if cfg.vocab % policy.tp:
+        out |= {("embed",), ("unembed",)}
+    return out
+
+
+def _sync_grads(cfg: TransformerConfig, policy, specs: Optional[dict],
+                grads: dict) -> torch.Tensor:
+    """One rank's gradients made whole, in place: the partial ones
+    (:func:`_tp_partial`) summed over ``tp``; the leaves replicated over
+    dp averaged over it (``comm.all_reduce_grads``, tagged ``"grad_dp"``),
+    the FSDP ones (summed by their gathers' reduce-scatters) divided by
+    dp.  Returns the global norm."""
+    specs = _resolve_specs(cfg, grads, policy, specs)
+    laid = dict(tree_paths(specs, is_spec))
+    partial_paths = _tp_partial(cfg, policy)
+    dp = set(policy.dp_axes)
+    tp_sum, dp_mean, fsdp = [], [], []
+    for path, g in tree_paths(grads, is_spec):
+        spec_axes = set(sharding_axes(laid[path], policy))
+        if path in partial_paths:
+            tp_sum.append(g)
+        (fsdp if spec_axes & dp else dp_mean).append(g)
+    if policy.tp > 1 and tp_sum:
+        comm.all_reduce_grads(tp_sum, policy.group(policy.tp_axis),
+                              tag="grad_tp")
+    if policy.dp > 1:
+        comm.all_reduce_grads(dp_mean, policy.group(policy.dp_axes),
+                              mean=True, tag="grad_dp")
+        for g in fsdp:
+            g.div_(policy.dp)
+    return sharded_global_norm(grads, specs, policy)
 
 
 @dataclass(frozen=True)

@@ -69,10 +69,16 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 
 def clip_by_global_norm(tree: PyTree, max_norm: float, *,
-                        donate: bool = False) -> tuple[PyTree, torch.Tensor]:
+                        donate: bool = False,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> tuple[PyTree, torch.Tensor]:
     """Every leaf times ``min(1, max_norm / (norm + 1e-9))``, and the norm;
-    in the leaves' own buffers with ``donate``."""
-    norm = global_norm(tree)
+    in the leaves' own buffers with ``donate``.  ``norm`` is the tree's
+    global norm when the caller has it (a sharded tree's, from
+    ``distributed.sharding.sharded_global_norm``), else
+    :func:`global_norm`."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda x: torch.mul(x, scale.to(x.dtype),
                                         out=x if donate else None),
@@ -134,9 +140,11 @@ def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-3, *,
                                       device=_device(params)),
                           zeros(), zeros())
 
-    def update(grads: PyTree, state: AdamWState, params: PyTree):
+    def update(grads: PyTree, state: AdamWState, params: PyTree, *,
+               norm: Optional[torch.Tensor] = None):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm, donate=donate)
+            grads, _ = clip_by_global_norm(grads, clip_norm, donate=donate,
+                                           norm=norm)
         step = state.step + 1
         stepf = step.to(torch.float32)
         bc1 = 1.0 - b1 ** stepf
@@ -188,9 +196,10 @@ def sgd(lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-2, *,
                         tree_map(lambda x: torch.zeros_like(
                             x, dtype=torch.float32), params))
 
-    def update(grads: PyTree, state: SGDState, params: PyTree):
+    def update(grads: PyTree, state: SGDState, params: PyTree, *,
+               norm: Optional[torch.Tensor] = None):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, norm=norm)
         step = state.step + 1
         lr_t = lr_fn(step)
         mom = tree_map(lambda g, m: momentum * m + g.float(), grads,
@@ -209,11 +218,14 @@ def apply_updates(params: PyTree, updates: PyTree, *,
                     params, updates)
 
 
-def make_step(loss: Callable, optimizer: Optimizer) -> Callable:
+def make_step(loss: Callable, optimizer: Optimizer, *,
+              sync: Optional[Callable] = None) -> Callable:
     """``step_fn(state, batch) -> (state, metrics)`` over ``state = (params,
     opt_state)``, from ``loss(params, batch) -> (loss, metrics)``:
     autograd's gradients, the optimizer's update, applied in place when the
-    optimizer donates.  Its two halves stay reachable as
+    optimizer donates.  ``sync(grads) -> norm`` (a sharded step's) makes
+    one rank's gradients whole in place and returns their global norm,
+    which the update's clipping reads.  Its halves stay reachable as
     ``step_fn.grad_fn`` and ``step_fn.optimizer`` (to time or check them
     apart)."""
     grad_fn = value_and_grad(loss)
@@ -221,7 +233,8 @@ def make_step(loss: Callable, optimizer: Optimizer) -> Callable:
     def step_fn(state, batch):
         params, opt_state = state
         (_, metrics), grads = grad_fn(params, batch)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
+        kw = {} if sync is None else {"norm": sync(grads)}
+        updates, opt_state = optimizer.update(grads, opt_state, params, **kw)
         return ((apply_updates(params, updates, donate=optimizer.donate),
                  opt_state), metrics)
 

@@ -63,7 +63,7 @@ from torch import nn
 
 from .backend import resolve_device
 from .models.common import dense_init, embed_init, mlp_init
-from .distributed.sharding import shard_slices
+from .distributed.sharding import shard_slices, spec_axes
 from .models.dlrm import DLRM, DLRMConfig, ShardedDLRM
 from .models.dlrm import param_pspecs as dlrm_pspecs
 from .models.gnn.equiformer_v2 import EquiformerV2, EquiformerV2Config
@@ -75,7 +75,8 @@ from .models.moe import MOE_KEYS, init_moe_params
 from .models.transformer import (ShardedTransformer, Transformer,
                                  TransformerConfig, layer_keys)
 from .models.transformer import param_pspecs as transformer_pspecs
-from .tree import tree_map
+from .tree import (is_spec, tree_flatten, tree_map, tree_paths,
+                   tree_unflatten)
 
 __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
            "load_transformer", "draw_transformer", "dlrm_params",
@@ -83,7 +84,7 @@ __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
            "load_meshgraphnet", "load_equiformer_v2", "module_tree",
            "dump_transformer", "dump_dlrm", "dump_gnn", "tensor_tree",
            "to_numpy", "bind", "tree_loss", "shard_transformer",
-           "shard_dlrm"]
+           "shard_transformer_tree", "shard_dlrm"]
 
 
 def gcn_params(dims: Sequence[int], seed: int = 0) -> dict:
@@ -584,59 +585,155 @@ def _cut(src, spec: tuple, policy, *, device, dtype) -> torch.Tensor:
     there in that dtype."""
     block = src[shard_slices(src.shape, spec, policy)]
     if isinstance(block, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(block, np.float32)).to(
+        # A copy: a step that updates the block in place must not write
+        # into the caller's array.
+        return torch.from_numpy(np.array(block, np.float32)).to(
             device=device, dtype=dtype)
     return block.to(device=device, dtype=dtype)
 
 
+def _shard_seed(seed: int, leaf: int, coord: int) -> int:
+    """The generator seed of leaf ``leaf``'s block at ``coord``."""
+    return (1_000_003 * seed + leaf) * 1_000_033 + coord
+
+
+def _draw_block(shape: tuple, spec: tuple, path: tuple, leaf: int, policy,
+                *, seed: int, device, dtype) -> torch.Tensor:
+    """This rank's block of a leaf of global ``shape`` by ``spec``, drawn
+    in place with the reference's initializers (zero norm scales,
+    0.02-normal embedding, LeCun-normal matrices: std ``1/sqrt(shape[-2])``)
+    from a generator seeded with ``seed``, ``leaf`` and the rank's index
+    along the spec's axes."""
+    local = tuple(t.stop - t.start if t.stop is not None else n
+                  for t, n in zip(shard_slices(shape, spec, policy), shape))
+    out = torch.empty(local, dtype=dtype, device=device)
+    name = path[-1]
+    with torch.no_grad():
+        if name in ("ln1", "ln2", "final_norm"):
+            return out.zero_()
+        coord = policy.coord(spec_axes(spec, policy))
+        gen = torch.Generator(device=device).manual_seed(
+            _shard_seed(seed, leaf, coord))
+        std = 0.02 if name == "embed" else shape[-2] ** -0.5
+        return out.normal_(0.0, std, generator=gen)
+
+
+def shard_transformer_tree(source, cfg: TransformerConfig, policy, *,
+                           specs: Optional[dict] = None, device=None,
+                           dtype: Optional[torch.dtype] = None,
+                           seed: int = 0) -> dict:
+    """This rank's blocks of a transformer in the reference's tree layout
+    (the training state), laid out by ``specs`` (default
+    ``transformer.param_pspecs``; training passes
+    ``transformer.train_pspecs``), in ``dtype`` (default f32) on
+    ``device`` (CUDA by default).
+
+    ``source`` is a reference-layout numpy tree (:func:`transformer_params`
+    or the reference's ``init_params`` after ``np.asarray``), cut block by
+    block, or None to draw each block in place (:func:`_draw_block`): leaf
+    ``i`` of the flatten order from a generator seeded with ``seed``, ``i``
+    and the rank's index along the leaf's own spec axes (FSDP axes
+    included), so a model larger than one card never exists whole, a
+    replicated leaf is the same on every rank and a block is the same
+    wherever it is drawn."""
+    from .models.transformer import _param_shapes
+
+    dev = resolve_device(device)
+    dtype = dtype or torch.float32
+    specs = specs or transformer_pspecs(cfg, policy)
+    laid = dict(tree_paths(specs, is_spec))
+    src = dict(tree_paths(source)) if source is not None else None
+    shapes = _param_shapes(cfg)
+    blocks = []
+    for leaf, (path, shape) in enumerate(tree_paths(shapes, is_spec)):
+        if src is not None:
+            blocks.append(_cut(np.asarray(src[path]), laid[path], policy,
+                               device=dev, dtype=dtype))
+        else:
+            blocks.append(_draw_block(tuple(shape), laid[path], path, leaf,
+                                      policy, seed=seed, device=dev,
+                                      dtype=dtype))
+    return tree_unflatten(tree_flatten(shapes, is_spec)[1], blocks)
+
+
 def shard_transformer(source, cfg: TransformerConfig, policy, *,
-                      device=None, dtype: Optional[torch.dtype] = None
-                      ) -> ShardedTransformer:
+                      device=None, dtype: Optional[torch.dtype] = None,
+                      seed: int = 0) -> ShardedTransformer:
     """This rank's :class:`ShardedTransformer`: ``source``, a
     reference-layout numpy tree (:func:`transformer_params`, or the
     reference's ``init_params`` after ``np.asarray``) or a
     :class:`Transformer`, cut by ``transformer.param_pspecs(cfg, policy)``,
-    in ``dtype`` (by default the module's, or the config's compute dtype
-    for a tree) on ``device`` (CUDA by default).  From a module already on
-    the device in that dtype, the slices are views."""
+    or None to draw the rank's blocks in place
+    (:func:`shard_transformer_tree`, from ``seed``); in ``dtype`` (by
+    default the module's, or the config's compute dtype) on ``device``
+    (CUDA by default).  From a module already on the device in that dtype,
+    the slices are views."""
     dev = resolve_device(device)
     module = isinstance(source, Transformer)
     dtype = dtype or (source.embed.dtype if module else cfg.compute_dtype)
     specs = transformer_pspecs(cfg, policy)
     P = len(cfg.window_pattern)
     kw = {"device": dev, "dtype": dtype}
+    if source is None:
+        # The drawn blocks are the rank's already: cut nothing further.
+        tree = shard_transformer_tree(None, cfg, policy, seed=seed, **kw)
+        full = tree_map(lambda spec: (None,) * len(spec), specs,
+                        is_leaf=is_spec)
+        return _sharded_from_tree(tree, full, cfg, policy, kw)
+
+    if not module:
+        return _sharded_from_tree(source, specs, cfg, policy, kw)
 
     def top(name: str) -> torch.Tensor:
-        src = getattr(source, name) if module else source[name]
-        return _cut(src.detach() if module else src, specs[name], policy,
+        return _cut(getattr(source, name).detach(), specs[name], policy,
                     **kw)
 
     layers = []
     for n in range(cfg.n_layers):
         g, i = divmod(n, P)
         spec = specs["blocks"][i]
-        if module:
-            mod = source.layers[n]
-            leaf = lambda key, sp=None: _cut(  # noqa: E731
-                getattr(mod, key).detach(), (sp or spec[key])[1:], policy,
-                **kw)
-            expert = lambda key: _cut(  # noqa: E731
-                mod.moe[key].detach(), spec["moe"][key][1:], policy, **kw)
-        else:
-            blk = source["blocks"][i]
-            leaf = lambda key: _cut(  # noqa: E731
-                np.asarray(blk[key])[g], spec[key][1:], policy, **kw)
-            expert = lambda key: _cut(  # noqa: E731
-                np.asarray(blk["moe"][key])[g], spec["moe"][key][1:],
-                policy, **kw)
-        layer = SimpleNamespace(window=cfg.window_pattern[i],
-                                **{key: leaf(key) for key in layer_keys(cfg)})
+        mod = source.layers[n]
+        layer = SimpleNamespace(
+            window=cfg.window_pattern[i],
+            **{key: _cut(getattr(mod, key).detach(), spec[key][1:], policy,
+                         **kw) for key in layer_keys(cfg)})
         if cfg.moe is not None:
-            layer.moe = {key: expert(key) for key in MOE_KEYS}
+            layer.moe = {key: _cut(mod.moe[key].detach(),
+                                   spec["moe"][key][1:], policy, **kw)
+                         for key in MOE_KEYS}
         layers.append(layer)
     return ShardedTransformer(
         cfg, policy, top("embed"), top("final_norm"), layers,
         None if cfg.tie_embeddings else top("unembed"))
+
+
+def _sharded_from_tree(tree, specs, cfg: TransformerConfig, policy,
+                       kw: dict) -> ShardedTransformer:
+    """A :class:`ShardedTransformer` from a reference-layout tree (numpy
+    or tensors), each leaf cut by ``specs``."""
+    P = len(cfg.window_pattern)
+
+    def cut(src, spec):
+        return _cut(src if torch.is_tensor(src) else np.asarray(src), spec,
+                    policy, **kw)
+
+    layers = []
+    for n in range(cfg.n_layers):
+        g, i = divmod(n, P)
+        spec, blk = specs["blocks"][i], tree["blocks"][i]
+        layer = SimpleNamespace(
+            window=cfg.window_pattern[i],
+            **{key: cut(blk[key][g], spec[key][1:])
+               for key in layer_keys(cfg)})
+        if cfg.moe is not None:
+            layer.moe = {key: cut(blk["moe"][key][g], spec["moe"][key][1:])
+                         for key in MOE_KEYS}
+        layers.append(layer)
+    return ShardedTransformer(
+        cfg, policy, cut(tree["embed"], specs["embed"]),
+        cut(tree["final_norm"], specs["final_norm"]), layers,
+        None if cfg.tie_embeddings else cut(tree["unembed"],
+                                            specs["unembed"]))
 
 
 def shard_dlrm(source, cfg: DLRMConfig, policy, *, device=None,
@@ -667,7 +764,7 @@ def shard_dlrm(source, cfg: DLRMConfig, policy, *, device=None,
             rows = v // policy.size(spec[0]) if pad else v
             shard = policy.coord(spec[0]) if pad else 0
             gen = torch.Generator(device=dev).manual_seed(
-                (1_000_003 * seed + t) * 1_000_033 + shard)
+                _shard_seed(seed, t, shard))
             table = torch.empty((rows + pad, d), dtype=torch.float32,
                                 device=dev)
             with torch.no_grad():
@@ -675,8 +772,8 @@ def shard_dlrm(source, cfg: DLRMConfig, policy, *, device=None,
                 table[rows:].zero_()
         tables.append(table)
     if source is not None:
-        mlps = {name: {key: [torch.as_tensor(np.asarray(a, np.float32),
-                                             device=dev)
+        mlps = {name: {key: [torch.tensor(np.asarray(a, np.float32),
+                                          device=dev)
                              for a in source[name][key]]
                        for key in ("w", "b")} for name in ("bot", "top")}
     else:

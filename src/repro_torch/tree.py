@@ -7,17 +7,18 @@ list's or tuple's in order, a NamedTuple's by field, ``None`` as an empty
 node.  These functions walk nested dicts, lists, tuples and NamedTuples in
 that same order, so a port state flattens to the reference's leaves one for
 one (``torch.utils._pytree`` keeps a dict's insertion order instead).
-Anything else is a leaf.
+Anything else is a leaf, and so is any node that ``is_leaf`` accepts (for
+trees of shapes or sharding specs, :func:`is_spec`: a plain tuple).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 __all__ = ["TreeDef", "tree_flatten", "tree_unflatten", "tree_leaves",
-           "tree_map", "value_and_grad"]
+           "tree_map", "tree_paths", "is_spec", "value_and_grad"]
 
 
 class TreeDef(NamedTuple):
@@ -63,18 +64,39 @@ def _children(tree) -> tuple[Any, tuple, list]:
     return "leaf", (), []
 
 
-def _walk(node, leaves: list) -> TreeDef:
+def is_spec(x) -> bool:
+    """A plain tuple (a shape, or a sharding spec of axis entries): the
+    leaf of a tree of shapes or specs."""
+    return isinstance(x, tuple) and not _is_namedtuple(x)
+
+
+def _walk(node, leaves: list, is_leaf, paths, prefix: tuple) -> TreeDef:
     kind, keys, kids = _children(node)
-    if kind == "leaf":
+    if kind == "leaf" or (is_leaf is not None and is_leaf(node)):
         leaves.append(node)
+        if paths is not None:
+            paths.append(prefix)
         return TreeDef("leaf")
-    return TreeDef(kind, keys, tuple(_walk(k, leaves) for k in kids))
+    names = keys or range(len(kids))
+    return TreeDef(kind, keys, tuple(
+        _walk(k, leaves, is_leaf, paths, prefix + (n,))
+        for n, k in zip(names, kids)))
 
 
-def tree_flatten(tree) -> tuple[list, TreeDef]:
+def tree_flatten(tree, is_leaf: Optional[Callable] = None
+                 ) -> tuple[list, TreeDef]:
     """The leaves in the reference's order, and the structure."""
     leaves: list = []
-    return leaves, _walk(tree, leaves)
+    return leaves, _walk(tree, leaves, is_leaf, None, ())
+
+
+def tree_paths(tree, is_leaf: Optional[Callable] = None) -> list:
+    """``(path, leaf)`` in flatten order: ``path`` the tuple of dict keys
+    and sequence indices from the root."""
+    leaves: list = []
+    paths: list = []
+    _walk(tree, leaves, is_leaf, paths, ())
+    return list(zip(paths, leaves))
 
 
 def _build(d: TreeDef, it):
@@ -104,17 +126,18 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
-def tree_leaves(tree) -> list:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree, is_leaf: Optional[Callable] = None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
 
 
-def tree_map(fn: Callable, tree, *rest) -> Any:
+def tree_map(fn: Callable, tree, *rest,
+             is_leaf: Optional[Callable] = None) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves of each
     tree in ``rest`` (which must share its structure)."""
-    leaves, treedef = tree_flatten(tree)
+    leaves, treedef = tree_flatten(tree, is_leaf)
     others = []
     for other in rest:
-        o_leaves, o_def = tree_flatten(other)
+        o_leaves, o_def = tree_flatten(other, is_leaf)
         if o_def != treedef:
             raise ValueError(f"structures differ: {treedef!r} vs {o_def!r}")
         others.append(o_leaves)

@@ -26,8 +26,14 @@ from repro.api import Scenario as JScenario
 from repro.api import evaluate_groups as j_evaluate_groups
 from repro.api import evaluate_scenarios as j_evaluate
 from repro.api import load_scenarios as j_load_scenarios
+import repro.core.spmm_tiled as jspmm_tiled
+import repro.data.sampler as jsampler
+import repro.models.common as jcommon
 import repro_torch.api as tapi
 import repro_torch.core as tcore
+import repro_torch.core.spmm_tiled as tspmm_tiled
+import repro_torch.data.sampler as tsampler
+import repro_torch.models.common as tcommon
 from repro_torch import configs
 from repro_torch.api import (Scenario, dump_scenarios, evaluate_groups,
                              evaluate_scenario, evaluate_scenarios,
@@ -297,8 +303,10 @@ def test_chip_smoke_bridge_digest_is_the_reference_grid():
 # ---------------------------------------------------------------------------
 # The reference's public names in the port.
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("port,ref", [(tapi, japi), (tcore, jcore)],
-                         ids=["api", "core"])
+@pytest.mark.parametrize("port,ref", [
+    (tapi, japi), (tcore, jcore), (tspmm_tiled, jspmm_tiled),
+    (tcommon, jcommon), (tsampler, jsampler)],
+    ids=["api", "core", "spmm_tiled", "common", "sampler"])
 def test_public_names_match_reference(port, ref):
     """Every name of the reference's ``__all__`` is in the port's (the
     port adds its own, such as the typed-trace kinds)."""

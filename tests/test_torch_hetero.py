@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 from repro.api.planner import evaluate_groups as j_evaluate_groups
 from repro.api.planner import evaluate_scenarios as j_evaluate
@@ -677,3 +678,110 @@ def test_rgcn_cora_with_capacities_and_resident_equals_reference():
     ref = j_evaluate(j_template("rgcn_cora", **kw).scenarios)
     assert port.n_evaluations == ref.n_evaluations == 2
     assert port.rows() == ref.rows()
+
+
+# ---------------------------------------------------------------------------
+# The sampler's training half (twins of tests/test_hetero.py's sampler
+# satellites), held bit for bit to the reference's.
+# ---------------------------------------------------------------------------
+_SUBGRAPH_FIELDS = ("node_ids", "senders", "receivers", "node_mask",
+                    "edge_mask", "seed_mask")
+
+
+def _csr_power_law(n_nodes=1500, n_edges=9000, seed=7):
+    return csr_from_trace(resolve_trace_dataset(
+        "power_law", {"n_nodes": n_nodes, "n_edges": n_edges,
+                      "seed": seed}))
+
+
+def _assert_same_subgraph(a, b, label) -> None:
+    for f in _SUBGRAPH_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype, (label, f, x.dtype, y.dtype)
+        assert np.array_equal(x, y), (label, f)
+    assert a.n_real_nodes == b.n_real_nodes
+    assert a.n_real_edges == b.n_real_edges
+
+
+def test_sample_subgraph_bit_matches_reference():
+    g = _csr_power_law()
+    for trial in range(5):
+        seeds = np.random.default_rng(100 + trial).choice(
+            g.n_nodes, size=40, replace=False)
+        a = sampler_mod.sample_subgraph(g, seeds, (8, 4),
+                                        rng=np.random.default_rng(trial),
+                                        n_pad=4096, e_pad=8192)
+        b = sampler_mod._sample_subgraph_reference(
+            g, seeds, (8, 4), rng=np.random.default_rng(trial),
+            n_pad=4096, e_pad=8192)
+        _assert_same_subgraph(a, b, trial)
+
+
+def test_sampled_subgraph_invariants():
+    g = _csr_power_law()
+    seeds = np.random.default_rng(0).choice(g.n_nodes, size=64,
+                                            replace=False)
+    sub = sampler_mod.sample_subgraph(g, seeds, (10, 5),
+                                      rng=np.random.default_rng(1),
+                                      n_pad=4096, e_pad=8192)
+    for mask in (sub.node_mask, sub.edge_mask, sub.seed_mask):
+        assert set(np.unique(mask)).issubset({0.0, 1.0})
+    n_real, e_real = sub.n_real_nodes, sub.n_real_edges
+    assert int(sub.node_mask.sum()) == n_real
+    assert int(sub.edge_mask.sum()) == e_real
+    assert np.all(sub.node_mask[n_real:] == 0.0)
+    assert np.all(sub.edge_mask[e_real:] == 0.0)
+    assert np.all(sub.seed_mask <= sub.node_mask)
+    assert int(sub.seed_mask.sum()) == seeds.size
+    assert np.array_equal(sub.node_ids[:seeds.size], seeds)
+    real_ids = sub.node_ids[:n_real]
+    assert np.unique(real_ids).size == n_real
+    assert np.all((sub.senders[:e_real] >= 0)
+                  & (sub.senders[:e_real] < n_real))
+    assert np.all((sub.receivers[:e_real] >= 0)
+                  & (sub.receivers[:e_real] < n_real))
+
+
+def test_sample_subgraph_padding_overflow_raises():
+    g = _csr_power_law()
+    seeds = np.arange(40)
+    for fn in (sampler_mod.sample_subgraph,
+               sampler_mod._sample_subgraph_reference):
+        with pytest.raises(ValueError, match="exceeds padding"):
+            fn(g, seeds, (8, 4), rng=np.random.default_rng(0), n_pad=64,
+               e_pad=64)
+
+
+
+@settings(max_examples=25, deadline=None)
+@given(n_nodes=st.integers(2, 300), density=st.integers(0, 8),
+       seed=st.integers(0, 2**31 - 1),
+       fanout=st.lists(st.integers(1, 6), min_size=0, max_size=3),
+       n_seeds=st.integers(1, 16))
+def test_sample_subgraph_bit_matches_the_reference_package(
+        n_nodes, density, seed, fanout, n_seeds):
+    """The port's ``sample_subgraph`` and ``_sample_subgraph_reference``
+    against the reference's, every array and both counts, over drawn
+    graphs (zero-degree nodes and empty fanouts included), seeds and
+    fanouts, under the same ``rng``."""
+    rng = np.random.default_rng(seed)
+    n_edges = n_nodes * density
+    snd = rng.integers(0, n_nodes, n_edges)
+    rcv = rng.integers(0, n_nodes, n_edges)
+    g = build_csr(snd, rcv, n_nodes)
+    jg = jsampler.build_csr(snd, rcv, n_nodes)
+    seeds = rng.choice(n_nodes, size=min(n_seeds, n_nodes), replace=False)
+    fanout = tuple(fanout)
+    n_pad = e_pad = 1 << 14
+    want = jsampler.sample_subgraph(jg, seeds, fanout,
+                                    rng=np.random.default_rng(seed),
+                                    n_pad=n_pad, e_pad=e_pad)
+    for fn in (sampler_mod.sample_subgraph,
+               sampler_mod._sample_subgraph_reference):
+        got = fn(g, seeds, fanout, rng=np.random.default_rng(seed),
+                 n_pad=n_pad, e_pad=e_pad)
+        _assert_same_subgraph(got, want, fn.__name__)
+    jref = jsampler._sample_subgraph_reference(
+        jg, seeds, fanout, rng=np.random.default_rng(seed), n_pad=n_pad,
+        e_pad=e_pad)
+    _assert_same_subgraph(jref, want, "reference pin")

@@ -23,7 +23,7 @@ CONFIG_MODULES = ("base", "scenarios", "arctic_480b", "dlrm_mlperf",
 TRAIN_MODULES = ("tree", "optim/__init__", "optim/optimizers",
                  "optim/compression", "checkpoint/__init__",
                  "checkpoint/manager", "distributed/resilience",
-                 "launch/__init__", "launch/train")
+                 "launch/__init__", "launch/train", "launch/steps")
 
 #: The distributed substrate: collectives, sharding, ring SpMM, GPipe, the
 #: meshes and the byte models.

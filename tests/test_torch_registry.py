@@ -412,3 +412,23 @@ def test_sweep_rows_np_stack_flatten_matches_meshgrid_reference():
                                                         grids[0].shape)[idx])
         expected.append(rec)
     assert res.rows() == expected
+
+
+def test_spmm_tiled_block_sizes_match_kernel():
+    """The analytical baseline models K1's tiling (twin of
+    ``tests/test_registry.py::test_spmm_tiled_block_sizes_match_kernel``):
+    ``kernel_matched_hw`` reads the kernel module's block sizes, and
+    ``spmm_tiled``'s default hardware has the same; overrides win."""
+    from repro.core.spmm_tiled import kernel_matched_hw as j_kernel_matched_hw
+    from repro_torch.core import registry as tregistry
+    from repro_torch.core.spmm_tiled import kernel_matched_hw
+    from repro_torch.kernels.edge_aggregate import (DEFAULT_BLOCK_K,
+                                                    DEFAULT_BLOCK_N)
+    hw = kernel_matched_hw()
+    assert (hw.Bn, hw.Bk) == (DEFAULT_BLOCK_N, DEFAULT_BLOCK_K)
+    default = tregistry.get("spmm_tiled").hw_factory()
+    assert (default.Bn, default.Bk) == (DEFAULT_BLOCK_N, DEFAULT_BLOCK_K)
+    want = j_kernel_matched_hw()
+    for name in ("Bn", "Bk"):
+        assert getattr(hw, name) == getattr(want, name)
+    assert kernel_matched_hw(Bn=128).Bn == 128

@@ -487,3 +487,39 @@ def test_lm_batch_is_bit_identical_to_the_reference(seed, step, batch, seq,
     for k in want:
         assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
         np.testing.assert_array_equal(got[k], want[k])
+
+
+# ---------------------------------------------------------------------------
+# Neighbor sampler (twins of tests/test_substrate.py's sampler tests)
+# ---------------------------------------------------------------------------
+def test_sampler_respects_fanout_and_membership():
+    from repro_torch.data.sampler import build_csr, sample_subgraph
+    rng = np.random.default_rng(0)
+    ga = synthetic.power_law_graph(0, n_nodes=500, n_edges=4000, d_feat=4,
+                                   self_loops=False)
+    csr = build_csr(ga.senders, ga.receivers, 500)
+    seeds = rng.choice(500, 32, replace=False)
+    sub = sample_subgraph(csr, seeds, (5, 3), rng=rng, n_pad=1024,
+                          e_pad=1024)
+    assert sub.n_real_nodes <= 32 + 32 * 5 + 32 * 5 * 3
+    assert sub.n_real_edges <= 32 * 5 + 32 * 5 * 3
+    edge_set = set(zip(ga.senders.tolist(), ga.receivers.tolist()))
+    for i in range(sub.n_real_edges):
+        s_g = int(sub.node_ids[sub.senders[i]])
+        r_g = int(sub.node_ids[sub.receivers[i]])
+        assert (s_g, r_g) in edge_set
+    assert np.array_equal(sub.node_ids[:32], seeds)
+    assert sub.seed_mask[:32].sum() == 32
+
+
+def test_sampler_determinism():
+    from repro_torch.data.sampler import build_csr, sample_subgraph
+    ga = synthetic.power_law_graph(1, n_nodes=300, n_edges=2000, d_feat=4)
+    csr = build_csr(ga.senders, ga.receivers, 300)
+    seeds = np.arange(16)
+    s1 = sample_subgraph(csr, seeds, (4, 2),
+                         rng=np.random.default_rng(42), n_pad=512, e_pad=512)
+    s2 = sample_subgraph(csr, seeds, (4, 2),
+                         rng=np.random.default_rng(42), n_pad=512, e_pad=512)
+    assert np.array_equal(s1.senders, s2.senders)
+    assert np.array_equal(s1.node_ids, s2.node_ids)
