@@ -3253,6 +3253,24 @@ def gnn_graph(name: str, shape: str, cfg, seed: int = 0) -> dict:
     return kw
 
 
+def ogb_gcn_graph(ogb_edges: tuple) -> dict:
+    """GCN's graph at ogb_products whole, as numpy fields of a
+    ``GraphBatch``: phase 22's seeded edges with one self-loop per vertex
+    (as ``power_law_graph(self_loops=True)`` appends them), seeded
+    features and labels."""
+    from repro_torch.configs import GNN_SHAPES
+
+    p = GNN_SHAPES["ogb_products"].params
+    V, n_classes = p["n_nodes"], GNN_N_CLASSES["ogb_products"]
+    rng = np.random.default_rng(22)
+    loops = np.arange(V, dtype=np.int32)
+    return dict(
+        node_feat=rng.standard_normal((V, p["d_feat"]), dtype=np.float32),
+        senders=np.concatenate([ogb_edges[0], loops]),
+        receivers=np.concatenate([ogb_edges[1], loops]),
+        labels=rng.integers(0, n_classes, V).astype(np.int32))
+
+
 def gnn_phase(dev, card: str, ogb_edges: tuple) -> None:
     """Phase 24: the four GNN models at their published configs on the
     card, held to the CPU; GCN at ogb_products' full size.  The models run
@@ -3319,20 +3337,13 @@ def gnn_phase(dev, card: str, ogb_edges: tuple) -> None:
                 raise AssertionError(f"{name} {shape}: card vs CPU {err}, "
                                      f"loss {loss_err}")
 
-    # GCN at ogb_products, whole: phase 22's seeded edges with one
-    # self-loop per vertex, as power_law_graph(self_loops=True) appends.
+    # GCN at ogb_products, whole.
     p = GNN_SHAPES["ogb_products"].params
     V, n_classes = p["n_nodes"], GNN_N_CLASSES["ogb_products"]
     cfg = get_arch("gcn-cora").make_config(d_in=p["d_feat"],
                                            n_classes=n_classes)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(22)
-    loops = np.arange(V, dtype=np.int32)
-    arrays = dict(
-        node_feat=rng.standard_normal((V, p["d_feat"]), dtype=np.float32),
-        senders=np.concatenate([ogb_edges[0], loops]),
-        receivers=np.concatenate([ogb_edges[1], loops]),
-        labels=rng.integers(0, n_classes, V).astype(np.int32))
+    arrays = ogb_gcn_graph(ogb_edges)
     graph_s = time.perf_counter() - t0
     E = arrays["senders"].size
     weights = params.gnn_params(cfg, seed=0)
@@ -5243,6 +5254,8 @@ POLICY_DLRM_STEPS = 3
 #: tolerance.
 POLICY_CHECK_LAYERS, POLICY_CHECK_BATCH, POLICY_CHECK_SEQ = 2, 2, 1024
 POLICY_CHECK_STEPS, POLICY_CHECK_TOLERANCE = 3, 1e-4
+#: The gemma2-2b check's weight seeds.
+POLICY_CHECK_SEEDS = (1, 2, 3)
 POLICY_DLRM_CHECK_BATCH = 4096
 #: ``minibatch_lg`` (configs/base.py): a synthetic power-law graph at
 #: Reddit's size, built as a CSR from a seed; 1,024 seeds, fanout (15, 10).
@@ -5466,21 +5479,57 @@ def policy_lm_cell(name: str, b: int, policy, dev, say, sync,
                              f"losses {loss_err}, parameters {param_err}")
 
 
+def _whole_leaves(params, specs, policy) -> list:
+    """A tree of this rank's blocks laid out by ``specs``, its leaves
+    whole (all-gathered over each spec entry's axes)."""
+    from repro_torch.distributed import comm
+    from repro_torch.tree import is_spec, tree_leaves
+
+    out = []
+    with torch.no_grad():
+        for t, spec in zip(tree_leaves(params), tree_leaves(specs, is_spec)):
+            for d, entry in enumerate(spec):
+                if entry is not None:
+                    t = comm.all_gather(t.contiguous(), policy.group(entry),
+                                        d)
+            out.append(t)
+    return out
+
+
+def _leaf_err(got, want, mask=None) -> tuple:
+    """(max abs error over ``mask`` relative to ``want``'s largest entry,
+    the flat index of the worst entry) of one leaf, on ``want``'s
+    device."""
+    diff = (got.to(want.device).float() - want.float()).abs()
+    if mask is not None:
+        diff = torch.where(mask, diff, torch.zeros_like(diff))
+    i = int(diff.argmax())
+    return float(diff.view(-1)[i]) / max(float(want.float().abs().max()),
+                                         1e-30), i
+
+
 def policy_gemma2_check(policy, dev, say, sync, rank: int,
-                        seed: int = 1) -> None:
+                        seed: int) -> None:
     """Four cards: gemma2-2b at full width and POLICY_CHECK_LAYERS layers in
     f32, one numpy tree (drawn from ``seed``) cut by every rank,
     POLICY_CHECK_STEPS policy steps against the single-device step on rank
-    0's card."""
+    0's card.  At each step it prints the worst leaf of the parameters over
+    the entries the first gradient resolves, its worst entry one card
+    against four, and that entry's gradient at the step as a share of its
+    leaf's largest.  It holds what DLRM's check holds: every loss and the
+    first update (parameters over the entries the first gradient
+    resolves, moments), and the last step's parameters over the entries
+    every step's gradient resolves (AdamW's normalised update turns an
+    entry that a step does not resolve into a step of up to lr either
+    way), at POLICY_CHECK_TOLERANCE."""
     import dataclasses
 
     from repro_torch import params as P
     from repro_torch.configs import LM_SHAPES, get_arch
-    from repro_torch.distributed import comm
     from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
     from repro_torch.optim.optimizers import adamw
-    from repro_torch.tree import (is_spec, tree_flatten, tree_leaves,
-                                  tree_unflatten)
+    from repro_torch.tree import tree_leaves, tree_paths
 
     arch = get_arch("gemma2-2b")
     cfg = dataclasses.replace(arch.make_config(), n_layers=POLICY_CHECK_LAYERS,
@@ -5492,33 +5541,87 @@ def policy_gemma2_check(policy, dev, say, sync, rank: int,
                                device=dev)
     batches = _lm_batches(cfg, POLICY_CHECK_BATCH, POLICY_CHECK_SEQ,
                           POLICY_CHECK_STEPS, dev)
-    params, state, losses, ms, _ = _policy_steps(cell, batches, sync)
+    params, state = cell.params, cell.opt_state
+    losses, whole, first_moments = [], [], None
+    for t, batch in enumerate(batches):
+        sync()
+        params, state, metrics = cell.step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        leaves = _whole_leaves(params, cell.specs, policy)
+        if rank == 0:
+            whole.append([x.to("cpu", copy=True) for x in leaves])
+        if t == 0:
+            moments = [_whole_leaves(m, cell.specs, policy)
+                       for m in (state.mu, state.nu)]
+            if rank == 0:
+                first_moments = [[x.to("cpu", copy=True) for x in m]
+                                 for m in moments]
+            del moments
+        del leaves
+    del params, state, cell
+    torch.cuda.empty_cache()
     ok = True
-    whole = []
-    for t, spec in zip(tree_leaves(params), tree_leaves(cell.specs,
-                                                          is_spec)):
-        for d, entry in enumerate(spec):
-            if entry is not None:
-                t = comm.all_gather(t.contiguous(), policy.group(entry), d)
-        whole.append(t)
-    del params, state
     if rank == 0:
-        single = adamw(3e-4, weight_decay=0.1, donate=True)
-        init = P.tensor_tree(tree, device=dev)
-        got = tree_unflatten(tree_flatten(init)[1], whole)
-        want_losses, _, loss_errs, param_err = _hold_to_single(
-            cfg, single, init, batches, lambda: torch.cuda.synchronize(dev),
-            got, losses)
-        loss_err = max(loss_errs)
+        opt = adamw(3e-4, weight_decay=0.1, donate=True)
+        step = tr.make_train_step(cfg, opt)
+        p1 = P.tensor_tree(tree, device=dev)
+        paths = ["/".join(map(str, path)) for path, _ in tree_paths(p1)]
+        st = opt.init(p1)
+        prev_mu, first_mask, every_mask, want_losses = None, None, None, []
+        first_err = moment_err = 0.0
+        for t, batch in enumerate(batches):
+            p1, st, metrics = step(p1, st, batch)
+            want_losses.append(float(metrics["loss"]))
+            mus = tree_leaves(st.mu)
+            grads = [(m - 0.9 * pm) / 0.1 if pm is not None else m / 0.1
+                     for m, pm in zip(mus, prev_mu or [None] * len(mus))]
+            masks = [g.abs() > GRAD_ROUNDING_SHARE * g.abs().max()
+                     for g in grads]
+            first_mask = first_mask or masks
+            every_mask = (masks if every_mask is None else
+                          [a & b for a, b in zip(every_mask, masks)])
+            want = tree_leaves(p1)
+            errs = [_leaf_err(g, w, k) for g, w, k in
+                    zip(whole[t], want, first_mask)]
+            j = max(range(len(errs)), key=lambda i: errs[i][0])
+            err, at = errs[j]
+            grad_share = float(grads[j].view(-1)[at].abs()) / max(
+                float(grads[j].abs().max()), 1e-30)
+            say(f"gemma2-2b {POLICY_CHECK_LAYERS} layers f32 seed {seed}, "
+                f"step {t + 1}: loss {losses[t]!r} on four vs "
+                f"{want_losses[t]!r} on one; parameters over the entries "
+                f"the first gradient resolves: worst leaf {paths[j]} "
+                f"{err:.3e}, its worst entry (flat {at}) "
+                f"{float(want[j].view(-1)[at])!r} on one card vs "
+                f"{float(whole[t][j].view(-1)[at])!r} on four, that entry's "
+                f"gradient at this step {grad_share:.3e} of its leaf's "
+                f"largest (resolved here: {grad_share > GRAD_ROUNDING_SHARE})")
+            if t == 0:
+                first_err = err
+                moment_err = max(
+                    _leaf_err(g, w)[0] for m_got, m_want in
+                    zip(first_moments, (tree_leaves(st.mu),
+                                        tree_leaves(st.nu)))
+                    for g, w in zip(m_got, m_want))
+            prev_mu = [m.clone() for m in mus]
+            del grads, masks
+        last_err = max(_leaf_err(g, w, k)[0] for g, w, k in
+                       zip(whole[-1], tree_leaves(p1), every_mask))
+        loss_err = max(abs(a - c) / abs(c) for a, c in zip(losses,
+                                                           want_losses))
         say(f"gemma2-2b {POLICY_CHECK_LAYERS} layers f32 (full width, one "
             f"numpy tree, seed {seed}), {POLICY_CHECK_STEPS} steps at B "
             f"{POLICY_CHECK_BATCH} x S {POLICY_CHECK_SEQ}: policy losses "
             f"{losses} vs one card {want_losses}: max rel err "
-            f"{loss_err:.3e}, parameters {param_err:.3e} (resolved entries; "
-            f"tolerance {POLICY_CHECK_TOLERANCE:.0e})")
-        ok = (loss_err < POLICY_CHECK_TOLERANCE
-              and param_err < POLICY_CHECK_TOLERANCE)
-    _agree(ok, policy, dev, "gemma2-2b policy vs one card")
+            f"{loss_err:.3e}; the first update: parameters {first_err:.3e}, "
+            f"moments {moment_err:.3e}; step {POLICY_CHECK_STEPS}'s "
+            f"parameters over the entries every step resolves "
+            f"{last_err:.3e} (tolerance {POLICY_CHECK_TOLERANCE:.0e})")
+        ok = max(loss_err, first_err, moment_err,
+                 last_err) < POLICY_CHECK_TOLERANCE
+        del p1, st, prev_mu, first_mask, every_mask
+        torch.cuda.empty_cache()
+    _agree(ok, policy, dev, f"gemma2-2b policy vs one card, seed {seed}")
 
 
 def _agree(ok: bool, policy, dev, what: str) -> None:
@@ -5746,12 +5849,346 @@ def policy_dlrm_check(policy, dev, say, sync, rank: int) -> None:
     _agree(ok, policy, dev, "dlrm policy vs one card")
 
 
+#: Phase 32's GNN cells under a policy (``launch.steps.gnn_train_cell(
+#: policy=)``): the state replicated on every rank, each rank training on
+#: its shard of the batch, POLICY_GNN_STEPS steps (GCN at ogb_products
+#: POLICY_GNN_OGB_STEPS), each held to the single-device cell from the same
+#: weights on the same global batch (one card: the world-1 policy step; more:
+#: on rank 0's card), per leaf with the GRAD_ZERO_SHARE rule: each step's
+#: loss from the same state (the policy's forward at the single-device
+#: trajectory's parameters) at TRAIN_TOLERANCE; the first moments (0.1
+#: times the clipped gradient) entry by entry at TRAIN_TOLERANCE for GCN,
+#: and each leaf's norm at GNN_NORM_TOLERANCE for all four; for the models
+#: f32 resolves (not GNN_F32_UNRESOLVED) the first update's parameters over
+#: the entries whose first moment passes GRAD_ROUNDING_SHARE of its leaf's
+#: largest.  At ``full_graph_sm`` also the first step in f64 (weights and
+#: graph widened), the policy's against the single device's: the first
+#: moments entry by entry at GNN_F64_TOLERANCE, and the f32 first moments
+#: of both against it under GNN_F32_GRAD_LIMIT.  The free trajectories'
+#: losses are printed.  Every rank's ledger equals
+#: ``launch.steps.gnn_policy_traffic``.  On one card: the four GNNs at
+#: ``full_graph_sm`` and GCN at ``ogb_products`` whole.  On more, also
+#: GatedGCN and MeshGraphNet at ``minibatch_lg``'s 1,024-seed sample and
+#: EquiformerV2 at a 64-seed one (EQV2_TIMED_SEEDS: the full sample would
+#: take about 490 GB).
+#: reduced: EquiformerV2's minibatch_lg seeds under a policy (1,024 -> 64).
+POLICY_GNN_STEPS, POLICY_GNN_OGB_STEPS = 3, 2
+#: The f64 steps, policy against single device: the moments are stored in
+#: f32 and the clipping factor is an f32 of the norm, so the two differ by
+#: a few f32 roundings (2.8e-07 for GatedGCN at full_graph_sm on four gloo
+#: ranks); a rank's share counted twice or an edge lost shows far above.
+GNN_F64_TOLERANCE = 1e-5
+#: Each leaf's first-moment norm, policy against single device in f32.  A
+#: norm sums the entries' rounding away: MeshGraphNet's f32 leaf norms
+#: miss the f64 step's by up to 5.1e-05 on the CPU (where its entries miss
+#: by 6.1e-04), and EquiformerV2's world-1 and single-device steps on an
+#: H100 part by 1.6e-04 in ``layers/attn_mlp/w/1``'s norm (2.6e-03 in its
+#: entries), while a gradient off by a factor misses by that factor.
+GNN_NORM_TOLERANCE = 1e-3
+#: The f32 first moments against the f64 step, entry by entry: at the
+#: published configs f32 does not resolve every entry (phase 29 read up to
+#: 8.7e-03 against an f64 gradient for EquiformerV2, and on the CPU
+#: GatedGCN's full_graph_sm moments miss it by 1.2e-03 with one or four
+#: threads and 2.1e-05 with two), so this is a limit above those readings,
+#: not a tolerance.
+GNN_F32_GRAD_LIMIT = 5e-2
+
+
+def _worst_leaf(got, want, masks) -> tuple:
+    """(the largest of :func:`_card_rel`'s per-leaf errors, that leaf's
+    path) of two trees of tensors."""
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    return max((_card_rel(g, w, [k]), "/".join(map(str, path)))
+               for g, (path, w), k in zip(tree_leaves(got), tree_paths(want),
+                                          tree_leaves(masks)))
+
+
+def _worst_norm(got, want, masks) -> tuple:
+    """(the largest relative error of a leaf's norm, that leaf's path) of
+    two trees of tensors, over the leaves whose mask holds any entry."""
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    worst = (0.0, "")
+    for g, (path, w), k in zip(tree_leaves(got), tree_paths(want),
+                               tree_leaves(masks)):
+        if bool(k.any()):
+            a, b = float(g.double().norm()), float(w.double().norm())
+            worst = max(worst, (abs(a - b) / max(b, 1e-300),
+                                "/".join(map(str, path))))
+    return worst
+
+
+def _gnn_cpu_state(params, state) -> tuple:
+    """Host copies of a replicated GNN state's parameters and moments (the
+    step donates its buffers)."""
+    from repro_torch.tree import tree_map
+
+    copy = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+    return (tree_map(copy, params), tree_map(copy, state.mu),
+            tree_map(copy, state.nu))
+
+
+def _gnn_f64_moments(name: str, shape: str, cfg, arrays: dict, tree, policy,
+                     dev):
+    """The first moments (host copies) after one step of the GNN cell in
+    f64: ``tree``'s weights and ``arrays``' floating fields widened, and the
+    tensors the models make f64 by default.  ``policy`` None: the
+    single-device cell on the whole batch."""
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import GraphBatch
+    from repro_torch.tree import tree_map
+
+    def wide(a):
+        if isinstance(a, dict):
+            return {k: wide(v) for k, v in a.items()}
+        if isinstance(a, np.ndarray) and a.dtype.kind == "f":
+            return a.astype(np.float64)
+        return a
+
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        cell = steps.gnn_train_cell(
+            name, shape, policy,
+            tree_map(lambda a: torch.from_numpy(np.asarray(a, np.float64)),
+                     tree), cfg=cfg, device=dev)
+        g = GraphBatch(**{k: wide(v) for k, v in arrays.items()})
+        g = cell.meta["shard"](g) if policy is not None else g.to(dev)
+        _, state, _ = cell.step(cell.params, cell.opt_state, g)
+        return tree_map(lambda t: t.to("cpu", copy=True), state.mu)
+    finally:
+        torch.set_default_dtype(before)
+
+
+def policy_gnn_case(name: str, shape: str, cfg, arrays: dict, policy, dev,
+                    say, sync, rank: int, n_steps: int,
+                    label: str = "") -> None:
+    """One GNN train cell under ``policy`` on the global batch ``arrays``
+    (numpy fields, alike on every rank): the rank's cut and ``n_steps``
+    steps, timed; its ledger against ``launch.steps.gnn_policy_traffic``;
+    then on rank 0's card the single-device cell from the same weights on
+    the same batch, held as the note above POLICY_GNN_STEPS says, per
+    leaf."""
+    from repro_torch.distributed import comm
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn import GraphBatch
+    from repro_torch.params import gnn_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tree = gnn_params(cfg, seed=0)
+    param_bytes = sum(4 * np.size(a) for a in tree_leaves(tree))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cell = steps.gnn_train_cell(name, shape, policy, tree, cfg=cfg,
+                                device=dev)
+    sync()
+    t0 = time.perf_counter()
+    shard = cell.meta["shard"](GraphBatch(**arrays))
+    sync()
+    cut_s = time.perf_counter() - t0
+    params, state = cell.params, cell.opt_state
+    losses, ms, first, ledger = [], [], None, {}
+    for i in range(n_steps):
+        with comm.recording() as rec:
+            sync()
+            t0 = time.perf_counter()
+            params, state, metrics = cell.step(params, state, shard)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            first = _gnn_cpu_state(params, state)
+            for tag, kinds in rec.by_tag().items():
+                for kind, b in kinds.items():
+                    ledger[(tag, kind)] = b
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_loc, e_loc, n_total = shard.n_nodes, shard.n_edges, shard.n_total
+    model = steps.gnn_policy_traffic(name, cfg, policy, n_total, param_bytes)
+    keys = set(model) | {k for k in ledger if k[0] != "gnn_readout"}
+    ledger_ok = all(ledger.get(k, 0.0) == model.get(k, 0.0) for k in keys)
+    mesh = tuple(policy.axis_sizes.values())
+    what = f"gnn {name} {shape}{label}"
+    say(f"{what}: mesh {mesh}, {cfg.name} {cfg.n_layers} layers, "
+        f"d_in {cfg.d_in}; N {GraphBatch(**arrays).n_nodes} padded to "
+        f"{n_total}, {n_loc} nodes and {e_loc} edges a rank (E "
+        f"{arrays['senders'].size}), cut in {cut_s:.2f} s; losses {losses}; "
+        f"step ms {[round(x, 1) for x in ms]} (host clock); peak "
+        f"{peak / 1e9:.2f} GB; ledger a rank, step 1: "
+        f"{json.dumps({'/'.join(k): v for k, v in sorted(ledger.items())})}; "
+        f"the models: "
+        f"{json.dumps({'/'.join(k): v for k, v in sorted(model.items())})} "
+        f"(equal: {ledger_ok})", every=rank == 0 or not ledger_ok)
+    ok = ledger_ok and all(np.isfinite(losses))
+    del cell, params, state
+    torch.cuda.empty_cache()
+    states = []
+    if rank == 0:
+        single = steps.gnn_train_cell(name, shape, None, tree, cfg=cfg,
+                                      device=dev)
+        g = GraphBatch(**arrays).to(dev)
+        p1, st1 = single.params, single.opt_state
+        want_losses, want = [], None
+        for i in range(n_steps):
+            states.append(tree_map(lambda t: t.to("cpu", copy=True), p1))
+            p1, st1, metrics = single.step(p1, st1, g)
+            want_losses.append(float(metrics["loss"]))
+            if i == 0:
+                want = _gnn_cpu_state(p1, st1)
+        del single, p1, st1, g
+        torch.cuda.empty_cache()
+    # Each step's loss from the same state: the policy's forward on this
+    # rank's shard at the single-device trajectory's parameters (rank 0's,
+    # broadcast).
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import GNN_MODELS
+    from repro_torch.params import gnn_tree, tree_loss
+
+    module, model_cls = GNN_MODELS[name]
+    loss = tree_loss(model_cls(cfg, device=dev), module.loss_fn)
+    everyone = policy.group(policy.all_axes)
+    same = []
+    for i in range(n_steps):
+        p = gnn_tree(cfg, tree, device=dev)
+        for j, t in enumerate(tree_leaves(p)):
+            if rank == 0:
+                t.copy_(tree_leaves(states[i])[j])
+            dist.broadcast(t, src=0, group=everyone)
+        with torch.no_grad():
+            same.append(float(loss(p, shard)[1]["loss"]))
+        del p
+    del shard, states
+    torch.cuda.empty_cache()
+    # The first step in f64, on every rank under the policy and on rank 0's
+    # card alone.
+    exact = shape == "full_graph_sm"
+    if exact:
+        wide = _gnn_f64_moments(name, shape, cfg, arrays, tree, policy, dev)
+        if rank == 0:
+            wide_one = _gnn_f64_moments(name, shape, cfg, arrays, tree, None,
+                                        dev)
+        torch.cuda.empty_cache()
+    if rank == 0:
+        rel = lambda a, c: max(abs(x - y) / abs(y)  # noqa: E731
+                               for x, y in zip(a, c))
+        same_err, free_err = rel(same, want_losses), rel(losses, want_losses)
+        dropped = []
+        masks = _resolved(want[1], dropped)
+        leaves = tree_map(lambda k: torch.full_like(k, bool(k.any())), masks)
+        param_err, param_at = _worst_leaf(first[0], want[0], masks)
+        moment_err, moment_at = max(_worst_leaf(first[1], want[1], leaves),
+                                    _worst_leaf(first[2], want[2], leaves))
+        norm_err, norm_at = _worst_norm(first[1], want[1], leaves)
+        resolved = name not in GNN_F32_UNRESOLVED
+        zero_s = ", ".join(f"{'/'.join(map(str, path))} ({share:.3e} of the "
+                           "model's largest)" for path, share in dropped)
+        held = [same_err] + ([param_err] if resolved else [])
+        held += [moment_err] if name == "gcn-cora" else []
+        say(f"{what} vs the single-device step (same weights and batch): "
+            f"each step's loss from the same state {same} vs {want_losses}, "
+            f"max rel err {same_err:.3e} (held); the first moments "
+            f"{moment_err:.3e} ({moment_at}; "
+            f"{'held' if name == 'gcn-cora' else 'printed'}), their norm a "
+            f"leaf {norm_err:.3e} ({norm_at}; held at "
+            f"{GNN_NORM_TOLERANCE:.0e}); the first update's parameters "
+            f"{param_err:.3e} ({param_at}; entries whose first moment passes "
+            f"{GRAD_ROUNDING_SHARE:.0e} of its leaf's largest; "
+            f"{'held' if resolved else 'printed'}); tolerance "
+            f"{TRAIN_TOLERANCE:.0e}.  The free trajectory's losses, max rel "
+            f"err {free_err:.3e} (printed); leaves zero to rounding, held at "
+            f"no entry: {zero_s or 'none'}")
+        ok = ok and max(held) < TRAIN_TOLERANCE and \
+            norm_err < GNN_NORM_TOLERANCE
+        if exact:
+            dropped64 = []
+            keep64 = tree_map(lambda k: torch.full_like(k, bool(k.any())),
+                              _resolved(wide_one, dropped64))
+            f64_err, f64_at = _worst_leaf(wide, wide_one, keep64)
+            pol_err, pol_at = _worst_leaf(first[1], wide_one, keep64)
+            one_err, one_at = _worst_leaf(want[1], wide_one, keep64)
+            say(f"{what} first step in f64: the policy's first moments vs "
+                f"the single device's {f64_err:.3e} ({f64_at}; held at "
+                f"{GNN_F64_TOLERANCE:.0e}); the f32 first moments against "
+                f"them, the policy's {pol_err:.3e} ({pol_at}), the single "
+                f"device's {one_err:.3e} ({one_at}) (held under "
+                f"{GNN_F32_GRAD_LIMIT:.0e}); leaves zero to rounding: "
+                + (", ".join("/".join(map(str, p)) for p, _ in dropped64)
+                   or "none"))
+            ok = ok and f64_err < GNN_F64_TOLERANCE and \
+                max(pol_err, one_err) < GNN_F32_GRAD_LIMIT
+    _agree(ok, policy, dev, f"{what} policy vs one card")
+
+
+def policy_gnn_cells(policy, dev, say, sync, rank: int, world: int,
+                     job: dict) -> None:
+    """Phase 32's GNN cells (:data:`POLICY_GNN_STEPS`): the four GNNs at
+    ``full_graph_sm`` and GCN at ``ogb_products`` whole (phase 22's edges,
+    from the job's ``.npy`` files); on more than one card also GatedGCN
+    and MeshGraphNet at ``minibatch_lg``'s 1,024-seed sample and
+    EquiformerV2 at a 64-seed one.  Prints the memory reckoning that keeps
+    the other three out of ``ogb_products``."""
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.launch import steps
+
+    for name in ("gcn-cora", "gatedgcn", "meshgraphnet", "equiformer-v2"):
+        cfg = steps.gnn_config(name, "full_graph_sm")
+        policy_gnn_case(name, "full_graph_sm", cfg,
+                        gnn_graph(name, "full_graph_sm", cfg), policy, dev,
+                        say, sync, rank, POLICY_GNN_STEPS)
+    arrays = ogb_gcn_graph((np.load(job["ogb"][0]), np.load(job["ogb"][1])))
+    policy_gnn_case("gcn-cora", "ogb_products",
+                    steps.gnn_config("gcn-cora", "ogb_products"), arrays,
+                    policy, dev, say, sync, rank, POLICY_GNN_OGB_STEPS)
+    del arrays
+    E = GNN_SHAPES["ogb_products"].params["n_edges"]
+    ggcn = get_arch("gatedgcn").make_config()
+    mgn = get_arch("meshgraphnet").make_config()
+    eqv = get_arch("equiformer-v2").make_config()
+    say(f"gnn cut at ogb_products (E {E}, f32, no remat, on {world} "
+        f"card(s)): gatedgcn's edge state E x {ggcn.d_hidden} "
+        f"{4 * E * ggcn.d_hidden / 1e9:.1f} GB a tensor, "
+        f"{4 * E * ggcn.d_hidden / world / 1e9:.1f} GB a rank, and its "
+        f"{ggcn.n_layers} layers keep {ggcn.n_layers} for the backward "
+        f"({ggcn.n_layers * 4 * E * ggcn.d_hidden / world / 1e9:.1f} GB a "
+        f"rank); meshgraphnet's edge-MLP input E x {3 * mgn.d_hidden} "
+        f"{4 * E * 3 * mgn.d_hidden / 1e9:.1f} GB; equiformer-v2's messages "
+        f"E x {eqv.L2} x {eqv.d_hidden} "
+        f"{4 * E * eqv.L2 * eqv.d_hidden / 1e12:.2f} TB; the card holds 80 "
+        "GB")
+    if world == 1:
+        return
+    p = GNN_SHAPES["minibatch_lg"].params
+    mb = minibatch_samples((p["batch_nodes"], EQV2_TIMED_SEEDS))
+    say(f"gnn minibatch_lg set-up: {mb['line']}")
+    plan = {"gatedgcn": p["batch_nodes"], "meshgraphnet": p["batch_nodes"],
+            "equiformer-v2": EQV2_TIMED_SEEDS}
+    for name, n in plan.items():
+        cfg = steps.gnn_config(name, "minibatch_lg")
+        rng_l = np.random.default_rng(3)
+        if name == "meshgraphnet":
+            lab = rng_l.standard_normal((mb["V"], cfg.d_out)).astype(
+                np.float32)
+        elif name == "equiformer-v2":
+            lab = rng_l.standard_normal((1, cfg.d_out)).astype(np.float32)
+        else:
+            lab = mb["labels"]
+        batch = steps.subgraph_batch(name, cfg, mb["samples"][n],
+                                     mb["feats"], lab,
+                                     positions=mb["positions"])
+        policy_gnn_case(name, "minibatch_lg", cfg, vars(batch), policy, dev,
+                        say, sync, rank, POLICY_GNN_STEPS,
+                        label=f" ({n} seeds)")
+
+
 def policy_train_rank(rank: int, world: int, job: dict) -> dict:
     """Phase 32 on one NCCL rank (its card is ``cuda:rank``), on a (1, 1)
     mesh on one card and (2, world / 2) over (data, model) on more:
-    SmolLM-135M and gemma2-2b through ``launch.steps.lm_train_cell`` and
-    DLRM-MLPerf through ``dlrm_train_cell``; on more than one card also
-    the 2-layer gemma2-2b and 65,536-row DLRM checks against one card.
+    SmolLM-135M and gemma2-2b through ``launch.steps.lm_train_cell``,
+    DLRM-MLPerf through ``dlrm_train_cell`` and the GNNs through
+    ``gnn_train_cell`` (:func:`policy_gnn_cells`); on more than one card
+    also the 2-layer gemma2-2b and 65,536-row DLRM checks against one
+    card.
     Prints its lines as they come; returns the counted K6 launches."""
     import torch.distributed as dist
 
@@ -5783,29 +6220,26 @@ def policy_train_rank(rank: int, world: int, job: dict) -> dict:
     policy_lm_cell("gemma2-2b", POLICY_GEMMA2_BATCH, policy, dev, say, sync,
                    compare)
     if world > 1:
-        policy_gemma2_check(policy, dev, say, sync, rank)
+        for seed in POLICY_CHECK_SEEDS:
+            policy_gemma2_check(policy, dev, say, sync, rank, seed)
     policy_dlrm_cell(policy, dev, say, sync, rank, world, result)
     if world > 1:
         policy_dlrm_check(policy, dev, say, sync, rank)
+    policy_gnn_cells(policy, dev, say, sync, rank, world, job)
     say(f"rank program {time.perf_counter() - t_rank:.1f} s (host clock)")
     return result
 
 
-def minibatch_phase(dev, card: str) -> None:
-    """Phase 32's GNN cell: ``minibatch_lg`` at world size 1.  The graph is
-    generated straight into CSR form on the host, 1,024 seeds are sampled
-    with fanout (15, 10) into the padded sizes of
-    ``steps.sampled_subgraph_sizes``, and each GNN at its published config
-    for the shape takes one timed step through ``steps.gnn_train_cell`` on
-    the card, then one step held against the CPU: GCN and GatedGCN on the
-    full sample, MeshGraphNet on a 64-seed sample of the same CSR,
-    EquiformerV2 timed on the 64-seed sample and held on a 4-seed one
-    (:data:`EQV2_TIMED_SEEDS`)."""
+def minibatch_samples(counts: tuple) -> dict:
+    """``minibatch_lg``'s host set-up: the power-law CSR at Reddit's size
+    (:data:`MINIBATCH_GRAPH`), seeded features, labels and positions, and
+    for each seed count in ``counts`` a sample of the first that many of
+    one seed draw with fanout (15, 10), padded to
+    ``steps.sampled_subgraph_sizes``.  The same on every host and rank;
+    ``line`` says what it built and in what host time."""
     from repro_torch.configs import GNN_SHAPES
     from repro_torch.data.sampler import sample_subgraph
     from repro_torch.launch import steps
-    from repro_torch.params import gnn_params
-    from repro_torch.tree import tree_map
 
     t0 = time.perf_counter()
     p = GNN_SHAPES["minibatch_lg"].params
@@ -5820,25 +6254,48 @@ def minibatch_phase(dev, card: str) -> None:
     fanout = tuple(p["fanout"])
     seeds = rng.choice(V, p["batch_nodes"], replace=False)
     samples, sample_ms = {}, {}
-    for n in (p["batch_nodes"], MINIBATCH_CHECK_SEEDS, EQV2_CHECK_SEEDS):
+    for n in counts:
         n_pad, e_pad = steps.sampled_subgraph_sizes(n, fanout)
         t0 = time.perf_counter()
         samples[n] = sample_subgraph(csr, seeds[:n], fanout,
                                      rng=np.random.default_rng(n),
                                      n_pad=n_pad, e_pad=e_pad)
         sample_ms[n] = 1e3 * (time.perf_counter() - t0)
-    full = samples[p["batch_nodes"]]
-    print(f"# minibatch_lg set-up: power-law CSR V {V} E {g['n_edges']} "
-          f"(alpha {g['alpha']}, col {csr.col.nbytes / 1e6:.0f} MB int32), "
-          f"{d_feat} features and {steps.GNN_N_CLASSES['minibatch_lg']} "
-          f"classes, {graph_s:.1f} s (host); fanout {fanout}: "
-          + "; ".join(f"{n} seeds {sub.n_real_nodes} nodes "
-                      f"{sub.n_real_edges} edges padded to "
-                      f"{steps.sampled_subgraph_sizes(n, fanout)}, sampled "
-                      f"in {sample_ms[n]:.1f} ms" for n, sub in
-                      samples.items())
-          + f" (host clock) | {card}")
-    del csr
+    line = (f"power-law CSR V {V} E {g['n_edges']} (alpha {g['alpha']}, col "
+            f"{csr.col.nbytes / 1e6:.0f} MB int32), {d_feat} features and "
+            f"{steps.GNN_N_CLASSES['minibatch_lg']} classes, {graph_s:.1f} s "
+            f"(host); fanout {fanout}: "
+            + "; ".join(f"{n} seeds {sub.n_real_nodes} nodes "
+                        f"{sub.n_real_edges} edges padded to "
+                        f"{steps.sampled_subgraph_sizes(n, fanout)}, sampled "
+                        f"in {sample_ms[n]:.1f} ms" for n, sub in
+                        samples.items())
+            + " (host clock)")
+    return {"V": V, "feats": feats, "labels": labels,
+            "positions": positions, "samples": samples, "line": line}
+
+
+def minibatch_phase(dev, card: str) -> None:
+    """Phase 32's GNN cell: ``minibatch_lg`` at world size 1.  The graph is
+    generated straight into CSR form on the host, 1,024 seeds are sampled
+    with fanout (15, 10) into the padded sizes of
+    ``steps.sampled_subgraph_sizes``, and each GNN at its published config
+    for the shape takes one timed step through ``steps.gnn_train_cell`` on
+    the card, then one step held against the CPU: GCN and GatedGCN on the
+    full sample, MeshGraphNet on a 64-seed sample of the same CSR,
+    EquiformerV2 timed on the 64-seed sample and held on a 4-seed one
+    (:data:`EQV2_TIMED_SEEDS`)."""
+    from repro_torch.configs import GNN_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.params import gnn_params
+    from repro_torch.tree import tree_map
+
+    p = GNN_SHAPES["minibatch_lg"].params
+    mb = minibatch_samples((p["batch_nodes"], MINIBATCH_CHECK_SEEDS,
+                            EQV2_CHECK_SEEDS))
+    print(f"# minibatch_lg set-up: {mb['line']} | {card}")
+    samples, feats, labels, positions, V = (
+        mb["samples"], mb["feats"], mb["labels"], mb["positions"], mb["V"])
     plan = {"gcn-cora": (p["batch_nodes"], p["batch_nodes"]),
             "gatedgcn": (p["batch_nodes"], p["batch_nodes"]),
             "meshgraphnet": (p["batch_nodes"], MINIBATCH_CHECK_SEEDS),
@@ -5906,22 +6363,30 @@ def minibatch_phase(dev, card: str) -> None:
         del cell, params, cpu, c_params, c_state
 
 
-def policy_training_phase(dev, card: str, launches: dict) -> None:
+def policy_training_phase(dev, card: str, launches: dict,
+                          ogb_edges: tuple) -> None:
     """Phase 32: training under a sharding policy, one NCCL rank a visible
-    card (:func:`policy_train_rank`), then the ``minibatch_lg`` GNN cell
+    card (:func:`policy_train_rank`; phase 22's ``ogb_edges`` handed to the
+    ranks as ``.npy`` files), then the ``minibatch_lg`` GNN cell
     (:func:`minibatch_phase`) on one card.  Adds rank 0's counted K6
     launches to ``launches``."""
+    import tempfile
+
     from repro_torch.launch.mesh import spawn
 
     t_phase = time.perf_counter()
     card = card.replace("\n", "; ")
     world = torch.cuda.device_count()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    sys.stdout.flush()
-    results = spawn(policy_train_rank, world, backend="nccl",
-                    args=({"card": card},))
-    ranks_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-policy-") as tmp:
+        paths = [str(Path(tmp) / f"ogb_{k}.npy") for k in ("snd", "rcv")]
+        for path, a in zip(paths, ogb_edges):
+            np.save(path, a)
+        t0 = time.perf_counter()
+        sys.stdout.flush()
+        results = spawn(policy_train_rank, world, backend="nccl",
+                        args=({"card": card, "ogb": paths},))
+        ranks_s = time.perf_counter() - t0
     for kname, count in results[0]["launches"].items():
         launches[kname] += count
     print(f"# policy phase launches (rank 0): "
@@ -6212,8 +6677,8 @@ def main() -> int:
     gnn_training_phase(dev, card)
     dlrm_training_phase(dev, card, launches)
     distributed_phase(dev, card, launches, ogb_edges)
+    policy_training_phase(dev, card, launches, ogb_edges)
     del ogb_edges
-    policy_training_phase(dev, card, launches)
 
     kernels = []
     for kname, meta in KERNELS.items():

@@ -28,6 +28,10 @@ its use in the models needs:
   all-reduce sums the gradient over the ranks instead, which counts a
   replicated loss once per rank.  Max passes it to the entries that hold
   the maximum.
+* :func:`psum`: the sum over ranks whose backward is the same sum over
+  ranks (its adjoint), for a result that each rank consumes its own way
+  and whose objective is each rank's share (a GNN's readout, where every
+  rank holds part of the nodes and ``1 / n`` of the loss).
 * :func:`all_to_all` (equal splits along dim 0): backward is the inverse
   exchange, which for equal splits is the same exchange.
 * :func:`ring_hop` (``batch_isend_irecv`` to rank + shift, from rank -
@@ -50,7 +54,7 @@ import torch.distributed as dist
 
 __all__ = ["CollectiveOp", "CollectiveLedger", "recording", "group_size",
            "group_rank", "all_gather", "reduce_scatter", "split", "all_reduce",
-           "all_to_all", "ring_hop", "start_hop", "all_reduce_grads"]
+           "psum", "all_to_all", "ring_hop", "start_hop", "all_reduce_grads"]
 
 @dataclass(frozen=True)
 class CollectiveOp:
@@ -216,12 +220,18 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather(grad, ctx.group, ctx.dim, ctx.tag), None, None, None
 
 
+def _reduce(x: torch.Tensor, group, tag: str,
+            op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=group)
+    _record("all-reduce", out, group, tag)
+    return out
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, op, tag):
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=op, group=group)
-        _record("all-reduce", out, group, tag)
+        out = _reduce(x, group, tag, op)
         if op == dist.ReduceOp.MAX:
             ctx.save_for_backward(x, out)
         ctx.op = op
@@ -233,6 +243,17 @@ class _AllReduce(torch.autograd.Function):
             x, out = ctx.saved_tensors
             return grad * (x == out).to(grad.dtype), None, None, None
         return grad, None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        return _reduce(x, group, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(grad, ctx.group, ctx.tag), None, None
 
 
 class _Split(torch.autograd.Function):
@@ -343,6 +364,13 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum", *,
     as a new tensor."""
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
     return _AllReduce.apply(x, group, ops[op], tag)
+
+
+def psum(x: torch.Tensor, group, *, tag: str = "") -> torch.Tensor:
+    """The sum over ranks of ``x``, as a new tensor; the backward sums the
+    gradient over the ranks the same way (two all-reduces, tagged
+    ``tag``)."""
+    return _PSum.apply(x, group, tag)
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -16,9 +16,14 @@ metrics)``:
 * :func:`dlrm_train_cell` (``_dlrm_plan``): the tables vocab-parallel
   (``dlrm.param_pspecs``, K6 on every shard), the MLPs data-parallel over
   every rank, AdamW at 1e-3;
-* :func:`gnn_train_cell` (``_gnn_plan``): the four GNNs at world size 1
-  only, AdamW at 1e-3; the ``minibatch_lg`` cell trains on a sampled
-  subgraph padded to :func:`sampled_subgraph_sizes`, which
+* :func:`gnn_train_cell` (``_gnn_plan``): the four GNNs, AdamW at 1e-3,
+  on one device or under a policy: the state replicated on every rank,
+  each rank training on its :class:`~repro_torch.models.gnn.graph.
+  GraphShard` of the batch, laid out by :func:`gnn_graph_specs` (nodes
+  and edges over every axis for GCN and GatedGCN, over the dp axes for
+  MeshGraphNet and EquiformerV2, whose ``model`` ranks compute alike), and the
+  gradients summed over every rank; the ``minibatch_lg`` cell trains on a
+  sampled subgraph padded to :func:`sampled_subgraph_sizes`, which
   :func:`subgraph_batch` lays out as the reference's graph batch.
 
 Every rank passes the same global batch.  A cell that cannot run under its
@@ -39,19 +44,23 @@ import torch
 from ..backend import resolve_device
 from ..configs import get_arch
 from ..configs.base import ArchDef, ShapeSpec
+from ..core import comm_model
 from ..data.sampler import SampledSubgraph
+from ..distributed import comm
 from ..models import dlrm as dlrm_lib
 from ..models import transformer as tf_lib
-from ..models.gnn.graph import GraphBatch
-from ..optim.optimizers import AdamWState, adamw, make_step
-from ..params import (gnn_params, shard_dlrm, shard_transformer_tree,
-                      tensor_tree, tree_loss)
-from ..tree import tree_leaves
+from ..models.gnn.gcn import layer_dims
+from ..models.gnn.graph import GraphBatch, GraphShard, shard_graph
+from ..optim.optimizers import AdamWState, adamw, global_norm, make_step
+from ..params import (gnn_tree, shard_dlrm, shard_transformer_tree,
+                      tree_loss)
+from ..tree import tree_leaves, tree_map
 from .train import GNN_MODELS
 
 __all__ = ["PAD_TO", "GNN_N_CLASSES", "sampled_subgraph_sizes",
            "lm_train_dtype", "TrainCell", "lm_train_cell",
            "dlrm_train_cell", "gnn_train_cell", "gnn_config",
+           "gnn_graph_specs", "gnn_node_split", "gnn_policy_traffic",
            "subgraph_batch"]
 
 PAD_TO = 512  # graph dims padded to multiples of this (divides both meshes)
@@ -225,36 +234,161 @@ def gnn_config(arch, shape):
     return arch.make_config(**mk)
 
 
+#: The wide models: nodes and edges over the dp axes (the reference also
+#: lays their hidden channels over ``model``; here they stay whole).
+_TWO_D = ("meshgraphnet", "equiformer-v2")
+
+
+def gnn_graph_specs(arch_name: str, g: GraphBatch, policy) -> GraphBatch:
+    """The reference's ``_gnn_graph_specs``: each field of ``g`` with the
+    axes its first dim splits over, as a ``GraphBatch`` of specs.  Nodes
+    and edges split over the dp axes for MeshGraphNet and EquiformerV2
+    (their hidden channels whole on every ``model`` rank), over every
+    axis for GCN and GatedGCN; node-level labels as the nodes, graph-level
+    labels whole."""
+    axes, _ = gnn_node_split(arch_name, policy)
+    node = (axes,)
+    kw: dict[str, Any] = dict(
+        node_feat=(axes, None), senders=node, receivers=node,
+        node_mask=node, edge_mask=node, n_graphs=g.n_graphs)
+    if g.graph_ids is not None:
+        kw["graph_ids"] = node
+    if g.edge_feat is not None:
+        kw["edge_feat"] = (axes, None)
+    if g.wigner is not None:
+        kw["wigner"] = {l: ((None, axes, None, None) if w.ndim == 4
+                            else (axes, None, None))
+                        for l, w in g.wigner.items()}
+    if g.positions is not None:
+        kw["positions"] = (axes, None)
+    lbl = g.labels
+    if lbl.shape[0] == g.node_feat.shape[0]:
+        kw["labels"] = node if lbl.ndim == 1 else (axes, None)
+    else:
+        kw["labels"] = () if lbl.ndim == 1 else (None,) * lbl.ndim
+    return GraphBatch(**kw)
+
+
+def gnn_node_split(arch_name: str, policy) -> tuple[Any, int]:
+    """(The node axes, the node ranks) of ``arch_name`` under ``policy``."""
+    axes = (policy.dp_spec if arch_name in _TWO_D
+            else tuple(policy.dp_axes) + (policy.tp_axis,))
+    return axes, policy.size(axes)
+
+
+def gnn_policy_traffic(arch_name: str, cfg, policy, n_total: int,
+                       param_bytes: int) -> dict:
+    """The wire bytes a rank of one GNN train step under ``policy``, by
+    ``(tag, kind)``, from the paper's models: each senders' all-gather of
+    ``n_total`` padded node rows over the node ranks is
+    ``spmm_feature_allgather(n_total, width, node ranks)`` (GCN
+    ``d_hidden`` then ``n_classes`` wide, GatedGCN and MeshGraphNet
+    ``d_hidden`` a layer, EquiformerV2 ``L2 * d_hidden`` a layer), its
+    backward's reduce-scatter the same, and the gradient sum
+    ``dp_gradient_sync(param_bytes, n_devices)``.  The readout's psums
+    (``gnn_readout``, a few scalars) are not modelled."""
+    _, n = gnn_node_split(arch_name, policy)
+    if arch_name == "gcn-cora":
+        widths = layer_dims(cfg)[1:]
+    elif arch_name == "equiformer-v2":
+        widths = [cfg.L2 * cfg.d_hidden] * cfg.n_layers
+    else:
+        widths = [cfg.d_hidden] * cfg.n_layers
+    gather = sum(comm_model.spmm_feature_allgather(n_total, w, n).total(
+        "ici") for w in widths)
+    return {("gnn_gather", "all-gather"): gather,
+            ("gnn_gather", "reduce-scatter"): gather,
+            ("grad_dp", "all-reduce"): comm_model.dp_gradient_sync(
+                param_bytes, policy.n_devices).total("ici")}
+
+
+def _gnn_sizes(shape: ShapeSpec) -> tuple[int, int]:
+    """The padded (nodes, edges) of a GNN shape, as
+    ``_gnn_graph_abstract`` pads them."""
+    p = shape.params
+    if shape.kind == "train_sampled":
+        return sampled_subgraph_sizes(p["batch_nodes"], tuple(p["fanout"]))
+    return (_pad(p["n_nodes"] * p.get("batch", 1)),
+            _pad(p["n_edges"] * p.get("batch", 1)))
+
+
+def _shard_gnn_batch(arch_name: str, cfg, policy, dev,
+                     g: GraphBatch) -> GraphShard:
+    """This rank's shard of a global batch (numpy or tensors), on ``dev``:
+    nodes padded to :data:`PAD_TO`."""
+    g = g.to(dev)
+    return shard_graph(g, gnn_graph_specs(arch_name, g, policy), policy,
+                       n_total=_pad(g.n_nodes))
+
+
+def _sync_replicated(policy, grads) -> torch.Tensor:
+    """Each leaf's gradient summed over every rank in place (tagged
+    ``"grad_dp"``), and the global norm of the sum, alike on every rank."""
+    if policy.n_devices > 1:
+        comm.all_reduce_grads(tree_leaves(grads),
+                              policy.group(policy.all_axes), tag="grad_dp")
+    return global_norm(grads)
+
+
 def gnn_train_cell(arch, shape, policy, params=None, *, cfg=None,
                    seed: int = 0, device=None) -> TrainCell:
-    """The reference's ``_gnn_plan`` train step over real state at world
-    size 1: ``params`` a reference-layout tree (numpy or tensors; None
-    draws ``params.gnn_params(cfg, seed)``), AdamW at 1e-3, the model's
-    ``loss_fn`` over the batch.  Under a policy of more than one device it
-    raises: GNN training sharded over nodes and edges is ROADMAP item
-    10c."""
+    """The reference's ``_gnn_plan`` train step over real state: ``params``
+    a reference-layout tree (numpy or tensors; None draws
+    ``params.gnn_params(cfg, seed)``), AdamW at 1e-3 (clipping at norm 1),
+    the model's ``loss_fn`` over the batch.
+
+    With ``policy`` None the step runs on one device.  Under a policy (of
+    any size, one rank included) the parameters and moments are replicated
+    on every rank (``specs`` and ``opt_specs`` say so: empty specs), each
+    rank trains on its :class:`GraphShard` of the global batch every rank
+    passes alike (``meta["shard"]`` cuts one; the step cuts a
+    ``GraphBatch`` itself), its loss is its share of the global loss, and
+    each leaf's gradient is summed over every rank before AdamW clips by
+    the global norm.  It raises, naming the reason, for EquiformerV2's
+    edge chunks (``edge_chunks`` > 1) and for padded sizes of ``shape``
+    that do not split over the node ranks; nothing falls back to the
+    single-device step."""
     arch, shape = _arch_shape(arch, shape)
-    if policy is not None and policy.n_devices > 1:
-        raise ValueError(
-            f"{arch.name} x {shape.name}: GNN training under a policy of "
-            f"{policy.n_devices} devices (nodes and edges over every axis) "
-            "is not ported (ROADMAP item 10c)")
     cfg = cfg or gnn_config(arch, shape)
+    if policy is not None:
+        axes, n = gnn_node_split(arch.name, policy)
+        n_pad, _ = _gnn_sizes(shape)
+        if n_pad % n:
+            raise ValueError(
+                f"{arch.name} x {shape.name}: {n_pad} padded nodes do not "
+                f"split over {n} node ranks ({axes})")
+        if getattr(cfg, "edge_chunks", 1) > 1:
+            raise ValueError(
+                f"{arch.name} x {shape.name}: {cfg.edge_chunks} edge chunks "
+                "under a policy (the chunked eSCN convolution has no "
+                "sharded layout)")
     dev = resolve_device(device)
-    if params is None:
-        params = gnn_params(cfg, seed)
-    if not all(torch.is_tensor(t) for t in tree_leaves(params)):
-        params = tensor_tree(params, device=dev)
+    params = gnn_tree(cfg, params, seed=seed, device=dev)
     module, model_cls = GNN_MODELS[arch.name]
     optimizer = adamw(1e-3, donate=True)
-    step_fn = make_step(tree_loss(model_cls(cfg, device=dev),
-                                  module.loss_fn), optimizer)
-    meta = {"optimizer": optimizer}
+    loss = tree_loss(model_cls(cfg, device=dev), module.loss_fn)
+    meta: dict[str, Any] = {"optimizer": optimizer}
     if shape.kind == "train_sampled":
-        meta["sizes"] = sampled_subgraph_sizes(
-            shape.params["batch_nodes"], tuple(shape.params["fanout"]))
-    return TrainCell(arch.name, shape.name, _wrap(step_fn), params,
-                     optimizer.init(params), None, None, cfg, meta=meta)
+        meta["sizes"] = _gnn_sizes(shape)
+    if policy is None:
+        return TrainCell(arch.name, shape.name,
+                         _wrap(make_step(loss, optimizer)), params,
+                         optimizer.init(params), None, None, cfg, meta=meta)
+    shard = partial(_shard_gnn_batch, arch.name, cfg, policy, dev)
+    step_fn = make_step(loss, optimizer,
+                        sync=partial(_sync_replicated, policy))
+
+    def train_step(params, opt_state, batch):
+        if not isinstance(batch, GraphShard):
+            batch = shard(batch)
+        (params, opt_state), metrics = step_fn((params, opt_state), batch)
+        return params, opt_state, metrics
+
+    specs = tree_map(lambda _: (), params)
+    meta["shard"] = shard
+    return TrainCell(arch.name, shape.name, train_step, params,
+                     optimizer.init(params), specs, _opt_state_specs(specs),
+                     cfg, meta=meta)
 
 
 def subgraph_batch(arch_name: str, cfg, sub: SampledSubgraph,

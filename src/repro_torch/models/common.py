@@ -19,8 +19,8 @@ from ..tree import tree_leaves
 
 __all__ = ["Initializer", "dense_init", "he_init", "embed_init", "rms_norm", "layer_norm",
            "softcap", "swiglu", "mlp_init", "mlp_apply", "MLP", "rope_freqs",
-           "apply_rope", "segment_sum", "segment_softmax", "cross_entropy_loss",
-           "count_params"]
+           "apply_rope", "segment_sum", "gather_rows", "segment_softmax",
+           "cross_entropy_loss", "count_params"]
 
 
 def _fan(shape: Sequence[int], fan_in: Optional[int]) -> int:
@@ -182,6 +182,28 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
         acc.index_add_(0, segment_ids[lo:lo + step],
                        values[lo:lo + step].double())
     return acc.to(values.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        return segment_sum(grad, idx, ctx.n), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` (int64 ``idx``), whose backward sums each row's gradients
+    with :func:`segment_sum`: in float64, by ``index_add_``.  The backward
+    of ``x[idx]`` sorts the ids and sums each run of equal ids in one warp:
+    on the card that took 28.3 s of a GCN step at ogb_products, whose hub
+    sends 2.7e7 edges."""
+    return _GatherRows.apply(x, idx)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,

@@ -14,6 +14,14 @@ FFN on l=0.
 Data contract: edges must have non-zero edge vectors (self-loops have no
 edge frame and break equivariance), and padding edges carry
 ``edge_mask = 0`` so their arbitrary Wigner blocks never contribute.
+
+On a :class:`.graph.GraphShard` (2-D: nodes and edges over the dp axes)
+the node gather comes once a layer, as the reference's ``_GATHER_ONCE``
+path: the normed rows (``L2 x C`` wide) all-gathered over the node ranks.
+The readout sums the invariant rows over every node rank before
+``out_mlp``.  The channels stay whole: the ``model`` ranks of a node block
+compute alike (the norm, the attention MLP, the SO(2) maps, the gate and
+the FFN each mix channels, so a split would gather them back for each).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...backend import resolve_device
-from ..common import MLP, segment_softmax, segment_sum
+from ..common import MLP, gather_rows, segment_softmax, segment_sum
 from .graph import GraphBatch
 
 __all__ = ["EquiformerV2Config", "EquiformerV2", "EquiformerV2Layer",
@@ -192,15 +200,17 @@ class EquiformerV2(nn.Module):
         N, C = g.n_nodes, cfg.d_hidden
         snd, rcv = g.senders, g.receivers
         h = equivariant_rms_norm(cfg, x, lp.norm_scale)
+        # The node gather, once a layer (over the node ranks).
+        src = g.senders_table(h)
         # Attention from the invariant channels, over the full edge set.
-        h0 = h[:, 0, :]
-        scores = lp.attn_mlp(torch.cat([h0[snd], h0[rcv]], dim=-1))
+        scores = lp.attn_mlp(torch.cat([gather_rows(src[:, 0, :], snd),
+                                        h[:, 0, :][rcv]], dim=-1))
         scores = torch.where(emask[:, None] > 0, scores,
                              scores.new_tensor(-1e30))
         alpha = segment_softmax(scores, rcv, N) * emask[:, None]
         agg = None
         for wig_c, snd_c, rcv_c, alpha_c in self._chunks(g, alpha):
-            msg = _so2_conv(cfg, lp, wig_c, h[snd_c])
+            msg = _so2_conv(cfg, lp, wig_c, gather_rows(src, snd_c))
             mh = msg.reshape(msg.shape[0], cfg.L2, cfg.n_heads,
                              C // cfg.n_heads)
             mh = mh * alpha_c[:, None, :, None]
@@ -231,7 +241,7 @@ class EquiformerV2(nn.Module):
         inv = x[:, 0, :] * g.nmask()[:, None]
         gid = (g.graph_ids if g.graph_ids is not None
                else torch.zeros(N, dtype=torch.long, device=inv.device))
-        return self.out_mlp(segment_sum(inv, gid, g.n_graphs))
+        return self.out_mlp(g.node_total(segment_sum(inv, gid, g.n_graphs)))
 
 
 def loss_fn(model: EquiformerV2, g: GraphBatch
@@ -240,4 +250,5 @@ def loss_fn(model: EquiformerV2, g: GraphBatch
     ``(loss, {"loss", "mae"})``."""
     pred = model(g)
     loss = (pred - g.labels).float().square().mean()
-    return loss, {"loss": loss, "mae": (pred - g.labels).abs().mean()}
+    return g.objective(loss), {"loss": loss,
+                               "mae": (pred - g.labels).abs().mean()}

@@ -9,6 +9,12 @@ Edge-gated message passing:
 LayerNorm replaces the original BatchNorm, as in the reference.  The
 reference scans over layer-stacked weights; here each layer is a module of
 its own, in the stack's order.
+
+On a :class:`.graph.GraphShard` (nodes and edges over every mesh axis) a
+layer all-gathers ``h`` (``d_hidden`` wide) once for its two sender
+reads, ``(h D)[snd]`` and ``(h B)[snd]``: half the bytes of gathering
+``[h D, h B]``, for two products over the gathered rows.  ``(h E)[rcv]``
+and the sums over a receiver's edges are local.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 from torch import nn
 
 from ...backend import resolve_device
-from ..common import layer_norm
+from ..common import gather_rows, layer_norm
 from .gcn import graph_mean, masked_cross_entropy
 from .graph import GraphBatch
 from .layers import scatter_sum
@@ -56,11 +62,14 @@ class GatedGCNLayer(nn.Module):
     def forward(self, h: torch.Tensor, e: torch.Tensor, g: GraphBatch,
                 emask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         snd, rcv, n = g.senders, g.receivers, g.n_nodes
-        e_hat = e @ self.C + (h @ self.D)[snd] + (h @ self.E)[rcv]
+        src = g.senders_table(h)
+        e_hat = (e @ self.C + gather_rows(src @ self.D, snd)
+                 + (h @ self.E)[rcv])
         e = e + torch.relu(layer_norm(e_hat, self.ln_e_s, self.ln_e_b))
         eta = torch.sigmoid(e) * emask
         denom = scatter_sum(eta, rcv, n) + 1e-6
-        msgs = scatter_sum(eta * (h @ self.B)[snd], rcv, n) / denom
+        msgs = scatter_sum(eta * gather_rows(src @ self.B, snd), rcv,
+                           n) / denom
         h = h + torch.relu(layer_norm(h @ self.A + msgs, self.ln_h_s,
                                       self.ln_h_b))
         return h, e
@@ -101,6 +110,10 @@ def loss_fn(model: GatedGCN, g: GraphBatch) -> tuple[torch.Tensor, dict]:
     """Cross-entropy over the graphs (``"graphs"`` readout) or the unmasked
     nodes; ``(loss, {"loss", "acc"})``."""
     logits = model(g)
-    mask = (logits.new_ones(g.n_graphs) if model.cfg.readout == "graphs"
-            else g.nmask())
-    return masked_cross_entropy(logits, g.labels, mask)
+    if model.cfg.readout == "graphs":
+        loss, metrics = masked_cross_entropy(logits, g.labels,
+                                             logits.new_ones(g.n_graphs))
+    else:
+        loss, metrics = masked_cross_entropy(logits, g.labels, g.nmask(),
+                                             g.node_total)
+    return g.objective(loss), metrics

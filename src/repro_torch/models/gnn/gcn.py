@@ -6,6 +6,12 @@ applied *before* aggregation (X W then A ·) so the aggregated feature width
 is d_hidden, not d_in: the order EnGN streams tiles in.  Aggregation is
 plain PyTorch (:func:`.layers.gather_scatter_sum`) unless the caller hands
 an ``aggregate_fn`` with its signature.
+
+On a :class:`.graph.GraphShard` (nodes and edges over every mesh axis) the
+transform runs on the rank's rows, the all-gather of ``h`` (widths
+``d_hidden``, then ``n_classes``) feeds the senders, and the weighted sum
+over a receiver's edges is local; the coefficients come from the global
+batch's degrees.
 """
 
 from __future__ import annotations
@@ -75,31 +81,38 @@ class GCN(nn.Module):
             if agg_dtype is not None:
                 h = h.to(agg_dtype)
                 coeff_l = coeff.to(agg_dtype)
-            h = agg(h, g.senders, g.receivers, g.n_nodes, edge_weight=coeff_l)
+            h = agg(g.senders_table(h), g.senders, g.receivers, g.n_nodes,
+                    edge_weight=coeff_l)
             if i < self.cfg.n_layers - 1:
                 h = torch.relu(h)
         return h.float()
 
 
 def graph_mean(values: torch.Tensor, g: GraphBatch) -> torch.Tensor:
-    """Per-graph mean of the unmasked nodes' rows, (n_graphs, ...)."""
+    """Per-graph mean of the unmasked nodes' rows, (n_graphs, ...), over
+    every node rank."""
     mask = g.nmask()
     pooled = segment_sum(values * mask[:, None], g.graph_ids, g.n_graphs)
     cnt = segment_sum(mask, g.graph_ids, g.n_graphs)
-    return pooled / torch.clamp_min(cnt, 1.0)[:, None]
+    return g.node_total(pooled) / torch.clamp_min(g.node_total(cnt),
+                                                  1.0)[:, None]
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         mask: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                         mask: torch.Tensor, total=lambda x: x
+                         ) -> tuple[torch.Tensor, dict]:
     """Mean negative log-likelihood and accuracy over the unmasked rows, in
-    f32."""
+    f32; ``total`` sums the three sums over the ranks that hold the rows
+    (:meth:`GraphBatch.node_total`)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[:, None])[:, 0]
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    loss = ((logz - gold) * mask).sum() / denom
-    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
-    return loss, {"loss": loss, "acc": acc}
+    nll, hits, cnt = total(torch.stack([
+        ((logz - gold) * mask).sum(),
+        ((logits.argmax(-1) == labels) * mask).sum(), mask.sum()])).unbind()
+    denom = torch.clamp_min(cnt, 1.0)
+    loss = nll / denom
+    return loss, {"loss": loss, "acc": hits / denom}
 
 
 def loss_fn(model: GCN, g: GraphBatch, *,
@@ -109,8 +122,9 @@ def loss_fn(model: GCN, g: GraphBatch, *,
     logits with the ``"graphs"`` readout; ``(loss, {"loss", "acc"})``."""
     logits = model(g, aggregate_fn=aggregate_fn)
     if model.cfg.readout == "graphs":
-        logits = graph_mean(logits, g)
-        mask = logits.new_ones(g.n_graphs)
+        loss, metrics = masked_cross_entropy(
+            graph_mean(logits, g), g.labels, logits.new_ones(g.n_graphs))
     else:
-        mask = g.nmask()
-    return masked_cross_entropy(logits, g.labels, mask)
+        loss, metrics = masked_cross_entropy(logits, g.labels, g.nmask(),
+                                             g.node_total)
+    return g.objective(loss), metrics

@@ -19,7 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..common import segment_sum
+from ..common import gather_rows, segment_sum
 
 __all__ = ["AggregateFn", "gather_scatter_sum", "scatter_sum",
            "scatter_mean", "scatter_max"]
@@ -32,8 +32,8 @@ def gather_scatter_sum(node_values: torch.Tensor, senders: torch.Tensor,
                        edge_weight: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """sum_j w_ij * x_j for each receiver i: the SpMM A @ X as a gather and
-    a scatter-add."""
-    msgs = node_values[senders]
+    a scatter-add (each in float64 on the way back)."""
+    msgs = gather_rows(node_values, senders)
     if edge_weight is not None:
         msgs = msgs * edge_weight[:, None]
     return segment_sum(msgs, receivers, n_nodes)

@@ -7,6 +7,12 @@ Processor step (x15, d=128, 2-layer MLPs with LayerNorm):
 The decoder regresses per-node targets (mesh dynamics).  The reference
 scans over layer-stacked processors; here each is a module of its own, in
 the stack's order.
+
+On a :class:`.graph.GraphShard` (2-D: nodes and edges over the dp axes)
+a step all-gathers ``h`` over the node ranks for the senders (``d_hidden``
+wide); every other read is local.  The channels stay whole: the ``model``
+ranks of a node block compute alike (a split that gathers the channels
+back for each MLP and LayerNorm would move more bytes and save nothing).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 from torch import nn
 
 from ...backend import resolve_device
-from ..common import MLP
+from ..common import MLP, gather_rows
 from .graph import GraphBatch
 from .layers import scatter_sum
 
@@ -51,7 +57,8 @@ class Processor(nn.Module):
     def forward(self, h: torch.Tensor, e: torch.Tensor, g: GraphBatch,
                 emask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         snd, rcv = g.senders, g.receivers
-        e = e + self.edge_mlp(torch.cat([e, h[snd], h[rcv]], dim=-1),
+        src = gather_rows(g.senders_table(h), snd)
+        e = e + self.edge_mlp(torch.cat([e, src, h[rcv]], dim=-1),
                               final_act=True)
         agg = scatter_sum(e * emask, rcv, g.n_nodes)
         h = h + self.node_mlp(torch.cat([h, agg], dim=-1), final_act=True)
@@ -94,5 +101,6 @@ def loss_fn(model: MeshGraphNet, g: GraphBatch) -> tuple[torch.Tensor, dict]:
     pred = model(g)
     mask = g.nmask()[:, None]
     err = (pred - g.labels).float().square() * mask
-    loss = err.sum() / torch.clamp_min(mask.sum() * model.cfg.d_out, 1.0)
-    return loss, {"loss": loss, "rmse": torch.sqrt(loss)}
+    num, cnt = g.node_total(torch.stack([err.sum(), mask.sum()])).unbind()
+    loss = num / torch.clamp_min(cnt * model.cfg.d_out, 1.0)
+    return g.objective(loss), {"loss": loss, "rmse": torch.sqrt(loss)}

@@ -38,6 +38,9 @@ the reference's initializers, and :func:`load_gcn`, :func:`load_gatedgcn`,
 :func:`load_meshgraphnet` and :func:`load_equiformer_v2` load them, or the
 reference's ``init_params`` output after ``np.asarray``, into the port's
 modules: layer ``i`` takes slice ``i`` of every stacked leaf.
+:func:`gnn_tree` gives a GNN's training tree on a device, from such a
+numpy tree or drawn from a seed: the same on every rank of a policy that
+replicates the GNN's state.
 
 The reverse direction serves training, whose state is a tree of tensors in
 the reference's layout (so a checkpoint holds the reference's leaves, in its
@@ -75,16 +78,16 @@ from .models.moe import MOE_KEYS, init_moe_params
 from .models.transformer import (ShardedTransformer, Transformer,
                                  TransformerConfig, layer_keys)
 from .models.transformer import param_pspecs as transformer_pspecs
-from .tree import (is_spec, tree_flatten, tree_map, tree_paths,
+from .tree import (is_spec, tree_flatten, tree_leaves, tree_map, tree_paths,
                    tree_unflatten)
 
 __all__ = ["gcn_params", "gcn_combine_weights", "transformer_params",
            "load_transformer", "draw_transformer", "dlrm_params",
            "load_dlrm", "gnn_params", "load_gcn", "load_gatedgcn",
-           "load_meshgraphnet", "load_equiformer_v2", "module_tree",
-           "dump_transformer", "dump_dlrm", "dump_gnn", "tensor_tree",
-           "to_numpy", "bind", "tree_loss", "shard_transformer",
-           "shard_transformer_tree", "shard_dlrm"]
+           "load_meshgraphnet", "load_equiformer_v2", "gnn_tree",
+           "module_tree", "dump_transformer", "dump_dlrm", "dump_gnn",
+           "tensor_tree", "to_numpy", "bind", "tree_loss",
+           "shard_transformer", "shard_transformer_tree", "shard_dlrm"]
 
 
 def gcn_params(dims: Sequence[int], seed: int = 0) -> dict:
@@ -466,6 +469,21 @@ def _lists(node):
     if node and all(isinstance(k, int) for k in node):
         return [node[i] for i in range(len(node))]
     return node
+
+
+def gnn_tree(cfg, tree=None, *, seed: int = 0, device=None) -> dict:
+    """A GNN's weights as a training tree of tensors on ``device`` (CUDA by
+    default): ``tree`` (a reference-layout numpy tree, or tensors, which
+    are moved there), or :func:`gnn_params` drawn from ``seed`` when it is
+    None.  The draw is seeded numpy, so every rank that calls this with
+    the same arguments holds the same tree: the replicated state of GNN
+    training under a policy."""
+    dev = resolve_device(device)
+    if tree is None:
+        tree = gnn_params(cfg, seed)
+    if all(torch.is_tensor(t) for t in tree_leaves(tree)):
+        return tree_map(lambda t: t.to(dev), tree)
+    return tensor_tree(tree, device=dev)
 
 
 def module_tree(model: nn.Module) -> dict:

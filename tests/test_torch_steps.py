@@ -1,8 +1,9 @@
 """``repro_torch.launch.steps`` against the reference's ``launch/steps.py``:
 the padded sampled-subgraph sizes, the constants and the storage rule,
-and one GNN train step on a sampled subgraph (the ``minibatch_lg`` batch
-builder at world size 1), card-free: the port on CPU tensors against the
-reference's ``_gnn_plan`` train step, within 1e-4."""
+one GNN train step on a sampled subgraph (``subgraph_batch``'s
+``minibatch_lg`` batch on one device), and what a GNN cell refuses under
+a policy, card-free: the port on CPU tensors against the reference's
+``_gnn_plan`` train step, within 1e-4."""
 
 from __future__ import annotations
 
@@ -90,11 +91,20 @@ def test_opt_state_specs_take_the_parameters_layout():
     assert specs["embed"] == ("model", "data")
 
 
-def test_gnn_cell_refuses_a_sharded_policy():
-    policy = make_policy(AbstractMesh(("data", "model"), (2, 4)))
-    with pytest.raises(ValueError, match="10c"):
-        steps.gnn_train_cell("gcn-cora", "minibatch_lg", policy,
-                             device="cpu")
+@pytest.mark.parametrize("arch,shape,mesh,match", [
+    ("gcn-cora", "minibatch_lg", (3, 1), "do not split over 3 node ranks"),
+    ("meshgraphnet", "full_graph_sm", (5, 2),
+     "do not split over 5 node ranks"),
+    ("equiformer-v2", "ogb_products", (2, 4), "64 edge chunks")],
+    ids=["indivisible-nodes", "indivisible-dp-nodes", "edge-chunks"])
+def test_gnn_cell_refuses_a_sharded_policy(arch, shape, mesh, match):
+    """What a GNN cell cannot run under a policy raises, naming why: padded
+    nodes that do not split over the node ranks (every axis for GCN, the
+    dp axes for MeshGraphNet), and EquiformerV2's edge chunks; it never
+    falls back to the single-device step."""
+    policy = make_policy(AbstractMesh(("data", "model"), mesh))
+    with pytest.raises(ValueError, match=match):
+        steps.gnn_train_cell(arch, shape, policy, device="cpu")
 
 
 def _graph(cfg, arch: str, seed: int = 0):
@@ -151,8 +161,7 @@ def test_sampled_train_step_matches_reference(arch):
 
     jparams = jax.tree_util.tree_map(
         np.asarray, J_MODULES[arch].init_params(jcfg, jax.random.key(0)))
-    policy = make_policy(AbstractMesh(("data", "model"), (1, 1)))
-    cell = steps.gnn_train_cell(arch, "minibatch_lg", policy, jparams,
+    cell = steps.gnn_train_cell(arch, "minibatch_lg", None, jparams,
                                 cfg=cfg, device="cpu")
     params, state, metrics = cell.step(cell.params, cell.opt_state,
                                        g.to("cpu"))

@@ -19,6 +19,15 @@ CPU thread a rank) and writes rank 0's results:
 * ``dlrm`` (8 ranks): three steps of ``launch.steps.dlrm_train_cell`` on
   the (2, 4) mesh, the same records, and the largest entry of any zero
   row on any rank;
+* ``gnn`` (8 ranks): for each case (a GNN smoke config, a mesh, a
+  readout) three steps of ``launch.steps.gnn_train_cell(policy=)`` on the
+  global batch, the same records (the state is replicated: rank 0's
+  tree), and the shard's padded node count and every rank's local node
+  and edge counts;
+* ``gnn1`` (1 rank): for each model, three steps of the world-1 policy
+  cell and of the single-device cell (``policy=None``, on the shard's
+  padded batch) from the same weights: losses and final parameters of
+  both, the policy step's first moments and ledger;
 * ``draw4`` / ``draw8`` (4 / 8 ranks): every rank's blocks of
   ``params.shard_transformer_tree(None, ...)`` with its index along each
   leaf's spec axes.
@@ -78,7 +87,8 @@ def _run(cell, batch, policy, steps: int, view=lambda tree: tree) -> dict:
         if i == 0:
             ledger = [(op.kind, op.tag, op.result_bytes, op.group_size,
                        op.wire_bytes_per_chip) for op in rec.ops]
-            first_mu = _whole_tree(view(state.mu), specs, policy)
+            if specs is not None:
+                first_mu = _whole_tree(view(state.mu), specs, policy)
     return {"losses": losses, "first_mu": first_mu, "ledger": ledger,
             "params_out": params, "state_out": state}
 
@@ -138,6 +148,68 @@ def job_dlrm(rank: int, world: int, data: dict) -> dict:
     return res
 
 
+def _gnn_cell(name: str, shape, readout: str, data: dict, policy):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn.graph import GraphBatch
+
+    cfg = get_arch(name).make_smoke_config(**data["cfg_kw"][(name,
+                                                             readout)])
+    cell = steps.gnn_train_cell(name, "full_graph_sm", policy,
+                                data["params"][(name, readout)], cfg=cfg,
+                                device="cpu")
+    return cell, GraphBatch(**data["batch"][(name, readout)])
+
+
+def job_gnn(rank: int, world: int, data: dict) -> dict:
+    from repro_torch.distributed import comm
+
+    out = {}
+    for case in data["cases"]:
+        name, shape, readout = case
+        policy = _policy(shape)
+        cell, g = _gnn_cell(name, shape, readout, data, policy)
+        res = _run(cell, g, policy, data["steps"])
+        res.update(_state(res.pop("params_out"), res.pop("state_out"),
+                          cell.specs, policy))
+        shard = cell.meta["shard"](g)
+        sizes = torch.tensor([[shard.n_nodes, shard.n_edges]])
+        res["n_total"] = shard.n_total
+        res["sizes"] = comm.all_gather(sizes, policy.group(
+            policy.all_axes)).tolist()
+        out[case] = res
+    return out
+
+
+def job_gnn1(rank: int, world: int, data: dict) -> dict:
+    import dataclasses
+
+    from repro_torch.models.gnn.graph import GraphBatch
+    from repro_torch.tree import tree_map
+
+    out = {}
+    policy = _policy((1, 1))
+    for case in data["cases"]:
+        name, _, readout = case
+        got = {}
+        for kind, pol in (("policy", policy), ("single", None)):
+            cell, g = _gnn_cell(name, (1, 1), readout, data, pol)
+            if pol is None:
+                # The single-device step on the batch the shard trains on
+                # (its nodes padded, its edges in the global order).
+                g = GraphBatch(**{f.name: getattr(shard, f.name) for f in
+                                  dataclasses.fields(GraphBatch)})
+            else:
+                shard = cell.meta["shard"](g)
+            res = _run(cell, g.to("cpu"), pol, data["steps"])
+            res["params"] = tree_map(lambda t: t.detach().numpy().copy(),
+                                     res.pop("params_out"))
+            del res["state_out"]
+            got[kind] = res
+        out[case] = got
+    return out
+
+
 def _draw(rank: int, world: int, data: dict) -> dict:
     from repro_torch import params as P
     from repro_torch.distributed.sharding import spec_axes
@@ -168,7 +240,8 @@ def job_draw8(rank: int, world: int, data: dict) -> dict:
     return _draw(rank, world, data)
 
 
-JOBS = {"lm": (job_lm, 8), "dlrm": (job_dlrm, 8), "draw4": (job_draw4, 4),
+JOBS = {"lm": (job_lm, 8), "dlrm": (job_dlrm, 8), "gnn": (job_gnn, 8),
+        "gnn1": (job_gnn1, 1), "draw4": (job_draw4, 4),
         "draw8": (job_draw8, 8)}
 
 

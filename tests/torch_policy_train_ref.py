@@ -16,7 +16,11 @@ policy=make_policy(mesh))``.  JOB ``dlrm``: three steps of the reference's
 then ``adamw(1e-3)``) on the (2, 4) mesh.  Each writes every step's loss,
 the first step's moments and the last step's parameters and moments as
 numpy.  The sequence-chunked CE path is forced by lowering the module's
-``_CE_CHUNK_THRESHOLD`` (and ``_CE_CHUNK``) at run time.
+``_CE_CHUNK_THRESHOLD`` (and ``_CE_CHUNK``) at run time.  JOB ``gnn``:
+for each case (a GNN smoke config, a mesh, a readout), three steps of the
+reference's ``_gnn_plan`` train step (``value_and_grad`` of
+``module.loss_fn(cfg, q, g, policy=)``, then ``adamw(1e-3)``), jitted
+with the batch laid out by ``_gnn_graph_specs``; the same records.
 """
 
 from __future__ import annotations
@@ -33,9 +37,11 @@ import numpy as np  # noqa: E402
 
 from repro.configs import get_arch  # noqa: E402
 from repro.distributed.sharding import make_policy  # noqa: E402
+from repro.launch import steps as ref_steps  # noqa: E402
 from repro.launch.mesh import make_test_mesh  # noqa: E402
 from repro.models import dlrm as dlrm_lib  # noqa: E402
 from repro.models import transformer as tf  # noqa: E402
+from repro.models.gnn.graph import GraphBatch  # noqa: E402
 from repro.optim.optimizers import adamw, apply_updates  # noqa: E402
 
 _NP = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
@@ -97,11 +103,55 @@ def run_dlrm(data: dict) -> dict:
     return {"losses": losses, "first_mu": first_mu, **_state(params, state)}
 
 
+def _graph(batch: dict) -> GraphBatch:
+    kw = {k: ({l: jnp.asarray(w) for l, w in v.items()} if k == "wigner"
+              else jnp.asarray(v))
+          for k, v in batch.items() if k != "n_graphs"}
+    return GraphBatch(**kw, n_graphs=batch.get("n_graphs", 1))
+
+
+def run_gnn(data: dict) -> dict:
+    out = {}
+    for case in data["cases"]:
+        name, shape, readout = case
+        arch = get_arch(name)
+        cfg = arch.make_smoke_config(**data["cfg_kw"][(name, readout)])
+        module = ref_steps._GNN_MODULES[name]
+        policy = make_policy(make_test_mesh(shape))
+        g = _graph(data["batch"][(name, readout)])
+        specs = ref_steps._gnn_graph_specs(arch, g, policy,
+                                           arch.shapes["full_graph_sm"])
+        opt = adamw(1e-3)
+
+        def train_step(params, opt_state, g, cfg=cfg, module=module,
+                       policy=policy, opt=opt):
+            (_, metrics), grads = jax.value_and_grad(
+                lambda q: module.loss_fn(cfg, q, g, policy=policy),
+                has_aux=True)(params)
+            updates, opt_state = opt.update(grads, opt_state, params)
+            return apply_updates(params, updates), opt_state, metrics
+
+        step = jax.jit(train_step, in_shardings=(
+            None, None, ref_steps._named(policy, g, specs)))
+        params = jax.tree_util.tree_map(jnp.asarray,
+                                        data["params"][(name, readout)])
+        state = opt.init(params)
+        losses, first_mu = [], None
+        for _ in range(data["steps"]):
+            params, state, metrics = step(params, state, g)
+            losses.append(float(metrics["loss"]))
+            if first_mu is None:
+                first_mu = _NP(state.mu)
+        out[case] = {"losses": losses, "first_mu": first_mu,
+                     **_state(params, state)}
+    return out
+
+
 def main(argv: list[str]) -> int:
     job, src, dst = argv
     with open(src, "rb") as f:
         data = pickle.load(f)
-    out = {"lm": run_lm, "dlrm": run_dlrm}[job](data)
+    out = {"lm": run_lm, "dlrm": run_dlrm, "gnn": run_gnn}[job](data)
     with open(dst, "wb") as f:
         pickle.dump(out, f)
     print(f"REFERENCE {job} DONE")
