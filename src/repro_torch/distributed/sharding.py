@@ -56,9 +56,11 @@ class ShardingPolicy:
             return
         import torch.distributed as dist
 
-        # Every rank builds every multi-axis group, in the same order.
+        # Every rank builds every multi-axis group, in the same order.  The
+        # axes within a pod carry a long-context decode cache.
         names = tuple(self.mesh.mesh_dim_names)
-        for axes in (tuple(self.dp_axes), self.all_axes, names):
+        in_pod = tuple(a for a in names if a != "pod")
+        for axes in (tuple(self.dp_axes), self.all_axes, names, in_pod):
             axes = tuple(dict.fromkeys(axes))
             if len(axes) > 1 and axes not in self._groups:
                 groups = self._rank_lists(axes)

@@ -1,3 +1,4 @@
 """Launchers of the port: the trainer, ``python -m
 repro_torch.launch.train`` (the reference's ``launch`` package, one
-device)."""
+device); the cells under a policy (``launch.steps``); and the dry run,
+``python -m repro_torch.launch.dryrun``."""

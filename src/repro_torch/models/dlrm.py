@@ -28,8 +28,6 @@ rank's shard, then sums the shards' partial bags with one all-reduce per
 sharding (the Megatron vocab-parallel pattern).  K6 stays as it is: each
 shard carries one zero row at local index ``rows``, and an id outside the
 shard reads it.
-
-Not ported: ``abstract_params``.
 """
 
 from __future__ import annotations
@@ -50,7 +48,8 @@ from .common import mlp_apply
 
 __all__ = ["CRITEO_1TB_VOCABS", "DLRMConfig", "DLRM", "embedding_bag",
            "dot_interaction", "serve", "score_candidates", "logits",
-           "loss_fn", "param_pspecs", "table_shards", "ShardedDLRM",
+           "loss_fn", "abstract_params", "param_pspecs", "table_shards",
+           "ShardedDLRM",
            "shard_ids", "vocab_parallel_embeddings", "forward",
            "sync_grads"]
 
@@ -276,11 +275,13 @@ def serve(model: DLRM, batch: dict) -> np.ndarray:
 
 
 @torch.inference_mode()
-def score_candidates(model: DLRM, query: dict,
+def score_candidates(model, query: dict,
                      candidates: torch.Tensor) -> torch.Tensor:
     """Retrieval scoring: one query's user vector (the bottom MLP of its
     (1, 13) dense features) dotted against (Nc, d) candidate item
-    embeddings, one matrix-vector product -> (Nc,) f32."""
+    embeddings, one matrix-vector product -> (Nc,) f32.  ``model`` is a
+    :class:`DLRM` or a rank's :class:`ShardedDLRM` (whose MLPs are
+    replicated)."""
     bot = model.bottom(query["dense"])
     return (candidates @ bot[0]).float()
 
@@ -288,6 +289,21 @@ def score_candidates(model: DLRM, query: dict,
 # ---------------------------------------------------------------------------
 # Vocab-parallel tables
 # ---------------------------------------------------------------------------
+
+def abstract_params(cfg: DLRMConfig) -> dict:
+    """The reference's parameter tree as ``meta`` tensors of the global
+    shapes, f32: ``tables`` (V, d) each, ``bot`` and ``top`` ``{"w":
+    [...], "b": [...]}``.  Nothing is allocated."""
+    def meta(*shape: int) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    out = {"tables": [meta(v, cfg.embed_dim) for v in cfg.vocab_sizes]}
+    for name, dims in (("bot", (cfg.n_dense,) + cfg.bot_mlp),
+                       ("top", (cfg.interaction_dim(),) + cfg.top_mlp)):
+        out[name] = {"w": [meta(a, b) for a, b in zip(dims[:-1], dims[1:])],
+                     "b": [meta(b) for b in dims[1:]]}
+    return out
+
 
 def table_shards(v: int, policy) -> int:
     """How many ways a table of ``v`` rows shards: over every axis, over
@@ -339,6 +355,11 @@ class ShardedDLRM:
     @property
     def device(self) -> torch.device:
         return self.tables[0].device
+
+    def bottom(self, dense: torch.Tensor) -> torch.Tensor:
+        """(B, n_dense) -> (B, d): :meth:`DLRM.bottom` on the replicated
+        MLP."""
+        return mlp_apply(self.bot, dense, final_act=True)
 
     def tree(self) -> dict:
         """The rank's state as a tree: ``{"tables", "bot", "top"}``, the

@@ -113,7 +113,11 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, cfg: MoEConfig):
     gates = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
     # Switch-style load-balance auxiliary loss.
     me = probs.mean(dim=0)                                         # (E,)
-    ce = torch.bincount(expert_idx.reshape(-1), minlength=cfg.n_experts).to(
+    # A scatter of ones (not bincount, whose output size depends on the
+    # data and which a fake trace cannot run): the same integer counts.
+    flat = expert_idx.reshape(-1)
+    ce = torch.zeros(cfg.n_experts, dtype=flat.dtype, device=flat.device
+                     ).scatter_add_(0, flat, torch.ones_like(flat)).to(
         torch.float32) / x.shape[0]
     aux = cfg.n_experts * torch.sum(me * ce) * cfg.aux_loss_weight
     return expert_idx.to(torch.int32), gates, aux

@@ -107,7 +107,8 @@ __all__ = ["TransformerConfig", "DecoderLayer", "Transformer", "LAYER_KEYS",
            "make_prefill_step", "make_serve_step", "cache_shapes",
            "init_cache", "loss_fn", "make_train_step", "param_pspecs",
            "DecodePolicy", "cache_pspecs", "ShardedTransformer",
-           "gather_logits", "abstract_params", "train_pspecs"]
+           "gather_logits", "abstract_params", "abstract_cache",
+           "train_pspecs"]
 
 #: Per-layer weights of a dense config, in the reference's block-dict names
 #: and (in, out) layout: ``x @ w``.
@@ -1109,6 +1110,18 @@ def cache_shapes(cfg: TransformerConfig, batch: int,
     return [(cfg.n_groups, batch,
              min(window, max_seq) if window is not None else max_seq,
              cfg.n_kv_heads, cfg.d_head) for window in cfg.window_pattern]
+
+
+def abstract_cache(cfg: TransformerConfig, batch: int, max_seq: int, *,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+    """The caches of :func:`init_cache` as ``meta`` tensors of the global
+    shapes, in the compute dtype unless ``dtype`` says otherwise."""
+    dtype = dtype or cfg.compute_dtype
+    out = {}
+    for i, shape in enumerate(cache_shapes(cfg, batch, max_seq)):
+        out[f"k{i}"] = torch.empty(shape, dtype=dtype, device="meta")
+        out[f"v{i}"] = torch.empty(shape, dtype=dtype, device="meta")
+    return out
 
 
 def cache_pspecs(cfg: TransformerConfig, policy,

@@ -31,6 +31,9 @@ DISTRIBUTED_MODULES = ("distributed/comm", "distributed/sharding",
                        "distributed/ring", "distributed/pipeline_par",
                        "launch/mesh", "core/comm_model")
 
+#: The dry run and the H100 machine model.
+DRYRUN_MODULES = ("core/gpu_model", "launch/counters", "launch/dryrun")
+
 #: The MoE layer and every module of the GNN models.
 GNN_MODULES = ("moe", "gnn/__init__", "gnn/graph", "gnn/layers", "gnn/gcn",
                "gnn/gatedgcn", "gnn/meshgraphnet", "gnn/equiformer_v2")
@@ -58,6 +61,19 @@ for name in names:
 leaked = [m for m in sys.modules if m.startswith("jax") or m == "repro" or m.startswith("repro.")]
 assert not leaked, leaked
 print("imported", len(names), "modules:", " ".join(names))
+"""
+
+#: One dry-run cell through the CLI with the finder in place.
+_DRYRUN_RUNS = _REFUSE + r"""
+sys.argv = ["python -m repro_torch.launch.dryrun", "--mesh", "single",
+            "--arch", "gcn-cora", "--shape", "molecule", "--out", sys.argv[1]]
+try:
+    runpy.run_module("repro_torch.launch.dryrun", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as exc:
+    assert exc.code == 0, exc.code
+leaked = [m for m in sys.modules if m.startswith("jax") or m == "repro" or m.startswith("repro.")]
+assert not leaked, leaked
 """
 
 #: ``python -m repro_torch.analysis --help`` with the finder in place.
@@ -144,9 +160,21 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "repro_torch.distributed.trace_shard",
                  "repro_torch.data.wigner"):
         assert name in walked, name
-    for name in TRAIN_MODULES + DISTRIBUTED_MODULES:
+    for name in TRAIN_MODULES + DISTRIBUTED_MODULES + DRYRUN_MODULES:
         module = name.replace("/__init__", "").replace("/", ".")
         assert f"repro_torch.{module}" in walked, name
+
+
+def test_dry_run_cli_runs_with_jax_and_reference_blocked(tmp_path):
+    """One production cell through ``python -m repro_torch.launch.dryrun``
+    (a fake process group of 256 ranks, fake tensors) with jax and the
+    reference refused at import."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_RUNS, str(tmp_path)], cwd=ROOT,
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "[single] gcn-cora x molecule: OK" in proc.stdout
+    assert (tmp_path / "single" / "gcn-cora__molecule.json").exists()
 
 
 def test_training_runs_with_jax_and_reference_blocked():
@@ -200,7 +228,8 @@ def test_ast_scan_covers_the_registry_and_model_configs():
     for name in GNN_MODULES:
         assert f"models/{name}.py" in scanned, name
     for name in ("distributed/__init__", "distributed/trace_shard",
-                 "data/wigner") + TRAIN_MODULES + DISTRIBUTED_MODULES:
+                 "data/wigner") + TRAIN_MODULES + DISTRIBUTED_MODULES + \
+            DRYRUN_MODULES:
         assert f"{name}.py" in scanned, name
 
 
