@@ -299,8 +299,11 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
 29. the four GNNs (GCN-Cora with a failure injected, GatedGCN,
    MeshGraphNet, EquiformerV2) trained at their published configs on a
    2,708-node, 10,556-edge power-law graph through the trainer, step time
-   and peak memory, and 5 steps card vs CPU from the same weights (losses
-   within 1e-4); no kernel launches;
+   and peak memory, and 3 steps card vs CPU from the same weights (losses
+   within 1e-4); then GatedGCN, MeshGraphNet and EquiformerV2 with remat
+   (their layers recomputed in the backward pass, the default) against
+   without, through ``params.tree_loss`` from one tree: gradients within
+   1e-5, the remat peak below the other; no kernel launches;
 30. DLRM-MLPerf trained at published widths and ``train_batch`` (B
    65,536) with every table capped at 4,000,000 rows (49.5 GB of weights,
    gradients and moments): K6 exactly 26 launches a step, step time,
@@ -336,7 +339,8 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    single-device step within 1e-5; then ``minibatch_lg``: a Reddit-sized
    power-law CSR, 1,024 seeds sampled with fanout (15, 10) into (169,984,
    168,960), and one step of each GNN at its published config, held card
-   vs CPU within 1e-4 (EquiformerV2 at 64 seeds, its backward's memory).
+   vs CPU within 1e-4 (EquiformerV2 at 512 seeds with remat, its
+   backward's memory; the whole sample on four cards).
    On more cards the rank program runs on a (2, n / 2) mesh and adds
    gemma2-2b at 2 layers in f32 and DLRM at 65,536-row tables against one
    card (1e-4).
@@ -690,15 +694,16 @@ RESOLVED_KEYS = ("step_grad", "step_params", "step_moments", "traj_loss",
 LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_SEQ, LM_CHECK_STEPS = 2, 2, 256, 3
 #: The four GNNs at their published configs on a full_graph_sm-sized graph
 #: through the trainer; GCN-Cora with the example's failure (its 300 steps
-#: and --fail-at 120, scaled to 30 and 12).  Their card-vs-CPU check runs 5
+#: and --fail-at 120, scaled to 30 and 12).  Their card-vs-CPU check runs 3
 #: steps on the trainer's smaller graph (EquiformerV2's CPU step at V
-#: 2,708 takes about 37 s).  AdamW at 1e-4, a rate at which GCN, GatedGCN
-#: and MeshGraphNet lower their loss at every step and EquiformerV2 over the
-#: run: at the trainer's 3e-3 the first step's update (lr times the
-#: gradient's sign, on every weight) throws MeshGraphNet's loss from 13.5
-#: to 480.
+#: 2,708 takes about 37 s; the check ran 5 until remat's second forward
+#: on the CPU pushed the script past its time: PERF.md section 4).  AdamW
+#: at 1e-4, a rate at which GCN, GatedGCN and MeshGraphNet lower their loss
+#: at every step and EquiformerV2 over the run: at the trainer's 3e-3 the
+#: first step's update (lr times the gradient's sign, on every weight)
+#: throws MeshGraphNet's loss from 13.5 to 480.
 GNN_TRAIN_STEPS, GNN_TRAIN_EVERY, GNN_TRAIN_LR = 10, 10, 1e-4
-#: The GNNs held to ALWAYS_KEYS alone.  Along their 5 steps they reach
+#: The GNNs held to ALWAYS_KEYS alone.  Along their steps they reach
 #: states whose gradient f32 does not resolve to TRAIN_TOLERANCE: there the
 #: CPU's or the card's f32 gradient misses an f64 evaluation by up to 1e-2
 #: (phase 29 prints both), and which states do so changes with the order
@@ -707,7 +712,15 @@ GNN_TRAIN_STEPS, GNN_TRAIN_EVERY, GNN_TRAIN_LR = 10, 10, 1e-4
 #: to keep the script inside its time: PERF.md section 4).
 GNN_F32_UNRESOLVED = ("meshgraphnet", "equiformer-v2")
 GCN_TRAIN_STEPS, GCN_TRAIN_FAIL = 30, 12
-GNN_CHECK_GRAPH, GNN_CHECK_STEPS = (128, 512), 5
+GNN_CHECK_GRAPH, GNN_CHECK_STEPS = (128, 512), 3
+#: GatedGCN, MeshGraphNet and EquiformerV2 at full_graph_sm, remat on
+#: against off through ``params.tree_loss`` from one tree: each gradient
+#: leaf within the repo's f32 tolerance of its largest entry (or of 1% of
+#: the model's largest gradient, for a leaf zero to rounding).  The card's
+#: float64 ``index_add_`` adds in no fixed order, so a recompute may round
+#: one f32 entry otherwise than the forward did; a second run without
+#: remat shows that floor.
+REMAT_TOLERANCE = 1e-5
 #: DLRM-MLPerf trained at published widths and ``train_batch`` (B 65,536):
 #: each table capped at 4,000,000 rows (24,184,588 in all), whose weights,
 #: gradients and two moments (16 B a parameter) take 49.5 GB of the card.
@@ -1535,7 +1548,10 @@ def device_time_by_kind(fn, kernel: str, fragment, extra=None,
     tuple of fragments), each kind of ``extra`` (a dict of kind -> name
     fragments, matched next), cuBLAS matrix products, copies and fills,
     every other kernel.  ``by_name``, a dict, also gathers the time of each
-    kernel name."""
+    kernel name.  It reads the profiler's raw events, with the same
+    names and durations: ``prof.events()`` first builds the tree of every
+    CPU and device event, which took most of a training step's breakdown
+    (PERF.md section 6)."""
     fragments = (fragment,) if isinstance(fragment, str) else fragment
     extra = extra or {}
     from torch.profiler import ProfilerActivity, profile
@@ -1546,10 +1562,12 @@ def device_time_by_kind(fn, kernel: str, fragment, extra=None,
         torch.cuda.synchronize()
     kinds = {kernel: 0.0, **{k: 0.0 for k in extra}, "cuBLAS products": 0.0,
              "copies": 0.0, "other kernels": 0.0}
-    for event in prof.events():
-        if event.device_type != torch.autograd.DeviceType.CUDA:
+    for raw in prof.profiler.kineto_results.events():
+        if (raw.device_type() != torch.autograd.DeviceType.CUDA
+                or raw.is_user_annotation()):
             continue
-        name = event.name.lower()
+        event_name, ms = raw.name(), raw.duration_ns() / 1e6
+        name = event_name.lower()
         named = [k for k, frags in extra.items()
                  if any(f in name for f in frags)]
         kind = (kernel if any(f in name for f in fragments)
@@ -1558,10 +1576,9 @@ def device_time_by_kind(fn, kernel: str, fragment, extra=None,
                 if any(w in name for w in ("nvjet", "gemm", "xmma", "cutlass"))
                 else "copies" if "memcpy" in name or "memset" in name
                 else "other kernels")
-        kinds[kind] += event.device_time / 1e3
+        kinds[kind] += ms
         if by_name is not None:
-            by_name[event.name] = (by_name.get(event.name, 0.0)
-                                   + event.device_time / 1e3)
+            by_name[event_name] = by_name.get(event_name, 0.0) + ms
     return kinds
 
 
@@ -4420,7 +4437,7 @@ def lm_training_phase(dev, card: str) -> None:
 def gnn_training_phase(dev, card: str) -> None:
     """Phase 29: the four GNNs trained at their published configs through
     the trainer on a full_graph_sm-sized graph (GCN-Cora with a failure
-    injected), every loss falling, and 5 steps card vs CPU from the same
+    injected), every loss falling, and 3 steps card vs CPU from the same
     weights, at the trainer's seed.  No kernel
     launches: the reference's GNN training reaches no Pallas kernel."""
     import tempfile
@@ -4479,7 +4496,7 @@ def gnn_training_phase(dev, card: str) -> None:
                 and losses[-1] < losses[0]):
             raise AssertionError(f"{name} run: {len(hist)} records, loss "
                                  f"{losses}")
-        # Card vs CPU, 5 steps from the same weights (the CPU's, copied).
+        # Card vs CPU from the same weights (the CPU's, copied).
         n, e = GNN_CHECK_GRAPH
         resolved = name not in GNN_F32_UNRESOLVED
         t_check = time.perf_counter()
@@ -4493,14 +4510,88 @@ def gnn_training_phase(dev, card: str) -> None:
                                    "; held: " + ", ".join(ALWAYS_KEYS)))
         hold(err, resolved, name)
         check_s += time.perf_counter() - t_check
+    t_remat = time.perf_counter()
+    gnn_remat_check(dev, card)
+    remat_s = time.perf_counter() - t_remat
     phase = dict(ops.LAUNCHES)
     took = time.perf_counter() - t_phase
     print(f"# gnn train launches: {json.dumps(phase)} (the reference's GNN "
           f"training reaches no Pallas kernel); phase 29 took {took:.1f} s "
-          f"(host clock): training runs and step times {took - check_s:.1f}"
-          f" s, card-vs-CPU checks {check_s:.1f} s")
+          f"(host clock): training runs and step times "
+          f"{took - check_s - remat_s:.1f} s, card-vs-CPU checks "
+          f"{check_s:.1f} s, remat on vs off {remat_s:.1f} s")
     if any(phase.values()):
         raise AssertionError(f"GNN training launched kernels: {phase}")
+
+
+class NoRemat:
+    """A GNN module as the loss functions call it (``model(g)``, its
+    ``cfg``), each call with ``remat=False``."""
+
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+
+    def __call__(self, g):
+        return self.model(g, remat=False)
+
+
+def gnn_remat_check(dev, card: str) -> None:
+    """Phase 29's remat check: GatedGCN, MeshGraphNet and EquiformerV2 at
+    their published configs on full_graph_sm, the loss and its gradients
+    through ``params.tree_loss`` (the module's own weights zero, as the
+    train step leaves them) with remat, without, and without again, from
+    the same tree: the gradients with remat within REMAT_TOLERANCE of
+    those without, and the peak with remat below the peak without."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import GNN_MODELS
+    from repro_torch.models.gnn import GraphBatch
+    from repro_torch.params import gnn_params, gnn_tree, tree_loss
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for name in ("gatedgcn", "meshgraphnet", "equiformer-v2"):
+        cfg = steps.gnn_config(name, "full_graph_sm")
+        module, model_cls = GNN_MODELS[name]
+        tree_np = gnn_params(cfg, seed=0)
+        g = GraphBatch(**gnn_graph(name, "full_graph_sm", cfg)).to(dev)
+        model = model_cls(cfg, device=dev)
+        runs = []
+        for remat in (True, False, False):
+            fn = module.loss_fn if remat else (
+                lambda m, b: module.loss_fn(NoRemat(m), b))
+            tree = tree_map(lambda t: t.requires_grad_(),
+                            gnn_tree(cfg, tree_np, device=dev))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss, _ = tree_loss(model, fn)(tree, g)
+            grads = torch.autograd.grad(loss, tree_leaves(tree))
+            torch.cuda.synchronize()
+            runs.append({"loss": float(loss.detach()), "grads": grads,
+                         "ms": 1e3 * (time.perf_counter() - t0),
+                         "peak": torch.cuda.max_memory_allocated(dev) - base})
+            del tree, loss
+        on, off, again = runs
+        err = tree_rel_err(on["grads"], off["grads"])
+        floor = tree_rel_err(again["grads"], off["grads"])
+        print(f"# gnn remat {name}: published config at full_graph_sm (V "
+              f"{g.n_nodes} E {g.n_edges}), loss and gradients through "
+              f"tree_loss from one tree (seed 0; the module's own weights "
+              f"zero): loss {on['loss']!r} with remat, {off['loss']!r} "
+              f"without; gradients with remat vs without, max rel err "
+              f"{err:.3e} (held at {REMAT_TOLERANCE:.0e}; two runs without "
+              f"remat {floor:.3e}); peak above the tree and the batch "
+              f"{on['peak'] / 1e9:.3f} GB with remat, {off['peak'] / 1e9:.3f}"
+              f" GB without; forward and backward {on['ms']:.1f} ms with, "
+              f"{off['ms']:.1f} / {again['ms']:.1f} ms without (host clock, "
+              f"waited for) | {card}")
+        if not (err < REMAT_TOLERANCE and on["peak"] < off["peak"]
+                and np.isfinite(on["loss"])):
+            raise AssertionError(f"{name} remat: gradients {err}, peak "
+                                 f"{on['peak']} vs {off['peak']}")
+        del runs, on, off, again, g, model
+        torch.cuda.empty_cache()
 
 
 def dlrm_training_phase(dev, card: str, launches: dict) -> None:
@@ -5276,20 +5367,21 @@ POLICY_CHECK_SEEDS = (1, 2, 3)
 POLICY_DLRM_CHECK_BATCH = 4096
 #: ``minibatch_lg`` (configs/base.py): a synthetic power-law graph at
 #: Reddit's size, built as a CSR from a seed; 1,024 seeds, fanout (15, 10).
-#: GCN and GatedGCN are held card vs CPU on the full sample, MeshGraphNet
-#: and EquiformerV2 on a 64-seed sample of the same CSR (the full sample
-#: only timed for them).
+#: GCN is held card vs CPU on the full sample, GatedGCN and MeshGraphNet on
+#: a 64-seed sample of the same CSR (the full sample only timed for them).
 MINIBATCH_GRAPH = {"n_nodes": 232_965, "n_edges": 114_615_892, "seed": 0,
                    "alpha": 1.6}
 MINIBATCH_CHECK_SEEDS = 64
-#: EquiformerV2 keeps (N, 49, 128) f32 node states and (E, 29, 128) edge
-#: messages for the backward of each of its 12 layers, about 2.9 MB a
-#: padded node and edge (8.9 GB at (3,072, 3,072) on the CPU): the full
-#: sample's (169,984, 168,960) would take about 490 GB.  It takes its
-#: timed step on the 64-seed sample and its card-vs-CPU check on a 4-seed
-#: one (its CPU step at 16 seeds took 26 s).
-#: reduced: EquiformerV2's minibatch_lg seeds (1,024 -> 64 timed, 4 held).
-EQV2_TIMED_SEEDS, EQV2_CHECK_SEEDS = 64, 4
+#: EquiformerV2 recomputes each layer in the backward pass (remat, as the
+#: reference does): it keeps each layer's (N, 49, 128) f32 input, 25.1 kB
+#: a padded node a layer, and one layer's recompute at a time.  Its step
+#: at 512 seeds (84,992 nodes, 84,480 edges) fits one card; the whole
+#: sample's (169,984, 168,960) needs about twice that and runs on four
+#: (phase 32).  Its card-vs-CPU check takes a 4-seed sample (its CPU step
+#: at 16 seeds took 26 s).
+#: reduced: EquiformerV2's minibatch_lg seeds on one card (1,024 -> 512
+#: timed, 4 held).
+EQV2_CARD_SEEDS, EQV2_CHECK_SEEDS = 512, 4
 
 
 def power_law_csr(n_nodes: int, n_edges: int, seed: int, alpha: float):
@@ -5885,10 +5977,8 @@ def policy_dlrm_check(policy, dev, say, sync, rank: int) -> None:
 #: losses are printed.  Every rank's ledger equals
 #: ``launch.steps.gnn_policy_traffic``.  On one card: the four GNNs at
 #: ``full_graph_sm`` and GCN at ``ogb_products`` whole.  On more, also
-#: GatedGCN and MeshGraphNet at ``minibatch_lg``'s 1,024-seed sample and
-#: EquiformerV2 at a 64-seed one (EQV2_TIMED_SEEDS: the full sample would
-#: take about 490 GB).
-#: reduced: EquiformerV2's minibatch_lg seeds under a policy (1,024 -> 64).
+#: GatedGCN, MeshGraphNet and EquiformerV2 at ``minibatch_lg``'s
+#: 1,024-seed sample.
 POLICY_GNN_STEPS, POLICY_GNN_OGB_STEPS = 3, 2
 #: The f64 steps, policy against single device: the moments are stored in
 #: f32 and the clipping factor is an f32 of the norm, so the two differ by
@@ -5980,13 +6070,13 @@ def _gnn_f64_moments(name: str, shape: str, cfg, arrays: dict, tree, policy,
 
 def policy_gnn_case(name: str, shape: str, cfg, arrays: dict, policy, dev,
                     say, sync, rank: int, n_steps: int,
-                    label: str = "") -> None:
+                    label: str = "", one_card: bool = True) -> None:
     """One GNN train cell under ``policy`` on the global batch ``arrays``
     (numpy fields, alike on every rank): the rank's cut and ``n_steps``
-    steps, timed; its ledger against ``launch.steps.gnn_policy_traffic``;
-    then on rank 0's card the single-device cell from the same weights on
-    the same batch, held as the note above POLICY_GNN_STEPS says, per
-    leaf."""
+    steps, timed, with the peak a rank; its ledger against
+    ``launch.steps.gnn_policy_traffic``; then, with ``one_card``, on rank
+    0's card the single-device cell from the same weights on the same
+    batch, held as the note above POLICY_GNN_STEPS says, per leaf."""
     from repro_torch.distributed import comm
     from repro_torch.launch import steps
     from repro_torch.models.gnn import GraphBatch
@@ -6020,6 +6110,9 @@ def policy_gnn_case(name: str, shape: str, cfg, arrays: dict, policy, dev,
                 for kind, b in kinds.items():
                     ledger[(tag, kind)] = b
     peak = torch.cuda.max_memory_allocated(dev)
+    top = torch.tensor([float(peak)], dtype=torch.float64, device=dev)
+    torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX,
+                                 group=policy.group(policy.all_axes))
     n_loc, e_loc, n_total = shard.n_nodes, shard.n_edges, shard.n_total
     model = steps.gnn_policy_traffic(name, cfg, policy, n_total, param_bytes)
     keys = set(model) | {k for k in ledger if k[0] != "gnn_readout"}
@@ -6031,7 +6124,8 @@ def policy_gnn_case(name: str, shape: str, cfg, arrays: dict, policy, dev,
         f"{n_total}, {n_loc} nodes and {e_loc} edges a rank (E "
         f"{arrays['senders'].size}), cut in {cut_s:.2f} s; losses {losses}; "
         f"step ms {[round(x, 1) for x in ms]} (host clock); peak "
-        f"{peak / 1e9:.2f} GB; ledger a rank, step 1: "
+        f"{peak / 1e9:.2f} GB (the largest of the ranks' "
+        f"{float(top) / 1e9:.2f} GB); ledger a rank, step 1: "
         f"{json.dumps({'/'.join(k): v for k, v in sorted(ledger.items())})}; "
         f"the models: "
         f"{json.dumps({'/'.join(k): v for k, v in sorted(model.items())})} "
@@ -6039,6 +6133,10 @@ def policy_gnn_case(name: str, shape: str, cfg, arrays: dict, policy, dev,
     ok = ledger_ok and all(np.isfinite(losses))
     del cell, params, state
     torch.cuda.empty_cache()
+    if not one_card:
+        del shard
+        _agree(ok, policy, dev, f"{what} policy steps")
+        return
     states = []
     if rank == 0:
         single = steps.gnn_train_cell(name, shape, None, tree, cfg=cfg,
@@ -6141,10 +6239,10 @@ def policy_gnn_cells(policy, dev, say, sync, rank: int, world: int,
                      job: dict) -> None:
     """Phase 32's GNN cells (:data:`POLICY_GNN_STEPS`): the four GNNs at
     ``full_graph_sm`` and GCN at ``ogb_products`` whole (phase 22's edges,
-    from the job's ``.npy`` files); on more than one card also GatedGCN
-    and MeshGraphNet at ``minibatch_lg``'s 1,024-seed sample and
-    EquiformerV2 at a 64-seed one.  Prints the memory reckoning that keeps
-    the other three out of ``ogb_products``."""
+    from the job's ``.npy`` files); on more than one card also GatedGCN,
+    MeshGraphNet and EquiformerV2 at ``minibatch_lg``'s 1,024-seed sample.
+    Prints the memory reckoning that keeps the other three out of
+    ``ogb_products``."""
     from repro_torch.configs import GNN_SHAPES, get_arch
     from repro_torch.launch import steps
 
@@ -6158,29 +6256,36 @@ def policy_gnn_cells(policy, dev, say, sync, rank: int, world: int,
                     steps.gnn_config("gcn-cora", "ogb_products"), arrays,
                     policy, dev, say, sync, rank, POLICY_GNN_OGB_STEPS)
     del arrays
-    E = GNN_SHAPES["ogb_products"].params["n_edges"]
+    og = GNN_SHAPES["ogb_products"].params
+    E, N = og["n_edges"], steps._pad(og["n_nodes"])
     ggcn = get_arch("gatedgcn").make_config()
     mgn = get_arch("meshgraphnet").make_config()
     eqv = get_arch("equiformer-v2").make_config()
-    say(f"gnn cut at ogb_products (E {E}, f32, no remat, on {world} "
-        f"card(s)): gatedgcn's edge state E x {ggcn.d_hidden} "
-        f"{4 * E * ggcn.d_hidden / 1e9:.1f} GB a tensor, "
-        f"{4 * E * ggcn.d_hidden / world / 1e9:.1f} GB a rank, and its "
-        f"{ggcn.n_layers} layers keep {ggcn.n_layers} for the backward "
-        f"({ggcn.n_layers * 4 * E * ggcn.d_hidden / world / 1e9:.1f} GB a "
-        f"rank); meshgraphnet's edge-MLP input E x {3 * mgn.d_hidden} "
-        f"{4 * E * 3 * mgn.d_hidden / 1e9:.1f} GB; equiformer-v2's messages "
-        f"E x {eqv.L2} x {eqv.d_hidden} "
-        f"{4 * E * eqv.L2 * eqv.d_hidden / 1e12:.2f} TB; the card holds 80 "
-        "GB")
+    keep = {"gatedgcn": ggcn.n_layers * 4 * E * ggcn.d_hidden,
+            "meshgraphnet": mgn.n_layers * 4 * E * mgn.d_hidden,
+            "equiformer-v2": eqv.n_layers * 4 * N * eqv.L2 * eqv.d_hidden}
+    table = 4 * N * eqv.L2 * eqv.d_hidden
+    say(f"gnn cut at ogb_products (E {E}, N {N} padded, f32, remat: each "
+        f"layer keeps its inputs for the backward, on {world} card(s)): "
+        f"gatedgcn's {ggcn.n_layers} edge states E x {ggcn.d_hidden} "
+        f"{keep['gatedgcn'] / 1e9:.1f} GB, "
+        f"{keep['gatedgcn'] / world / 1e9:.1f} GB a rank; meshgraphnet's "
+        f"{mgn.n_layers} E x {mgn.d_hidden} "
+        f"{keep['meshgraphnet'] / 1e9:.1f} GB, "
+        f"{keep['meshgraphnet'] / world / 1e9:.1f} GB a rank; "
+        f"equiformer-v2's {eqv.n_layers} node states N x {eqv.L2} x "
+        f"{eqv.d_hidden} {keep['equiformer-v2'] / 1e9:.1f} GB, "
+        f"{keep['equiformer-v2'] / world / 1e9:.1f} GB a rank, beside the "
+        f"senders' table every rank gathers whole each layer "
+        f"({table / 1e9:.1f} GB); before one layer's recompute, and the "
+        f"card holds 80 GB")
     if world == 1:
         return
     p = GNN_SHAPES["minibatch_lg"].params
-    mb = minibatch_samples((p["batch_nodes"], EQV2_TIMED_SEEDS))
+    n = p["batch_nodes"]
+    mb = minibatch_samples((n,))
     say(f"gnn minibatch_lg set-up: {mb['line']}")
-    plan = {"gatedgcn": p["batch_nodes"], "meshgraphnet": p["batch_nodes"],
-            "equiformer-v2": EQV2_TIMED_SEEDS}
-    for name, n in plan.items():
+    for name in ("gatedgcn", "meshgraphnet", "equiformer-v2"):
         cfg = steps.gnn_config(name, "minibatch_lg")
         rng_l = np.random.default_rng(3)
         if name == "meshgraphnet":
@@ -6193,9 +6298,13 @@ def policy_gnn_cells(policy, dev, say, sync, rank: int, world: int,
         batch = steps.subgraph_batch(name, cfg, mb["samples"][n],
                                      mb["feats"], lab,
                                      positions=mb["positions"])
+        # EquiformerV2's single-device step on the whole sample does not
+        # fit one card (EQV2_CARD_SEEDS); its policy step is held to one
+        # card at full_graph_sm.
         policy_gnn_case(name, "minibatch_lg", cfg, vars(batch), policy, dev,
                         say, sync, rank, POLICY_GNN_STEPS,
-                        label=f" ({n} seeds)")
+                        label=f" ({n} seeds)",
+                        one_card=name != "equiformer-v2")
 
 
 def policy_train_rank(rank: int, world: int, job: dict) -> dict:
@@ -6296,7 +6405,7 @@ def minibatch_samples(counts: tuple) -> dict:
             "positions": positions, "samples": samples, "line": line}
 
 
-def minibatch_phase(dev, card: str) -> None:
+def minibatch_phase(dev, card: str, eqv2_dry: dict | None = None) -> None:
     """Phase 32's GNN cell: ``minibatch_lg`` at world size 1.  The graph is
     generated straight into CSR form on the host, 1,024 seeds are sampled
     with fanout (15, 10) into the padded sizes of
@@ -6305,8 +6414,9 @@ def minibatch_phase(dev, card: str) -> None:
     the card, then one step held against the CPU: GCN on the full sample,
     GatedGCN and MeshGraphNet on a 64-seed sample of the same CSR (GatedGCN
     on the full sample until the script's depth was cut for phase 33),
-    EquiformerV2 timed on the 64-seed sample and held on a 4-seed one
-    (:data:`EQV2_TIMED_SEEDS`)."""
+    EquiformerV2 timed on a 512-seed sample and held on a 4-seed one
+    (:data:`EQV2_CARD_SEEDS`), its peak printed beside its dry run's
+    (``eqv2_dry``, DRY_CELLS' "eqv2" record)."""
     from repro_torch.configs import GNN_SHAPES
     from repro_torch.launch import steps
     from repro_torch.params import gnn_params
@@ -6314,14 +6424,14 @@ def minibatch_phase(dev, card: str) -> None:
 
     p = GNN_SHAPES["minibatch_lg"].params
     mb = minibatch_samples((p["batch_nodes"], MINIBATCH_CHECK_SEEDS,
-                            EQV2_CHECK_SEEDS))
+                            EQV2_CARD_SEEDS, EQV2_CHECK_SEEDS))
     print(f"# minibatch_lg set-up: {mb['line']} | {card}")
     samples, feats, labels, positions, V = (
         mb["samples"], mb["feats"], mb["labels"], mb["positions"], mb["V"])
     plan = {"gcn-cora": (p["batch_nodes"], p["batch_nodes"]),
             "gatedgcn": (p["batch_nodes"], MINIBATCH_CHECK_SEEDS),
             "meshgraphnet": (p["batch_nodes"], MINIBATCH_CHECK_SEEDS),
-            "equiformer-v2": (EQV2_TIMED_SEEDS, EQV2_CHECK_SEEDS)}
+            "equiformer-v2": (EQV2_CARD_SEEDS, EQV2_CHECK_SEEDS)}
     for arch, (timed_n, held_n) in plan.items():
         cfg = steps.gnn_config(arch, "minibatch_lg")
         rng_l = np.random.default_rng(3)
@@ -6366,11 +6476,15 @@ def minibatch_phase(dev, card: str) -> None:
                               _resolved(c_state.mu, dropped))
         zero_s = ", ".join(f"{'/'.join(map(str, path))} ({share:.3e} of the "
                            "model's largest)" for path, share in dropped)
+        dry = ""
+        if arch == "equiformer-v2" and eqv2_dry is not None:
+            dry = (f" (remat; its dry run on one card "
+                   f"{eqv2_dry['memory']['peak_bytes'] / 1e9:.2f} GB)")
         print(f"# minibatch_lg {arch}: {cfg.name} (d_in {cfg.d_in}), batches "
               f"laid out in {batch_s:.2f} s (host); one step on the "
               f"{timed_n}-seed sample {step_ms:.1f} ms (host clock, first "
-              f"call), loss {timed_loss!r}, peak {peak / 1e9:.2f} GB; card "
-              f"vs CPU on the {held_n}-seed sample: loss {loss!r} vs "
+              f"call), loss {timed_loss!r}, peak {peak / 1e9:.2f} GB{dry}; "
+              f"card vs CPU on the {held_n}-seed sample: loss {loss!r} vs "
               f"{c_loss!r} (rel err {loss_err:.3e}), parameters max rel err "
               f"{param_err:.3e} (the entries whose gradient passes "
               f"{GRAD_ROUNDING_SHARE:.0e} of its leaf's largest; tolerance "
@@ -6386,12 +6500,13 @@ def minibatch_phase(dev, card: str) -> None:
 
 
 def policy_training_phase(dev, card: str, launches: dict,
-                          ogb_edges: tuple) -> None:
+                          ogb_edges: tuple,
+                          eqv2_dry: dict | None = None) -> None:
     """Phase 32: training under a sharding policy, one NCCL rank a visible
     card (:func:`policy_train_rank`; phase 22's ``ogb_edges`` handed to the
     ranks as ``.npy`` files), then the ``minibatch_lg`` GNN cell
-    (:func:`minibatch_phase`) on one card.  Adds rank 0's counted K6
-    launches to ``launches``."""
+    (:func:`minibatch_phase`, with EquiformerV2's dry run ``eqv2_dry``) on
+    one card.  Adds rank 0's counted K6 launches to ``launches``."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn
@@ -6416,7 +6531,7 @@ def policy_training_phase(dev, card: str, launches: dict,
           f"{ranks_s:.1f} s (host clock)")
     t0 = time.perf_counter()
     if world == 1:
-        minibatch_phase(dev, card)
+        minibatch_phase(dev, card, eqv2_dry)
     print(f"# phase 32 took {time.perf_counter() - t_phase:.1f} s (host "
           f"clock): the ranks {ranks_s:.1f} s (the cells' split in the "
           f"ranks' lines), minibatch_lg {time.perf_counter() - t0:.1f} s")
@@ -6477,8 +6592,10 @@ def dryrun_record(proc, out: Path, mesh: str, arch: str,
     return json.loads(path.read_text()), line
 
 
-#: Phase 33's dry runs: key -> (mesh, arch, shape, the CLI's cuts).  The
-#: first three are the cells held on the card.
+#: The dry runs: key -> (mesh, arch, shape, the CLI's cuts).  The first
+#: three are the cells phase 33 holds on the card; "eqv2" is the trace of
+#: EquiformerV2's one-card minibatch_lg step (EQV2_CARD_SEEDS), whose peak
+#: phase 32 prints beside the step's.
 DRY_CELLS = {
     "granite": ("card", "granite-3-2b", "prefill_32k",
                 ["--batch", GRANITE_BATCH, "--max-seq",
@@ -6487,6 +6604,8 @@ DRY_CELLS = {
     "dlrm": ("card", "dlrm-mlperf", "serve_bulk",
              ["--row-cap", HELD_DLRM_ROW_CAP]),
     "production": ("single", "granite-3-2b", "prefill_32k", []),
+    "eqv2": ("card", "equiformer-v2", "minibatch_lg",
+             ["--batch", EQV2_CARD_SEEDS]),
 }
 
 
@@ -6526,12 +6645,12 @@ def held_cell(label: str, plan, dev, on_first=None,
               keep_last: bool = False) -> dict:
     """One world-1 cell run for real: the step ``plan.step`` builds with
     seeded values, called HELD_REPS times, each timed on the host clock
-    (ending in a synchronise), the first under ``FlopCounterMode``, with
-    the peak memory above what was allocated before the arguments.
-    :func:`hold_to_dry_run` holds what it returns to the cell's trace."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+    (ending in a synchronise), the first under the dry run's
+    ``launch.counters.FlopCounter``, with the peak memory above what was
+    allocated before the arguments.  :func:`hold_to_dry_run` holds what it
+    returns to the cell's trace."""
     from repro_torch.kernels import ops
+    from repro_torch.launch.counters import FlopCounter
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6540,7 +6659,7 @@ def held_cell(label: str, plan, dev, on_first=None,
     fn, args = plan.step(dev, draw=True, seed=0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    counter = FlopCounterMode(display=False)
+    counter = FlopCounter()
     torch.cuda.reset_peak_memory_stats()
     dts, per_call = [], []
     for i in range(HELD_REPS):
@@ -6561,9 +6680,8 @@ def held_cell(label: str, plan, dev, on_first=None,
             del out
     k5 = torch.ops.repro_torch.flash_attention
     return {"label": label, "model_flops": plan.model_flops,
-            "flops": float(counter.get_total_flops()),
-            "k5_flops": float(counter.get_flop_counts().get(
-                "Global", {}).get(k5, 0)),
+            "flops": float(counter.total),
+            "k5_flops": float(counter.by_op.get(k5, 0)),
             "peak": torch.cuda.max_memory_allocated() - base, "dts": dts,
             "step_s": statistics.median(dts), "setup_s": setup_s,
             "calls": per_call, "out": out if keep_last else None,
@@ -7105,7 +7223,8 @@ def main() -> int:
     gnn_training_phase(dev, card)
     dlrm_training_phase(dev, card, launches)
     distributed_phase(dev, card, launches, ogb_edges)
-    policy_training_phase(dev, card, launches, ogb_edges)
+    policy_training_phase(dev, card, launches, ogb_edges,
+                          dry_recs.get("eqv2"))
     del ogb_edges
     dryrun_phase(dev, card, launches, dry_recs)
 

@@ -52,7 +52,8 @@ from typing import Iterator, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["CollectiveOp", "CollectiveLedger", "recording", "group_size",
+__all__ = ["CollectiveOp", "CollectiveLedger", "recording", "retagged",
+           "group_size",
            "group_rank", "all_gather", "reduce_scatter", "split", "all_reduce",
            "psum", "all_to_all", "ring_hop", "start_hop", "all_reduce_grads"]
 
@@ -148,11 +149,28 @@ def recording(ledger: Optional[CollectiveLedger] = None
         _ACTIVE.remove(ledger)
 
 
+#: Suffixes :func:`retagged` appends to the tags recorded in its scope.
+_SUFFIXES: list[str] = []
+
+
+@contextmanager
+def retagged(suffix: str) -> Iterator[None]:
+    """Record the collectives issued in the scope under their tag with
+    ``suffix`` appended: a layer's recompute in the backward pass
+    (``models.common.checkpoint_layer``) re-issues its gathers, which the
+    ledger keeps apart from the forward's."""
+    _SUFFIXES.append(suffix)
+    try:
+        yield
+    finally:
+        _SUFFIXES.pop()
+
+
 def _record(kind: str, result: torch.Tensor, group, tag: str = "") -> None:
     if not _ACTIVE:
         return
     op = CollectiveOp(kind, float(result.numel() * result.element_size()),
-                      group_size(group), tag)
+                      group_size(group), tag + "".join(_SUFFIXES))
     for ledger in _ACTIVE:
         ledger.ops.append(op)
 

@@ -20,19 +20,25 @@ sees every operation before it is faked:
   ``index_select``) reads the rows its ids pick, not its whole table, as
   a run's data needs.
 
+:class:`FlopCounter` counts the FLOPs of the operations run under it by
+``torch.utils.flop_counter``'s formulas, as ``FlopCounterMode`` counts
+them, without its module tracking.
+
 Nothing here allocates device memory or synchronises.
 """
 
 from __future__ import annotations
 
 import weakref
+from collections import defaultdict
 from typing import Iterable
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import flop_registry
 
-__all__ = ["StepCounter", "tensor_bytes"]
+__all__ = ["StepCounter", "FlopCounter", "tensor_bytes"]
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -126,4 +132,38 @@ class StepCounter(TorchDispatchMode):
                             if isinstance(t, torch.Tensor))
                 moved += sum(tensor_bytes(t) for t in outs)
             self.op_bytes += moved
+        return out
+
+
+class FlopCounter(TorchDispatchMode):
+    """The FLOPs of the operations run under it: ``total`` and ``by_op``
+    (by overload packet), by ``torch.utils.flop_counter``'s formulas (K5's
+    registered in ``kernels.ops``), each operation first decomposed where
+    it can be, as ``FlopCounterMode`` counts them.
+
+    ``FlopCounterMode`` also tracks modules: it hooks the inputs and
+    outputs of every module call, and keeps the hooks until it exits.  A
+    checkpointed layer's recompute calls its modules again, and their hooks
+    hold the recompute's graph, which autograd drops once the layer's
+    backward has read it, until the mode exits: a remat step under it keeps
+    every layer's activations after all."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+        self.by_op: dict = defaultdict(int)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not torch.ops.prim.device.default:
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            n = formula(*args, **kwargs, out_val=out)
+            self.total += n
+            self.by_op[func._overloadpacket] += n
         return out

@@ -15,7 +15,7 @@ reference's keys where the port has a counterpart:
   reference's argument bytes, DLRM's zero rows included), ``arg_bytes``
   (what the traced step started from: indices widened to int64, and the
   global batch every rank of the port receives) and ``peak_bytes``;
-* ``cost``: ``flops`` (``FlopCounterMode``; ``k5_flops`` K5's share) and
+* ``cost``: ``flops`` (``counters.FlopCounter``; ``k5_flops`` K5's share) and
   ``op_bytes`` (each operation's inputs read once and outputs written
   once: an unfused upper bound of HBM traffic, not XLA's
   ``bytes_accessed``);
@@ -57,11 +57,8 @@ MESHES = {"single": (("data", "model"), (16, 16)),
           "card": (("data", "model"), (1, 1))}
 
 #: Cells whose record is ``ok: false`` on both production meshes, with the
-#: reason (ROADMAP Queue 1 item 10c).
-KNOWN_FAILURES = {
-    ("equiformer-v2", "ogb_products"):
-        "its 64 edge chunks have no sharded layout in the port's step",
-}
+#: reason: none, every cell traces.
+KNOWN_FAILURES: dict[tuple[str, str], str] = {}
 
 _NO_COUNTERPART = {
     "bytes_accessed": "XLA's count of the fused program's HBM bytes; the "
@@ -206,7 +203,8 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", type=Path, default=RESULTS_DIR)
     ap.add_argument("--batch", type=int, default=None,
-                    help="cut an LM or DLRM cell's batch (with --mesh card)")
+                    help="cut an LM or DLRM cell's batch, or a sampled "
+                         "GNN cell's seeds (with --mesh card)")
     ap.add_argument("--jobs", type=int, default=1,
                     help="trace the cells in this many worker processes")
     ap.add_argument("--row-cap", type=int, default=None,

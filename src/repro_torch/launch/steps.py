@@ -45,7 +45,8 @@ gathered a layer at a time; the retrieval cell's top-k merges each rank's
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields
+import math
+from dataclasses import dataclass, field, fields, replace
 from functools import partial
 from typing import Any, Callable, Optional
 
@@ -61,6 +62,7 @@ from ..distributed import comm
 from ..distributed.sharding import fsdp_specs, make_policy
 from ..models import dlrm as dlrm_lib
 from ..models import transformer as tf_lib
+from ..models.common import REMAT_TAG
 from ..models.gnn.gcn import layer_dims
 from ..models.gnn.graph import GraphBatch, GraphShard, shard_graph
 from ..optim.optimizers import AdamWState, adamw, global_norm, make_step
@@ -249,6 +251,10 @@ def gnn_config(arch, shape):
     return arch.make_config(**mk)
 
 
+#: The GNNs whose forward recomputes each layer in the backward pass
+#: (``remat``, as in the reference; GCN has none).
+GNN_REMAT = ("gatedgcn", "meshgraphnet", "equiformer-v2")
+
 #: The wide models: nodes and edges over the dp axes (the reference also
 #: lays their hidden channels over ``model``; here they stay whole).
 _TWO_D = ("meshgraphnet", "equiformer-v2")
@@ -300,7 +306,12 @@ def gnn_policy_traffic(arch_name: str, cfg, policy, n_total: int,
     ``d_hidden`` then ``n_classes`` wide, GatedGCN and MeshGraphNet
     ``d_hidden`` a layer, EquiformerV2 ``L2 * d_hidden`` a layer), its
     backward's reduce-scatter the same, and the gradient sum
-    ``dp_gradient_sync(param_bytes, n_devices)``.  The readout's psums
+    ``dp_gradient_sync(param_bytes, n_devices)``.  GatedGCN, MeshGraphNet
+    and EquiformerV2 recompute every layer in the backward pass (their
+    ``remat``, on in the train step as in the reference's), and each
+    recompute gathers its layer's senders' rows again: the same all-gather
+    bytes under ``gnn_gather_remat``, and no second reduce-scatter (the
+    backward runs through the forward's gather).  The readout's psums
     (``gnn_readout``, a few scalars) are not modelled."""
     _, n = gnn_node_split(arch_name, policy)
     if arch_name == "gcn-cora":
@@ -311,10 +322,13 @@ def gnn_policy_traffic(arch_name: str, cfg, policy, n_total: int,
         widths = [cfg.d_hidden] * cfg.n_layers
     gather = sum(comm_model.spmm_feature_allgather(n_total, w, n).total(
         "ici") for w in widths)
-    return {("gnn_gather", "all-gather"): gather,
-            ("gnn_gather", "reduce-scatter"): gather,
-            ("grad_dp", "all-reduce"): comm_model.dp_gradient_sync(
-                param_bytes, policy.n_devices).total("ici")}
+    traffic = {("gnn_gather", "all-gather"): gather,
+               ("gnn_gather", "reduce-scatter"): gather,
+               ("grad_dp", "all-reduce"): comm_model.dp_gradient_sync(
+                   param_bytes, policy.n_devices).total("ici")}
+    if arch_name in GNN_REMAT:
+        traffic[("gnn_gather" + REMAT_TAG, "all-gather")] = gather
+    return traffic
 
 
 def _gnn_sizes(shape: ShapeSpec) -> tuple[int, int]:
@@ -330,10 +344,12 @@ def _gnn_sizes(shape: ShapeSpec) -> tuple[int, int]:
 def _shard_gnn_batch(arch_name: str, cfg, policy, dev,
                      g: GraphBatch) -> GraphShard:
     """This rank's shard of a global batch (numpy or tensors), on ``dev``:
-    nodes padded to :data:`PAD_TO`."""
+    nodes padded to :data:`PAD_TO`, each rank's edges to a multiple of
+    EquiformerV2's edge chunks."""
     g = g.to(dev)
     return shard_graph(g, gnn_graph_specs(arch_name, g, policy), policy,
-                       n_total=_pad(g.n_nodes))
+                       n_total=_pad(g.n_nodes),
+                       edge_chunks=getattr(cfg, "edge_chunks", 1))
 
 
 def _sync_replicated(policy, grads) -> torch.Tensor:
@@ -359,10 +375,9 @@ def gnn_train_cell(arch, shape, policy, params=None, *, cfg=None,
     passes alike (``meta["shard"]`` cuts one; the step cuts a
     ``GraphBatch`` itself), its loss is its share of the global loss, and
     each leaf's gradient is summed over every rank before AdamW clips by
-    the global norm.  It raises, naming the reason, for EquiformerV2's
-    edge chunks (``edge_chunks`` > 1) and for padded sizes of ``shape``
-    that do not split over the node ranks; nothing falls back to the
-    single-device step."""
+    the global norm.  It raises, naming the reason, for padded sizes of
+    ``shape`` that do not split over the node ranks; nothing falls back to
+    the single-device step."""
     arch, shape = _arch_shape(arch, shape)
     cfg = cfg or gnn_config(arch, shape)
     if policy is not None:
@@ -372,11 +387,6 @@ def gnn_train_cell(arch, shape, policy, params=None, *, cfg=None,
             raise ValueError(
                 f"{arch.name} x {shape.name}: {n_pad} padded nodes do not "
                 f"split over {n} node ranks ({axes})")
-        if getattr(cfg, "edge_chunks", 1) > 1:
-            raise ValueError(
-                f"{arch.name} x {shape.name}: {cfg.edge_chunks} edge chunks "
-                "under a policy (the chunked eSCN convolution has no "
-                "sharded layout)")
     dev = resolve_device(device)
     params = gnn_tree(cfg, params, seed=seed, device=dev)
     module, model_cls = GNN_MODELS[arch.name]
@@ -551,20 +561,20 @@ class CellPlan:
 
     def trace(self, device=None) -> dict:
         """One rank's step run under ``FakeTensorMode`` on ``device``
-        (default :func:`trace_device`), with ``FlopCounterMode``, a
+        (default :func:`trace_device`), with a
+        :class:`~repro_torch.launch.counters.FlopCounter`, a
         :class:`~repro_torch.launch.counters.StepCounter` and the
         collective ledger around it.  Returns ``flops`` (and ``k5_flops``,
         K5's share), ``op_bytes``, ``arg_bytes`` (the storages the step
         started from), ``peak_bytes`` and ``ledger``.  Needs a process
         group of the mesh's size (a ``fake`` one in the dry run)."""
         from torch._subclasses.fake_tensor import FakeTensorMode
-        from torch.utils.flop_counter import FlopCounterMode
 
-        from .counters import StepCounter
+        from .counters import FlopCounter, StepCounter
 
         dev = torch.device(device) if device is not None else trace_device()
         counter = StepCounter()
-        flops = FlopCounterMode(display=False)
+        flops = FlopCounter()
         with FakeTensorMode(allow_non_fake_inputs=True):
             with counter:
                 fn, args = self.step(dev)
@@ -576,9 +586,8 @@ class CellPlan:
                 out = fn(*args)
             del out
         k5 = torch.ops.repro_torch.flash_attention
-        return {"flops": float(flops.get_total_flops()),
-                "k5_flops": float(flops.get_flop_counts().get(
-                    "Global", {}).get(k5, 0)),
+        return {"flops": float(flops.total),
+                "k5_flops": float(flops.by_op.get(k5, 0)),
                 "op_bytes": float(counter.op_bytes),
                 "arg_bytes": arg_bytes, "peak_bytes": counter.peak,
                 "ledger": ledger}
@@ -750,7 +759,9 @@ def _lm_plan(arch: ArchDef, shape: ShapeSpec, policy, *,
 
 def _wigner_abstract(cfg, E: int) -> dict:
     """Pre-chunked when the convolution is edge-tiled, as the reference
-    lays it out."""
+    lays it out: (chunks, E / chunks, ...), the second dim over the node
+    ranks, so that a rank's block is its E / n edges chunked again, as
+    :func:`shard_graph` chunks them."""
     chunks = max(getattr(cfg, "edge_chunks", 1), 1)
     return {l: _meta((chunks, E // chunks, cfg.m_dim(l), 2 * l + 1)
                      if chunks > 1 else (E, cfg.m_dim(l), 2 * l + 1),
@@ -758,14 +769,17 @@ def _wigner_abstract(cfg, E: int) -> dict:
             for l in range(cfg.l_max + 1)}
 
 
-def _gnn_graph_abstract(arch: ArchDef, shape: ShapeSpec,
-                        cfg) -> tuple[GraphBatch, dict]:
+def _gnn_graph_abstract(arch: ArchDef, shape: ShapeSpec, cfg,
+                        node_ranks: int = 1) -> tuple[GraphBatch, dict]:
     """The reference's global graph batch as meta tensors (int32 indices)
-    and its padded sizes."""
+    and its padded sizes.  With edge chunks, E is padded so that each of
+    the ``node_ranks`` holds a multiple of the chunks (:func:`shard_graph`'s
+    rule): to the chunks times 32 as the reference pads it, or times
+    ``node_ranks`` where 32 does not split over them."""
     p = shape.params
     N, E = _gnn_sizes(shape)
     if getattr(cfg, "edge_chunks", 1) > 1:
-        E = _pad(E, cfg.edge_chunks * 32)
+        E = _pad(E, cfg.edge_chunks * math.lcm(32, node_ranks))
     molecule = shape.name == "molecule"
     n_graphs = p.get("batch", 1)
     f32 = lambda *s: _meta(s, torch.float32)  # noqa: E731
@@ -861,7 +875,8 @@ def _gnn_plan(arch: ArchDef, shape: ShapeSpec, policy, *,
     from ..params import module_tree
 
     cfg = cfg or gnn_config(arch, shape)
-    g_abs, sizes = _gnn_graph_abstract(arch, shape, cfg)
+    g_abs, sizes = _gnn_graph_abstract(
+        arch, shape, cfg, gnn_node_split(arch.name, policy)[1])
     g_specs = gnn_graph_specs(arch.name, g_abs, policy)
     _, model_cls = GNN_MODELS[arch.name]
     with FakeTensorMode():
@@ -937,8 +952,6 @@ def retrieval_step(policy) -> Callable:
 def _dlrm_plan(arch: ArchDef, shape: ShapeSpec, policy, *,
                batch: Optional[int] = None, row_cap: Optional[int] = None,
                cfg=None) -> CellPlan:
-    from dataclasses import replace
-
     cfg = cfg or arch.make_config()
     if row_cap:
         cfg = replace(cfg, vocab_sizes=tuple(min(v, row_cap)
@@ -1039,13 +1052,15 @@ def plan(arch, shape_spec, policy, *, batch: Optional[int] = None,
          row_cap: Optional[int] = None, max_seq: Optional[int] = None,
          cfg=None) -> CellPlan:
     """The plan of one cell under ``policy``.  ``batch`` cuts an LM's or
-    DLRM's batch, ``row_cap`` caps every DLRM table's rows, ``cfg``
-    replaces the published config (a smoke config): the cuts of a cell
-    held on one card.  ``max_seq`` gives a prefill's cache room for
-    decode steps after the prompt."""
+    DLRM's batch, or a sampled GNN shape's seeds, ``row_cap`` caps every
+    DLRM table's rows, ``cfg`` replaces the published config (a smoke
+    config): the cuts of a cell held on one card.  ``max_seq`` gives a
+    prefill's cache room for decode steps after the prompt."""
     arch = get_arch(arch) if isinstance(arch, str) else arch
     shape = (arch.shapes[shape_spec] if isinstance(shape_spec, str)
              else shape_spec)
+    if batch is not None and shape.kind == "train_sampled":
+        shape = replace(shape, params={**shape.params, "batch_nodes": batch})
     if arch.family == "lm":
         return _lm_plan(arch, shape, policy, batch=batch, max_seq=max_seq,
                         cfg=cfg)

@@ -8,19 +8,23 @@ dtype, as the reference does.  The initializers are NumPy, seeded by a
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..distributed import comm
 from ..tree import tree_leaves
 
 __all__ = ["Initializer", "dense_init", "he_init", "embed_init", "rms_norm", "layer_norm",
            "softcap", "swiglu", "mlp_init", "mlp_apply", "MLP", "rope_freqs",
            "apply_rope", "segment_sum", "gather_rows", "segment_softmax",
-           "cross_entropy_loss", "count_params"]
+           "cross_entropy_loss", "count_params", "checkpoint_layer",
+           "REMAT_TAG"]
 
 
 def _fan(shape: Sequence[int], fan_in: Optional[int]) -> int:
@@ -243,3 +247,55 @@ def count_params(tree) -> int:
     """The number of elements over a tree's leaves (tensors or arrays)."""
     return sum(int(x.numel() if torch.is_tensor(x) else np.size(x))
                for x in tree_leaves(tree) if hasattr(x, "shape"))
+
+
+#: Appended to the ledger tag of every collective a recompute re-issues
+#: (``"gnn_gather"`` becomes ``"gnn_gather_remat"``).
+REMAT_TAG = "_remat"
+
+
+class _Bound(nn.Module):
+    """``fn(module, *args)`` as a module's forward, so that
+    ``torch.func.functional_call`` can bind ``module``'s weights for it."""
+
+    def __init__(self, module: nn.Module, fn: Callable):
+        super().__init__()
+        self.module = module
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(self.module, *args)
+
+
+def _rebound(bound: _Bound, weights: dict, *args):
+    return torch.func.functional_call(
+        bound, {f"module.{k}": v for k, v in weights.items()}, args)
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), comm.retagged(REMAT_TAG)
+
+
+def checkpoint_layer(module: nn.Module, *args, fn: Optional[Callable] = None,
+                     enabled: bool = True):
+    """``fn(module, *args)`` (``module(*args)`` by default), its
+    activations recomputed in the backward pass: the reference's
+    ``jax.checkpoint(..., policy=nothing_saveable)``, as a non-reentrant
+    ``torch.utils.checkpoint`` that keeps only the inputs.  A plain call
+    when not ``enabled`` or when grad is off.
+
+    A tree bound to the model by ``torch.func.functional_call``
+    (``params.tree_loss``) is bound only while that call runs, and the
+    recompute runs after it has returned: it would read the module's own
+    weights and give wrong gradients with no error.  So the tensors that
+    stand for ``module``'s parameters are taken here, in the forward, and
+    the recompute binds the same tensors again.  The collectives the
+    recompute issues are recorded under their tag and :data:`REMAT_TAG`.
+    The layers draw no random numbers, so no generator state is kept."""
+    call = fn or nn.Module.__call__
+    if not (enabled and torch.is_grad_enabled()):
+        return call(module, *args)
+    weights = dict(module.named_parameters())
+    return checkpoint(_rebound, _Bound(module, call), weights, *args,
+                      use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_remat_contexts)

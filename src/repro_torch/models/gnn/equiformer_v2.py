@@ -15,9 +15,17 @@ Data contract: edges must have non-zero edge vectors (self-loops have no
 edge frame and break equivariance), and padding edges carry
 ``edge_mask = 0`` so their arbitrary Wigner blocks never contribute.
 
+Activations are recomputed in the backward pass, as the reference's
+``jax.checkpoint``s recompute them (:func:`..common.checkpoint_layer`):
+each layer keeps only its input unless ``remat=False``, and when the edges
+come in chunks each chunk's convolution and scatter keep only theirs, so
+the chunk loop does not hold every chunk's messages for the backward.
+
 On a :class:`.graph.GraphShard` (2-D: nodes and edges over the dp axes)
 the node gather comes once a layer, as the reference's ``_GATHER_ONCE``
-path: the normed rows (``L2 x C`` wide) all-gathered over the node ranks.
+path: the normed rows (``L2 x C`` wide) all-gathered over the node ranks,
+outside the chunk loop, and again in the layer's recompute
+(``"gnn_gather_remat"`` in the ledger).
 The readout sums the invariant rows over every node rank before
 ``out_mlp``.  The channels stay whole: the ``model`` ranks of a node block
 compute alike (the norm, the attention MLP, the SO(2) maps, the gate and
@@ -33,7 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...backend import resolve_device
-from ..common import MLP, gather_rows, segment_softmax, segment_sum
+from ..common import (MLP, checkpoint_layer, gather_rows, segment_softmax,
+                      segment_sum)
 from .graph import GraphBatch
 
 __all__ = ["EquiformerV2Config", "EquiformerV2", "EquiformerV2Layer",
@@ -109,50 +118,39 @@ def equivariant_rms_norm(cfg: EquiformerV2Config, x: torch.Tensor,
 def _so2_conv(cfg: EquiformerV2Config, lp: EquiformerV2Layer, rot: dict,
               x_edge: torch.Tensor) -> torch.Tensor:
     """Rotate -> SO(2) linear (m-restricted) -> un-rotate.  x_edge (E, L2, C);
-    ``rot`` maps l to the (E, m_dim, 2l+1) Wigner blocks."""
-    C = x_edge.shape[2]
-    slices = _l_slices(cfg.l_max)
+    ``rot`` maps l to the (E, m_dim, 2l+1) Wigner blocks.
+
+    Each degree's rotated rows are padded to the widest block's 2 m_max + 1
+    and stacked, (E, l_max + 1, 2 m_max + 1, C), so that one (m, part) row
+    over the degrees is one strided slice: the reference's row-by-row
+    selections and concatenations, in fewer operations."""
+    E, _, C = x_edge.shape
+    L, W = cfg.l_max + 1, 2 * cfg.m_max + 1
 
     # Rotate into the edge-aligned frame, keeping only |m| <= m_max rows.
-    rot_feats = [torch.einsum("emn,enc->emc", rot[l], x_edge[:, s:s + n, :])
-                 for l, (s, n) in enumerate(slices)]
-
     # Row layout within each l block (wigner_stack): [m=0, 1c, 1s, 2c, ...]
-    def row(l: int, m: int, part: str) -> torch.Tensor:
-        if m == 0:
-            return rot_feats[l][:, 0, :]
-        base = 1 + 2 * (m - 1)
-        return rot_feats[l][:, base + (0 if part == "c" else 1), :]
-
-    out_rows: dict[int, dict] = {l: {} for l in range(cfg.l_max + 1)}
+    rot_feats = torch.stack([
+        F.pad(torch.bmm(rot[l], x_edge[:, s:s + n, :]),
+              (0, 0, 0, W - cfg.m_dim(l)))
+        for l, (s, n) in enumerate(_l_slices(cfg.l_max))], dim=1)
 
     # m = 0: plain linear over stacked (l, C).
-    x0 = torch.cat([row(l, 0, "c") for l in range(cfg.l_max + 1)], dim=-1)
-    y0 = x0 @ lp.w_m0
-    for i, l in enumerate(range(cfg.l_max + 1)):
-        out_rows[l][(0, "c")] = y0[:, i * C:(i + 1) * C]
+    outs = [(rot_feats[:, :, 0, :].reshape(E, L * C) @ lp.w_m0).view(E, L, C)]
 
-    # m >= 1: complex linear (commutes with the residual z-rotation gauge).
+    # m >= 1: complex linear (commutes with the residual z-rotation gauge),
+    # over the degrees l >= m, zero rows in front for l < m.
     for m in range(1, cfg.m_max + 1):
-        ls = cfg.ls_for_m(m)
-        xc = torch.cat([row(l, m, "c") for l in ls], dim=-1)
-        xs = torch.cat([row(l, m, "s") for l in ls], dim=-1)
+        xc = rot_feats[:, m:, 2 * m - 1, :].reshape(E, (L - m) * C)
+        xs = rot_feats[:, m:, 2 * m, :].reshape(E, (L - m) * C)
         wr, wi = getattr(lp, f"w_m{m}_r"), getattr(lp, f"w_m{m}_i")
-        yc = xc @ wr - xs @ wi
-        ys = xs @ wr + xc @ wi
-        for i, l in enumerate(ls):
-            out_rows[l][(m, "c")] = yc[:, i * C:(i + 1) * C]
-            out_rows[l][(m, "s")] = ys[:, i * C:(i + 1) * C]
+        for y in (xc @ wr - xs @ wi, xs @ wr + xc @ wi):
+            outs.append(F.pad(y.view(E, L - m, C), (0, 0, m, 0)))
+    y = torch.stack(outs, dim=2)                     # (E, L, W, C)
 
-    # Reassemble the m-restricted blocks and rotate back with D^T.
-    outs = []
-    for l in range(cfg.l_max + 1):
-        rows = [out_rows[l][(0, "c")]]
-        for m in range(1, min(l, cfg.m_max) + 1):
-            rows.extend([out_rows[l][(m, "c")], out_rows[l][(m, "s")]])
-        y = torch.stack(rows, dim=1)                 # (E, m_dim, C)
-        outs.append(torch.einsum("emn,emc->enc", rot[l], y))
-    return torch.cat(outs, dim=1)                    # (E, L2, C)
+    # Rotate back with D^T, each degree over its m-restricted rows.
+    return torch.cat([
+        torch.bmm(rot[l].transpose(1, 2), y[:, l, :cfg.m_dim(l), :])
+        for l in range(L)], dim=1)                   # (E, L2, C)
 
 
 class EquiformerV2(nn.Module):
@@ -194,6 +192,19 @@ class EquiformerV2(nn.Module):
                         alpha[lo:hi]))
         return out
 
+    def _weighted_scatter(self, lp: EquiformerV2Layer, wig: dict,
+                          snd: torch.Tensor, rcv: torch.Tensor,
+                          alpha: torch.Tensor, src: torch.Tensor,
+                          N: int) -> torch.Tensor:
+        """One chunk's messages from the senders' table ``src``, weighed
+        by ``alpha`` per head and summed into the ``N`` receivers."""
+        cfg = self.cfg
+        C = cfg.d_hidden
+        msg = _so2_conv(cfg, lp, wig, gather_rows(src, snd))
+        mh = msg.reshape(msg.shape[0], cfg.L2, cfg.n_heads, C // cfg.n_heads)
+        mh = mh * alpha[:, None, :, None]
+        return segment_sum(mh.reshape(msg.shape[0], cfg.L2, C), rcv, N)
+
     def _layer(self, lp: EquiformerV2Layer, x: torch.Tensor,
                g: GraphBatch, emask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -208,13 +219,12 @@ class EquiformerV2(nn.Module):
         scores = torch.where(emask[:, None] > 0, scores,
                              scores.new_tensor(-1e30))
         alpha = segment_softmax(scores, rcv, N) * emask[:, None]
+        chunks = self._chunks(g, alpha)
         agg = None
-        for wig_c, snd_c, rcv_c, alpha_c in self._chunks(g, alpha):
-            msg = _so2_conv(cfg, lp, wig_c, gather_rows(src, snd_c))
-            mh = msg.reshape(msg.shape[0], cfg.L2, cfg.n_heads,
-                             C // cfg.n_heads)
-            mh = mh * alpha_c[:, None, :, None]
-            part = segment_sum(mh.reshape(msg.shape[0], cfg.L2, C), rcv_c, N)
+        for wig_c, snd_c, rcv_c, alpha_c in chunks:
+            part = checkpoint_layer(lp, wig_c, snd_c, rcv_c, alpha_c, src, N,
+                                    fn=self._weighted_scatter,
+                                    enabled=len(chunks) > 1)
             agg = part if agg is None else agg + part
         x = x + agg
         # Gated nonlinearity: l=0 drives sigmoid gates for l > 0.
@@ -228,8 +238,9 @@ class EquiformerV2(nn.Module):
         x0 = x[:, 0, :]
         return torch.cat([(x0 + lp.ffn(x0))[:, None, :], x[:, 1:, :]], dim=1)
 
-    def forward(self, g: GraphBatch) -> torch.Tensor:
-        """Invariant per-graph predictions (n_graphs, d_out)."""
+    def forward(self, g: GraphBatch, *, remat: bool = True) -> torch.Tensor:
+        """Invariant per-graph predictions (n_graphs, d_out).  With
+        ``remat`` each layer keeps only its input for the backward pass."""
         cfg = self.cfg
         N = g.n_nodes
         s0 = g.node_feat @ self.embed
@@ -237,7 +248,8 @@ class EquiformerV2(nn.Module):
                        s0.new_zeros((N, cfg.L2 - 1, cfg.d_hidden))], dim=1)
         emask = g.emask()
         for lp in self.layers:
-            x = self._layer(lp, x, g, emask)
+            x = checkpoint_layer(lp, x, g, emask, fn=self._layer,
+                                 enabled=remat)
         inv = x[:, 0, :] * g.nmask()[:, None]
         gid = (g.graph_ids if g.graph_ids is not None
                else torch.zeros(N, dtype=torch.long, device=inv.device))

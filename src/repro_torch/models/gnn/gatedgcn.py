@@ -8,13 +8,16 @@ Edge-gated message passing:
 
 LayerNorm replaces the original BatchNorm, as in the reference.  The
 reference scans over layer-stacked weights; here each layer is a module of
-its own, in the stack's order.
+its own, in the stack's order, and each layer's activations are
+recomputed in the backward pass unless ``remat=False`` (the reference's
+``jax.checkpoint`` of its scan body, :func:`..common.checkpoint_layer`).
 
 On a :class:`.graph.GraphShard` (nodes and edges over every mesh axis) a
 layer all-gathers ``h`` (``d_hidden`` wide) once for its two sender
 reads, ``(h D)[snd]`` and ``(h B)[snd]``: half the bytes of gathering
 ``[h D, h B]``, for two products over the gathered rows.  ``(h E)[rcv]``
-and the sums over a receiver's edges are local.
+and the sums over a receiver's edges are local.  The recompute gathers
+``h`` again (``"gnn_gather_remat"`` in the ledger).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from torch import nn
 
 from ...backend import resolve_device
-from ..common import gather_rows, layer_norm
+from ..common import checkpoint_layer, gather_rows, layer_norm
 from .gcn import graph_mean, masked_cross_entropy
 from .graph import GraphBatch
 from .layers import scatter_sum
@@ -91,16 +94,18 @@ class GatedGCN(nn.Module):
         self.layers = nn.ModuleList(GatedGCNLayer(d, dev)
                                     for _ in range(cfg.n_layers))
 
-    def forward(self, g: GraphBatch) -> torch.Tensor:
+    def forward(self, g: GraphBatch, *, remat: bool = True) -> torch.Tensor:
         """Logits: per node (N, n_classes), or per graph with the
-        ``"graphs"`` readout (the nodes' mean, then the output layer)."""
+        ``"graphs"`` readout (the nodes' mean, then the output layer).
+        With ``remat`` each layer keeps only its inputs for the backward
+        pass."""
         h = g.node_feat @ self.embed_h
         ef = (g.edge_feat if g.edge_feat is not None
               else h.new_ones((g.n_edges, self.cfg.d_edge_in)))
         e = ef @ self.embed_e
         emask = g.emask()[:, None]
         for layer in self.layers:
-            h, e = layer(h, e, g, emask)
+            h, e = checkpoint_layer(layer, h, e, g, emask, enabled=remat)
         if self.cfg.readout == "graphs":
             return graph_mean(h, g) @ self.out
         return h @ self.out

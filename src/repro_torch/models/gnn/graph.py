@@ -193,7 +193,7 @@ def _rows(x: torch.Tensor, lo: int, n: int) -> torch.Tensor:
 
 
 def shard_graph(g: GraphBatch, specs: GraphBatch, policy, *,
-                n_total: int) -> GraphShard:
+                n_total: int, edge_chunks: int = 1) -> GraphShard:
     """This rank's :class:`GraphShard` of ``g``, a global batch of tensors
     that every rank passes alike, laid out by ``specs`` (the reference's
     ``_gnn_graph_specs``: a field whose spec names axes on its first dim
@@ -204,23 +204,34 @@ def shard_graph(g: GraphBatch, specs: GraphBatch, policy, *,
     them.  Each edge (a masked edge of the batch adds nothing anywhere and
     is dropped) goes to the rank that owns its receiver, in the order of
     the global batch, and every rank's edges are padded to the largest
-    rank's count with masked, zero edges from global node 0 to local node
-    0: the layout of ``distributed.ring.partition_edges_gather`` over the
-    unmasked edges.  Raises when ``n_total`` does not split over the node
-    ranks, or on pre-chunked Wigner blocks."""
+    rank's count, rounded up to a multiple of the edge chunks, with
+    masked, zero edges from global node 0 to local node 0: the layout of
+    ``distributed.ring.partition_edges_gather`` over the unmasked edges.
+
+    The chunks are ``edge_chunks`` for Wigner blocks that come whole,
+    (E, m_dim, 2l+1), and the blocks' own for pre-chunked ones, (n_chunks,
+    Ec, m_dim, 2l+1) with their spec on the edge dim: those are flattened
+    in the global edge order, cut as every other edge field, and chunked
+    again over the rank's edges.  Raises when ``n_total`` does not split
+    over the node ranks."""
     axes = specs.node_feat[0]
     n, r = policy.size(axes), policy.coord(axes)
     if n_total < g.n_nodes or n_total % n:
         raise ValueError(f"{g.n_nodes} nodes padded to {n_total} do not "
                          f"split over {n} node ranks ({axes})")
-    if g.wigner is not None and next(iter(g.wigner.values())).dim() == 4:
-        raise ValueError("pre-chunked Wigner blocks (edge_chunks > 1) have "
-                         "no sharded layout")
+    chunks = max(edge_chunks, 1)
+    pre_chunked = (g.wigner is not None
+                   and next(iter(g.wigner.values())).dim() == 4)
+    if pre_chunked:
+        chunks = next(iter(g.wigner.values())).shape[0]
+        g = replace(g, wigner={l: w.reshape(-1, *w.shape[2:])
+                               for l, w in g.wigner.items()})
     n_loc = n_total // n
     lo = r * n_loc
     owner = torch.div(g.receivers, n_loc, rounding_mode="floor")
     real = g.emask() > 0
     e_loc = max(int(torch.bincount(owner[real], minlength=n).max()), 1)
+    e_loc = -(-e_loc // chunks) * chunks
     ids = torch.nonzero((owner == r) & real).squeeze(1)
     pad = e_loc - ids.numel()
 
@@ -236,11 +247,16 @@ def shard_graph(g: GraphBatch, specs: GraphBatch, policy, *,
             continue
         if f.name == "wigner":
             spec = next(iter(spec.values()))
+            if pre_chunked:
+                spec = spec[1:]
         split = bool(spec) and spec[0] is not None
         if not split:
             kw[f.name] = v
         elif f.name == "wigner":
             kw[f.name] = {l: edges(w) for l, w in v.items()}
+            if pre_chunked:
+                kw[f.name] = {l: w.reshape(chunks, -1, *w.shape[1:])
+                              for l, w in kw[f.name].items()}
         elif f.name in _EDGE_FIELDS:
             kw[f.name] = edges(v)
         else:

@@ -6,11 +6,14 @@ Processor step (x15, d=128, 2-layer MLPs with LayerNorm):
     h'_i  = h_i + MLP_v([h_i, sum_j e'_ij])
 The decoder regresses per-node targets (mesh dynamics).  The reference
 scans over layer-stacked processors; here each is a module of its own, in
-the stack's order.
+the stack's order, and each step's activations are recomputed in the
+backward pass unless ``remat=False`` (the reference's ``jax.checkpoint``
+of its scan body, :func:`..common.checkpoint_layer`).
 
 On a :class:`.graph.GraphShard` (2-D: nodes and edges over the dp axes)
 a step all-gathers ``h`` over the node ranks for the senders (``d_hidden``
-wide); every other read is local.  The channels stay whole: the ``model``
+wide; the recompute gathers it again, ``"gnn_gather_remat"`` in the
+ledger); every other read is local.  The channels stay whole: the ``model``
 ranks of a node block compute alike (a split that gathers the channels
 back for each MLP and LayerNorm would move more bytes and save nothing).
 """
@@ -23,7 +26,7 @@ import torch
 from torch import nn
 
 from ...backend import resolve_device
-from ..common import MLP, gather_rows
+from ..common import MLP, checkpoint_layer, gather_rows
 from .graph import GraphBatch
 from .layers import scatter_sum
 
@@ -83,15 +86,16 @@ class MeshGraphNet(nn.Module):
         self.processors = nn.ModuleList(Processor(cfg, dev)
                                         for _ in range(cfg.n_layers))
 
-    def forward(self, g: GraphBatch) -> torch.Tensor:
-        """Per-node predictions (N, d_out)."""
+    def forward(self, g: GraphBatch, *, remat: bool = True) -> torch.Tensor:
+        """Per-node predictions (N, d_out).  With ``remat`` each processor
+        step keeps only its inputs for the backward pass."""
         h = self.node_enc(g.node_feat, final_act=True)
         ef = (g.edge_feat if g.edge_feat is not None
               else h.new_ones((g.n_edges, self.cfg.d_edge_in)))
         e = self.edge_enc(ef, final_act=True)
         emask = g.emask()[:, None]
         for proc in self.processors:
-            h, e = proc(h, e, g, emask)
+            h, e = checkpoint_layer(proc, h, e, g, emask, enabled=remat)
         return self.decoder(h)
 
 

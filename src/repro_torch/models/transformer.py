@@ -678,12 +678,13 @@ def _tree_layers(cfg: TransformerConfig, params: dict) -> list:
     ``g`` of every weight, cast to the compute dtype.
 
     The GNNs and DLRM bind a tree to their module with
-    ``params.tree_loss`` (``torch.func.functional_call``); the transformer
-    cannot.  ``functional_call`` swaps the tree in only for the call, and
-    the group remat recomputes each group in the backward pass, after the
-    call has returned, so the recompute would read the module's own
-    weights and give wrong gradients without an error.  The layers here
-    are plain objects that the recompute's closures hold."""
+    ``params.tree_loss`` (``torch.func.functional_call``).
+    ``functional_call`` swaps the tree in only for the call, and the group
+    remat recomputes each group in the backward pass, after the call has
+    returned, so a recompute through the module would read its own weights
+    and give wrong gradients without an error (the GNNs' layers bind the
+    tree's tensors again for theirs: ``common.checkpoint_layer``).  The
+    layers here are plain objects that the recompute's closures hold."""
     entries = _tree_entries(cfg, params)
     P = len(cfg.window_pattern)
     return [_entry_layer(cfg, entries[n % P], n % P, n // P)

@@ -583,7 +583,10 @@ def tree_loss(model: nn.Module, fn: Callable) -> Callable:
     """``fn(model, *args)`` as ``loss(tree, *args)``: evaluated with the
     module's weights read from a reference-layout tree
     (``torch.func.functional_call``), so gradients flow to the tree.  The
-    module only lends its structure; its own weights are not read."""
+    module only lends its structure; its own weights are not read, in the
+    backward pass either: the GNN layers' recompute
+    (``models.common.checkpoint_layer``) binds the tree's tensors it took
+    in the forward, after this call has restored the module's own."""
     wrapper = _Apply(model, fn)
 
     def loss(tree, *args):

@@ -2,8 +2,9 @@
 steps.
 
 The battery: GCN (also with the ``"graphs"`` readout on a batch of small
-graphs), GatedGCN, MeshGraphNet and EquiformerV2 at their smoke configs,
-on the (2, 4) and (4, 2) meshes, three steps of the reference's
+graphs), GatedGCN, MeshGraphNet and EquiformerV2 at their smoke configs
+(EquiformerV2 also with 4 edge chunks, its Wigner blocks whole or
+pre-chunked), on the (2, 4) and (4, 2) meshes, three steps of the reference's
 ``_gnn_plan`` train step (``module.loss_fn(cfg, q, g, policy=)`` then
 ``adamw(1e-3)``, jitted with the batch laid out by ``_gnn_graph_specs``)
 on 8 fake CPU devices (``tests/torch_policy_train_ref.py``) against three
@@ -19,13 +20,15 @@ packages and is skipped by name: EquiformerV2's ``layers/attn_mlp/b[1]``
 other.  The reference's own policy steps stay within 2.3e-05 of its
 single-device step on these leaves, a margin of 4x to the tolerance.
 
-The collective ledger of the first step equals the paper's SpMM traffic
-model to the byte (``launch.steps.gnn_policy_traffic``): the
+Every rank's collective ledger of the first step equals the paper's SpMM
+traffic model to the byte (``launch.steps.gnn_policy_traffic``): the
 ``gnn_gather`` all-gathers, and their backward's reduce-scatters, are
 ``spmm_feature_allgather(N_pad, width, node ranks)`` summed over the
 gathered tensors (GCN ``d_hidden`` then ``n_classes`` wide, GatedGCN and
 MeshGraphNet ``d_hidden`` a layer, EquiformerV2 ``L2 * C`` a layer, the
-last two over the dp ranks), and ``grad_dp`` is
+last two over the dp ranks); the three models that recompute their layers
+in the backward pass gather each layer's table again, the same bytes
+under ``gnn_gather_remat``; and ``grad_dp`` is
 ``dp_gradient_sync(param_bytes, n_devices)``.  No other collective but
 the readout's scalar psums (``gnn_readout``) runs.
 
@@ -71,8 +74,14 @@ from test_torch_policy_train import PORT, _finish, _run_both, _start
 
 NAMES = ("gcn-cora", "gatedgcn", "meshgraphnet", "equiformer-v2")
 MESHES = ((2, 4), (4, 2))
-#: (model, readout): GCN also reads out per graph, on a batch of graphs.
-MODELS = [(name, "nodes") for name in NAMES] + [("gcn-cora", "graphs")]
+#: (model, variant): GCN also reads out per graph, on a batch of graphs;
+#: EquiformerV2 also convolves its edges in EDGE_CHUNKS chunks, with its
+#: Wigner blocks whole (the shard pads a rank's edges to a multiple of the
+#: chunks) or pre-chunked (the shard flattens, cuts and chunks them again).
+MODELS = [(name, "nodes") for name in NAMES] + [
+    ("gcn-cora", "graphs"), ("equiformer-v2", "chunked"),
+    ("equiformer-v2", "pre_chunked")]
+EDGE_CHUNKS = 4
 CASES = [(name, shape, readout) for name, readout in MODELS
          for shape in MESHES]
 STEPS = 3
@@ -101,7 +110,11 @@ def _ids(case) -> str:
 
 
 def _cfg_kw(name: str, readout: str) -> dict:
-    return {"readout": "graphs"} if readout == "graphs" else {}
+    if readout == "graphs":
+        return {"readout": "graphs"}
+    if readout in ("chunked", "pre_chunked"):
+        return {"edge_chunks": EDGE_CHUNKS}
+    return {}
 
 
 def _batch(name: str, readout: str, cfg) -> dict:
@@ -143,6 +156,9 @@ def _batch(name: str, readout: str, cfg) -> dict:
             m_max=cfg.m_max).items()}
         kw["positions"] = pos.astype(np.float32)
         kw["labels"] = rng.standard_normal((1, cfg.d_out)).astype(np.float32)
+        if readout == "pre_chunked":
+            kw["wigner"] = {l: w.reshape(EDGE_CHUNKS, -1, *w.shape[1:])
+                            for l, w in kw["wigner"].items()}
     return kw
 
 
@@ -218,9 +234,6 @@ def test_gnn_policy_ledger_equals_the_traffic_models(gnn_runs, case):
     cfg = get_arch(name).make_smoke_config(**_cfg_kw(name, readout))
     policy = make_policy(AbstractMesh(("data", "model"), shape))
     _, n = steps.gnn_node_split(name, policy)
-    by: dict = {}
-    for kind, tag, _, _, wire in res["ledger"]:
-        by[(tag, kind)] = by.get((tag, kind), 0.0) + wire
     n_total = res["n_total"]
     assert n_total == steps._pad(N_NODES)
     (n_loc, _), = {tuple(s) for s in res["sizes"]}
@@ -228,19 +241,30 @@ def test_gnn_policy_ledger_equals_the_traffic_models(gnn_runs, case):
     param_bytes = sum(4 * np.size(a) for _, a in tree_paths(res["params"]))
     model = steps.gnn_policy_traffic(name, cfg, policy, n_total, param_bytes)
     gather = model[("gnn_gather", "all-gather")]
-    # Each gather alone is the SpMM model at the width it moved.
-    for kind, tag, result, size, wire in res["ledger"]:
-        if (tag, kind) == ("gnn_gather", "all-gather"):
-            width = result / (4 * n_total)
-            assert size == n and width == int(width)
-            assert wire == comm_model.spmm_feature_allgather(
-                n_total, int(width), n).total("ici")
-    print(f"{_ids(case)}: gnn_gather {gather} B, grad_dp "
+    assert res["rank_ledgers"][0] == res["ledger"]
+    assert len(res["rank_ledgers"]) == 8
+    for rank, ledger in enumerate(res["rank_ledgers"]):
+        by = {}
+        for kind, tag, _, _, wire in ledger:
+            by[(tag, kind)] = by.get((tag, kind), 0.0) + wire
+        # Each gather alone, the forward's and the recompute's, is the SpMM
+        # model at the width it moved.
+        for kind, tag, result, size, wire in ledger:
+            if kind == "all-gather" and tag in ("gnn_gather",
+                                                "gnn_gather_remat"):
+                width = result / (4 * n_total)
+                assert size == n and width == int(width)
+                assert wire == comm_model.spmm_feature_allgather(
+                    n_total, int(width), n).total("ici")
+        remat = by.get(("gnn_gather_remat", "all-gather"), 0.0)
+        assert remat == (gather if name in steps.GNN_REMAT else 0.0), rank
+        for key, b in model.items():
+            assert by[key] == b, (rank, key, by[key], b)
+        assert set(by) <= set(model) | {("gnn_readout", "all-reduce")}
+    print(f"{_ids(case)}: every rank's gnn_gather {gather} B, "
+          f"gnn_gather_remat {remat} B, grad_dp "
           f"{by[('grad_dp', 'all-reduce')]} B, gnn_readout "
           f"{by.get(('gnn_readout', 'all-reduce'), 0.0)} B")
-    for key, b in model.items():
-        assert by[key] == b, (key, by[key], b)
-    assert set(by) <= set(model) | {("gnn_readout", "all-reduce")}
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,8 @@ a policy, card-free: the port on CPU tensors against the reference's
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,16 +97,30 @@ def test_opt_state_specs_take_the_parameters_layout():
     ("gcn-cora", "minibatch_lg", (3, 1), "do not split over 3 node ranks"),
     ("meshgraphnet", "full_graph_sm", (5, 2),
      "do not split over 5 node ranks"),
-    ("equiformer-v2", "ogb_products", (2, 4), "64 edge chunks")],
-    ids=["indivisible-nodes", "indivisible-dp-nodes", "edge-chunks"])
+    ("equiformer-v2", "ogb_products", (3, 2),
+     "do not split over 3 node ranks")],
+    ids=["indivisible-nodes", "indivisible-dp-nodes",
+         "edge-chunks-indivisible-dp-nodes"])
 def test_gnn_cell_refuses_a_sharded_policy(arch, shape, mesh, match):
     """What a GNN cell cannot run under a policy raises, naming why: padded
     nodes that do not split over the node ranks (every axis for GCN, the
-    dp axes for MeshGraphNet), and EquiformerV2's edge chunks; it never
-    falls back to the single-device step."""
+    dp axes for MeshGraphNet and EquiformerV2, its 64 edge chunks too); it
+    never falls back to the single-device step."""
     policy = make_policy(AbstractMesh(("data", "model"), mesh))
     with pytest.raises(ValueError, match=match):
         steps.gnn_train_cell(arch, shape, policy, device="cpu")
+
+
+def test_gnn_cell_takes_edge_chunks_under_a_policy():
+    """EquiformerV2 at ogb_products (64 edge chunks) builds under a policy:
+    the shard pads each rank's edges to a multiple of the chunks."""
+    policy = make_policy(AbstractMesh(("data", "model"), (2, 4)))
+    cfg = steps.gnn_config("equiformer-v2", "ogb_products")
+    assert cfg.edge_chunks == 64
+    cell = steps.gnn_train_cell("equiformer-v2", "ogb_products", policy,
+                                cfg=dataclasses.replace(cfg, n_layers=1),
+                                device="cpu")
+    assert cell.cfg.edge_chunks == 64 and "shard" in cell.meta
 
 
 def _graph(cfg, arch: str, seed: int = 0):

@@ -25,17 +25,21 @@ MESHES = {"single": 256, "multi": 512}
 RUN_CELLS = [(a, s) for a, s, st in all_cells() if st == "run"]
 
 #: Cells whose traced peak passes the card's 80 GB, with the peak the dry
-#: run reckons (bytes a rank) and why.  No activation checkpointing in the
-#: port's steps: a 480B-parameter Adam step keeps 35 layers' activations
-#: for the backward on 256 or 512 ranks, qwen3-moe's 48 on 256, and
-#: MeshGraphNet's 15 layers of 3.87M (256) or 1.93M (512) edges x 128
-#: channels keep every edge MLP's input.
+#: run reckons (bytes a rank) and why.  The LM steps recompute each layer
+#: group (``transformer._run_groups``), but the chunked attention's
+#: per-chunk checkpoint closes over the layer's f32 copies of K and V,
+#: which its recompute holds until the backward: 48 layers' on qwen3-moe
+#: (103 GB of the 114.8 on 256 ranks), 35 on arctic-480b (about 131 GB of
+#: the 161.2 on 256, 65.8 of the 82.1 on 512).  EquiformerV2 recomputes
+#: its layers and chunks, but each rank gathers the senders' table whole
+#: every layer (2.45M x 49 x 128 f32, 61.5 GB) and its backward sums the
+#: table's gradient in float64 (123 GB) before the f32 copy.
 OVERCAP = {
     ("qwen3-moe-30b-a3b", "train_4k", "single"): 114.82e9,
     ("arctic-480b", "train_4k", "single"): 161.19e9,
     ("arctic-480b", "train_4k", "multi"): 82.06e9,
-    ("meshgraphnet", "ogb_products", "single"): 323.66e9,
-    ("meshgraphnet", "ogb_products", "multi"): 161.85e9,
+    ("equiformer-v2", "ogb_products", "single"): 373.77e9,
+    ("equiformer-v2", "ogb_products", "multi"): 340.81e9,
 }
 
 
@@ -77,8 +81,6 @@ def check_present_and_ok(run: dict, cells: list, mesh: str) -> None:
     assert not missing, f"missing cells: {missing}\n{run['stderr'][-3000:]}"
     known = [(a, s) for a, s, _ in failed if (a, s) in KNOWN_FAILURES]
     assert [(a, s) for a, s, _ in failed] == known, failed
-    for arch, shape, error in failed:
-        assert "edge chunks under a policy" in error, error
     # One line a cell, and exit 1 on any failure, as the reference's CLI.
     lines = [ln for ln in run["stdout"].splitlines()
              if ln.startswith(f"[{mesh}]") and ": SKIP " not in ln]
@@ -154,4 +156,5 @@ def check_gnn_ledger(run: dict, cells: list) -> None:
         got = rec["collectives"]["by_tag"]
         for (tag, kind), value in want.items():
             assert got[tag][kind] == value, (arch, shape, tag, kind)
-        assert set(got) == {"gnn_gather", "grad_dp", "gnn_readout"}
+        assert set(got) == {"gnn_gather", "grad_dp", "gnn_readout"} | (
+            {"gnn_gather_remat"} if arch in steps.GNN_REMAT else set())

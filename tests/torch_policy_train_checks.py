@@ -22,8 +22,8 @@ CPU thread a rank) and writes rank 0's results:
 * ``gnn`` (8 ranks): for each case (a GNN smoke config, a mesh, a
   readout) three steps of ``launch.steps.gnn_train_cell(policy=)`` on the
   global batch, the same records (the state is replicated: rank 0's
-  tree), and the shard's padded node count and every rank's local node
-  and edge counts;
+  tree), every rank's first-step ledger, and the shard's padded node
+  count and every rank's local node and edge counts;
 * ``gnn1`` (1 rank): for each model, three steps of the world-1 policy
   cell and of the single-device cell (``policy=None``, on the shard's
   padded batch) from the same weights: losses and final parameters of
@@ -172,6 +172,10 @@ def job_gnn(rank: int, world: int, data: dict) -> dict:
         res = _run(cell, g, policy, data["steps"])
         res.update(_state(res.pop("params_out"), res.pop("state_out"),
                           cell.specs, policy))
+        res["rank_ledgers"] = [None] * world
+        torch.distributed.all_gather_object(
+            res["rank_ledgers"], res["ledger"],
+            group=policy.group(policy.all_axes))
         shard = cell.meta["shard"](g)
         sizes = torch.tensor([[shard.n_nodes, shard.n_edges]])
         res["n_total"] = shard.n_total
