@@ -6119,8 +6119,12 @@ def policy_gnn_case(name: str, shape: str, cfg, arrays: dict, policy, dev,
     ledger_ok = all(ledger.get(k, 0.0) == model.get(k, 0.0) for k in keys)
     mesh = tuple(policy.axis_sizes.values())
     what = f"gnn {name} {shape}{label}"
+    lo, hi = shard.channels(cfg.d_hidden)
+    split = (f", channels {hi - lo} of {cfg.d_hidden} a rank (their sums "
+             f"over model: gnn_tp)" if name == "equiformer-v2" else "")
     say(f"{what}: mesh {mesh}, {cfg.name} {cfg.n_layers} layers, "
-        f"d_in {cfg.d_in}; N {GraphBatch(**arrays).n_nodes} padded to "
+        f"d_in {cfg.d_in}{split}; N {GraphBatch(**arrays).n_nodes} "
+        f"padded to "
         f"{n_total}, {n_loc} nodes and {e_loc} edges a rank (E "
         f"{arrays['senders'].size}), cut in {cut_s:.2f} s; losses {losses}; "
         f"step ms {[round(x, 1) for x in ms]} (host clock); peak "
@@ -6264,7 +6268,11 @@ def policy_gnn_cells(policy, dev, say, sync, rank: int, world: int,
     keep = {"gatedgcn": ggcn.n_layers * 4 * E * ggcn.d_hidden,
             "meshgraphnet": mgn.n_layers * 4 * E * mgn.d_hidden,
             "equiformer-v2": eqv.n_layers * 4 * N * eqv.L2 * eqv.d_hidden}
-    table = 4 * N * eqv.L2 * eqv.d_hidden
+    # EquiformerV2's node states lie over the dp ranks and, where the
+    # model ranks divide its channels, over them too; its senders' table
+    # is every node's rows at the rank's channels.
+    tp = steps.gnn_channel_ranks("equiformer-v2", eqv, policy)
+    table = 4 * N * eqv.L2 * eqv.d_hidden // tp
     say(f"gnn cut at ogb_products (E {E}, N {N} padded, f32, remat: each "
         f"layer keeps its inputs for the backward, on {world} card(s)): "
         f"gatedgcn's {ggcn.n_layers} edge states E x {ggcn.d_hidden} "
@@ -6275,10 +6283,12 @@ def policy_gnn_cells(policy, dev, say, sync, rank: int, world: int,
         f"{keep['meshgraphnet'] / world / 1e9:.1f} GB a rank; "
         f"equiformer-v2's {eqv.n_layers} node states N x {eqv.L2} x "
         f"{eqv.d_hidden} {keep['equiformer-v2'] / 1e9:.1f} GB, "
-        f"{keep['equiformer-v2'] / world / 1e9:.1f} GB a rank, beside the "
-        f"senders' table every rank gathers whole each layer "
-        f"({table / 1e9:.1f} GB); before one layer's recompute, and the "
-        f"card holds 80 GB")
+        f"{keep['equiformer-v2'] / (policy.dp * tp) / 1e9:.1f} GB a rank "
+        f"(channels {eqv.d_hidden // tp} of {eqv.d_hidden} a rank), beside "
+        f"the senders' table every rank gathers each layer, N x {eqv.L2} x "
+        f"{eqv.d_hidden // tp} ({table / 1e9:.1f} GB), and its float64 "
+        f"gradient ({2 * table / 1e9:.1f} GB); before one layer's "
+        f"recompute, and the card holds 80 GB")
     if world == 1:
         return
     p = GNN_SHAPES["minibatch_lg"].params
@@ -6555,6 +6565,11 @@ GRANITE_CHECK_LAYERS, GRANITE_CHECK_SEQ = 4, 256
 #: reduced: batch (train_4k: 256 -> 8); vocab_sizes (serve_bulk: every
 #: table capped at 1,000,000 rows)
 HELD_LM_BATCH, HELD_DLRM_ROW_CAP, HELD_REPS = 8, 1_000_000, 3
+#: SmolLM-135M ``train_4k`` at B 8 (phase 33): the peak predicted (GB,
+#: low and high) once the chunked attention's checkpoints kept no
+#: layer's fp32 K and V, nor its Q, past the layer (its dry trace: 5.316
+#: GB on the CPU); 10.978 GB on the card while they did.
+SMOLLM_TRAIN_PEAK_GB, SMOLLM_TRAIN_PEAK_BEFORE_GB = (5.2, 5.5), 10.978
 #: A measured step under this share of its roofline bound means a count
 #: is wrong.
 ROOFLINE_FLOOR = 0.95
@@ -6923,6 +6938,12 @@ def dryrun_phase(dev, card: str, launches: dict, recs: dict) -> None:
     # the CLI on this install.
     for key, got in runs.items():
         hold_to_dry_run(got, recs[key], card)
+    lo, hi = SMOLLM_TRAIN_PEAK_GB
+    peak = runs["smollm"]["peak"] / 1e9
+    print(f"# dryrun smollm-135m train_4k peak {peak:.3f} GB "
+          f"(max_memory_allocated) against {lo}-{hi} GB predicted "
+          f"(within: {lo <= peak <= hi}); {SMOLLM_TRAIN_PEAK_BEFORE_GB} GB "
+          f"while each layer's fp32 K and V outlived its group | {card}")
     rec = recs["production"]
     row = rec["roofline"]
     print(f"# dryrun production granite-3-2b prefill_32k on (16, 16): "

@@ -11,6 +11,8 @@ sees every operation before it is faked:
   arguments a step starts from are registered by
   :meth:`StepCounter.hold`.  ``peak`` is the most that was live at once:
   what the card must hold for the step, fake tensors taking no memory.
+  ``peak_by_op`` splits it by the operation that made each storage
+  (``"held"`` for the step's arguments).
 * **operand bytes** (``op_bytes``).  Each operation's tensor inputs read
   once and its outputs written once; views, allocations, metadata and
   collectives excluded (the collectives' bytes are the ledger's), and a
@@ -84,24 +86,30 @@ class StepCounter(TorchDispatchMode):
 
     def __init__(self):
         super().__init__()
-        self._sizes: dict[int, int] = {}
+        self._sizes: dict[int, tuple[int, str]] = {}
         self.live = 0
         self.peak = 0
         self.op_bytes = 0
+        self._live_by_op: dict[str, int] = defaultdict(int)
+        self.peak_by_op: dict[str, int] = {}
 
     # ---- live storages ---------------------------------------------------
     def _free(self, key: int) -> None:
-        self.live -= self._sizes.pop(key, 0)
+        n, op = self._sizes.pop(key, (0, ""))
+        self.live -= n
+        self._live_by_op[op] -= n
 
-    def _register(self, t: torch.Tensor) -> None:
+    def _register(self, t: torch.Tensor, op: str) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self._sizes:
             return
         n = st.nbytes()
-        self._sizes[key] = n
+        self._sizes[key] = (n, op)
         self.live += n
-        self.peak = max(self.peak, self.live)
+        self._live_by_op[op] += n
+        if self.live > self.peak:
+            self.reset_peak()
         weakref.finalize(st, self._free, key)
 
     def hold(self, tensors: Iterable) -> int:
@@ -110,11 +118,12 @@ class StepCounter(TorchDispatchMode):
         before = self.live
         for t in tree_leaves(tensors):
             if isinstance(t, torch.Tensor):
-                self._register(t)
+                self._register(t, "held")
         return self.live - before
 
     def reset_peak(self) -> None:
         self.peak = self.live
+        self.peak_by_op = {op: n for op, n in self._live_by_op.items() if n}
 
     # ---- dispatch ----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -122,7 +131,7 @@ class StepCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         for t in outs:
-            self._register(t)
+            self._register(t, func._schema.name)
         if (func.namespace not in ("c10d", "prim") and not func.is_view
                 and func._schema.name not in _NO_BYTES):
             moved = _gather_bytes(func, args, out)

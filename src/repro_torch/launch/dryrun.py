@@ -14,7 +14,8 @@ reference's keys where the port has a counterpart:
 * ``memory``: ``state_bytes`` (the rank's blocks of the arguments, the
   reference's argument bytes, DLRM's zero rows included), ``arg_bytes``
   (what the traced step started from: indices widened to int64, and the
-  global batch every rank of the port receives) and ``peak_bytes``;
+  global batch every rank of the port receives), ``peak_bytes`` and
+  ``peak_by_op`` (the peak's bytes by the operation that made them);
 * ``cost``: ``flops`` (``counters.FlopCounter``; ``k5_flops`` K5's share) and
   ``op_bytes`` (each operation's inputs read once and outputs written
   once: an unfused upper bound of HBM traffic, not XLA's
@@ -112,7 +113,8 @@ def _record(plan, result: dict, mesh_name: str, chips: int) -> dict:
     return {
         "memory": {"state_bytes": plan.state_bytes(),
                    "arg_bytes": result["arg_bytes"],
-                   "peak_bytes": result["peak_bytes"]},
+                   "peak_bytes": result["peak_bytes"],
+                   "peak_by_op": result["peak_by_op"]},
         "cost": {"flops": result["flops"], "k5_flops": result["k5_flops"],
                  "op_bytes": result["op_bytes"]},
         "collectives": collectives,

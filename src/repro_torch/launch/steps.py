@@ -21,7 +21,8 @@ metrics)``:
   each rank training on its :class:`~repro_torch.models.gnn.graph.
   GraphShard` of the batch, laid out by :func:`gnn_graph_specs` (nodes
   and edges over every axis for GCN and GatedGCN, over the dp axes for
-  MeshGraphNet and EquiformerV2, whose ``model`` ranks compute alike), and the
+  MeshGraphNet, whose ``model`` ranks compute alike, and EquiformerV2, whose
+  ``model`` ranks split its channels where they divide them), and the
   gradients summed over every rank; the ``minibatch_lg`` cell trains on a
   sampled subgraph padded to :func:`sampled_subgraph_sizes`, which
   :func:`subgraph_batch` lays out as the reference's graph batch.
@@ -64,7 +65,8 @@ from ..models import dlrm as dlrm_lib
 from ..models import transformer as tf_lib
 from ..models.common import REMAT_TAG
 from ..models.gnn.gcn import layer_dims
-from ..models.gnn.graph import GraphBatch, GraphShard, shard_graph
+from ..models.gnn.graph import (GraphBatch, GraphShard, channel_split,
+                                shard_graph)
 from ..optim.optimizers import AdamWState, adamw, global_norm, make_step
 from ..params import (_sharded_from_tree, gnn_tree, shard_dlrm,
                       shard_transformer, shard_transformer_tree, tree_loss)
@@ -75,7 +77,8 @@ from .train import GNN_MODELS
 __all__ = ["PAD_TO", "GNN_N_CLASSES", "sampled_subgraph_sizes",
            "lm_train_dtype", "TrainCell", "lm_train_cell",
            "dlrm_train_cell", "gnn_train_cell", "gnn_config",
-           "gnn_graph_specs", "gnn_node_split", "gnn_policy_traffic",
+           "gnn_graph_specs", "gnn_node_split", "gnn_channel_ranks",
+           "equiformer_channel_collectives", "gnn_policy_traffic",
            "subgraph_batch", "SERVE_FSDP_BYTES", "CellPlan", "plan",
            "build_cell", "trace_device", "RETRIEVAL_TOP_K",
            "retrieval_step"]
@@ -255,8 +258,10 @@ def gnn_config(arch, shape):
 #: (``remat``, as in the reference; GCN has none).
 GNN_REMAT = ("gatedgcn", "meshgraphnet", "equiformer-v2")
 
-#: The wide models: nodes and edges over the dp axes (the reference also
-#: lays their hidden channels over ``model``; here they stay whole).
+#: The wide models: nodes and edges over the dp axes.  The reference also
+#: lays their hidden channels over ``model``: so does EquiformerV2 here
+#: (:func:`gnn_channel_ranks`), while MeshGraphNet's stay whole (its
+#: per-edge MLPs over [e, h_s, h_r] would sum over ``model`` for each edge).
 _TWO_D = ("meshgraphnet", "equiformer-v2")
 
 
@@ -264,9 +269,9 @@ def gnn_graph_specs(arch_name: str, g: GraphBatch, policy) -> GraphBatch:
     """The reference's ``_gnn_graph_specs``: each field of ``g`` with the
     axes its first dim splits over, as a ``GraphBatch`` of specs.  Nodes
     and edges split over the dp axes for MeshGraphNet and EquiformerV2
-    (their hidden channels whole on every ``model`` rank), over every
-    axis for GCN and GatedGCN; node-level labels as the nodes, graph-level
-    labels whole."""
+    (their channels split, or not, by :func:`gnn_channel_ranks`), over
+    every axis for GCN and GatedGCN; node-level labels as the nodes,
+    graph-level labels whole."""
     axes, _ = gnn_node_split(arch_name, policy)
     node = (axes,)
     kw: dict[str, Any] = dict(
@@ -297,27 +302,76 @@ def gnn_node_split(arch_name: str, policy) -> tuple[Any, int]:
     return axes, policy.size(axes)
 
 
+def gnn_channel_ranks(arch_name: str, cfg, policy) -> int:
+    """The ranks a node block's channels split over: the ``model`` ranks
+    for EquiformerV2 when they divide ``d_hidden`` (the reference's
+    ``P(dp, None, model if C % tp == 0 else None)``), else 1 (whole)."""
+    if arch_name != "equiformer-v2" or policy is None:
+        return 1
+    return policy.tp if cfg.d_hidden % policy.tp == 0 else 1
+
+
+#: The backward's kind of each collective kind (its adjoint).
+_ADJOINT = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter",
+            "reduce-scatter": "all-gather"}
+
+
+def equiformer_channel_collectives(cfg, n_block: int, tp: int,
+                                   n_graphs: int = 1) -> list:
+    """EquiformerV2's collectives over its ``tp`` channel ranks, one step
+    of one rank: ``(what, kind, wire bytes, times, recomputed)`` for each
+    forward collective, its wire bytes from ``core.comm_model`` at the
+    node-level tensor's global bytes (f32) over ``tp``.  Each layer's
+    (``times`` ``n_layers``): each degree's sum of squares (all-reduce of
+    (n_block, l_max + 1)), the attention's first product (all-reduce of
+    (n_block, 2C)), the aggregate (reduce-scatter of (n_block, L2, C)) and
+    the invariant rows that drive the gate and the FFN (all-gather of
+    (n_block, C)); once a step, the readout's pooled rows (all-gather of
+    (n_graphs, C)).  The backward of each is its adjoint
+    (:data:`_ADJOINT`) over the same bytes, and a layer's recompute
+    re-issues each of its collectives."""
+    C, f32 = cfg.d_hidden, 4
+    kinds = {"all-reduce": comm_model.allreduce_bytes,
+             "all-gather": comm_model.allgather_bytes,
+             "reduce-scatter": comm_model.reduce_scatter_bytes}
+    L = cfg.n_layers
+    rows = [("norm sum of squares", "all-reduce", n_block * (cfg.l_max + 1),
+             L, True),
+            ("attention first product", "all-reduce", n_block * 2 * C, L,
+             True),
+            ("aggregate", "reduce-scatter", n_block * cfg.L2 * C, L, True),
+            ("invariant rows", "all-gather", n_block * C, L, True),
+            ("readout", "all-gather", n_graphs * C, 1, False)]
+    return [(what, kind, kinds[kind](f32 * n, tp), times, recomputed)
+            for what, kind, n, times, recomputed in rows]
+
+
 def gnn_policy_traffic(arch_name: str, cfg, policy, n_total: int,
-                       param_bytes: int) -> dict:
+                       param_bytes: int, *, n_graphs: int = 1) -> dict:
     """The wire bytes a rank of one GNN train step under ``policy``, by
     ``(tag, kind)``, from the paper's models: each senders' all-gather of
     ``n_total`` padded node rows over the node ranks is
     ``spmm_feature_allgather(n_total, width, node ranks)`` (GCN
     ``d_hidden`` then ``n_classes`` wide, GatedGCN and MeshGraphNet
-    ``d_hidden`` a layer, EquiformerV2 ``L2 * d_hidden`` a layer), its
-    backward's reduce-scatter the same, and the gradient sum
+    ``d_hidden`` a layer, EquiformerV2 ``L2 * d_hidden / tp`` and the
+    attention's senders' half, ``d_hidden``, a layer, ``tp`` its channel
+    ranks), its backward's reduce-scatter the same, and the gradient sum
     ``dp_gradient_sync(param_bytes, n_devices)``.  GatedGCN, MeshGraphNet
     and EquiformerV2 recompute every layer in the backward pass (their
     ``remat``, on in the train step as in the reference's), and each
     recompute gathers its layer's senders' rows again: the same all-gather
     bytes under ``gnn_gather_remat``, and no second reduce-scatter (the
-    backward runs through the forward's gather).  The readout's psums
-    (``gnn_readout``, a few scalars) are not modelled."""
+    backward runs through the forward's gather).  EquiformerV2 with its
+    channels split adds ``gnn_tp``: :func:`equiformer_channel_collectives`
+    and their backwards, over ``n_graphs`` pooled rows, and those each
+    layer's recompute re-issues under ``gnn_tp_remat``.  The readout's
+    psums (``gnn_readout``, a few scalars) are not modelled."""
     _, n = gnn_node_split(arch_name, policy)
+    tp = gnn_channel_ranks(arch_name, cfg, policy)
     if arch_name == "gcn-cora":
         widths = layer_dims(cfg)[1:]
     elif arch_name == "equiformer-v2":
-        widths = [cfg.L2 * cfg.d_hidden] * cfg.n_layers
+        widths = [cfg.L2 * cfg.d_hidden // tp, cfg.d_hidden] * cfg.n_layers
     else:
         widths = [cfg.d_hidden] * cfg.n_layers
     gather = sum(comm_model.spmm_feature_allgather(n_total, w, n).total(
@@ -328,6 +382,13 @@ def gnn_policy_traffic(arch_name: str, cfg, policy, n_total: int,
                    param_bytes, policy.n_devices).total("ici")}
     if arch_name in GNN_REMAT:
         traffic[("gnn_gather" + REMAT_TAG, "all-gather")] = gather
+    if tp > 1:
+        for _, kind, wire, times, recomputed in \
+                equiformer_channel_collectives(cfg, n_total // n, tp,
+                                               n_graphs):
+            for key in (("gnn_tp", kind), ("gnn_tp", _ADJOINT[kind])) + (
+                    (("gnn_tp" + REMAT_TAG, kind),) if recomputed else ()):
+                traffic[key] = traffic.get(key, 0.0) + times * wire
     return traffic
 
 
@@ -341,15 +402,23 @@ def _gnn_sizes(shape: ShapeSpec) -> tuple[int, int]:
             _pad(p["n_edges"] * p.get("batch", 1)))
 
 
+def _channel_axes(arch_name: str, cfg, policy):
+    """The axes the model's channels split over (None: whole)."""
+    return (policy.tp_axis if gnn_channel_ranks(arch_name, cfg, policy) > 1
+            else None)
+
+
 def _shard_gnn_batch(arch_name: str, cfg, policy, dev,
                      g: GraphBatch) -> GraphShard:
     """This rank's shard of a global batch (numpy or tensors), on ``dev``:
     nodes padded to :data:`PAD_TO`, each rank's edges to a multiple of
-    EquiformerV2's edge chunks."""
+    EquiformerV2's edge chunks, and its channels split over ``model``
+    where :func:`gnn_channel_ranks` splits them."""
     g = g.to(dev)
     return shard_graph(g, gnn_graph_specs(arch_name, g, policy), policy,
                        n_total=_pad(g.n_nodes),
-                       edge_chunks=getattr(cfg, "edge_chunks", 1))
+                       edge_chunks=getattr(cfg, "edge_chunks", 1),
+                       channel_axes=_channel_axes(arch_name, cfg, policy))
 
 
 def _sync_replicated(policy, grads) -> torch.Tensor:
@@ -566,7 +635,9 @@ class CellPlan:
         :class:`~repro_torch.launch.counters.StepCounter` and the
         collective ledger around it.  Returns ``flops`` (and ``k5_flops``,
         K5's share), ``op_bytes``, ``arg_bytes`` (the storages the step
-        started from), ``peak_bytes`` and ``ledger``.  Needs a process
+        started from), ``peak_bytes``, ``peak_by_op`` (the peak's bytes
+        by the operation that made them, the largest first) and
+        ``ledger``.  Needs a process
         group of the mesh's size (a ``fake`` one in the dry run)."""
         from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -590,6 +661,8 @@ class CellPlan:
                 "k5_flops": float(flops.by_op.get(k5, 0)),
                 "op_bytes": float(counter.op_bytes),
                 "arg_bytes": arg_bytes, "peak_bytes": counter.peak,
+                "peak_by_op": dict(sorted(counter.peak_by_op.items(),
+                                          key=lambda kv: -kv[1])),
                 "ledger": ledger}
 
 
@@ -805,7 +878,7 @@ def _gnn_graph_abstract(arch: ArchDef, shape: ShapeSpec, cfg,
 
 
 def _even_shard(g_abs: GraphBatch, specs: GraphBatch, policy, device,
-                n_total: int) -> GraphShard:
+                n_total: int, channel_axes=None) -> GraphShard:
     """This rank's shard of ``g_abs`` in the reference's even split by
     position (``E / n`` edges a rank, every edge real), with the fields a
     :class:`GraphShard` holds: indices widened to int64 as
@@ -833,7 +906,7 @@ def _even_shard(g_abs: GraphBatch, specs: GraphBatch, policy, device,
         edge_ids=torch.zeros((e_loc,), dtype=torch.int64, device=device),
         sym_norm=torch.zeros((e_loc,), dtype=torch.float32, device=device),
         n_total=n_total, node_group=policy.group(axes),
-        n_ranks=policy.n_devices)
+        n_ranks=policy.n_devices, **channel_split(policy, channel_axes))
 
 
 _EVEN_SPLIT = ("the reference's even split by position, E / n edges a "
@@ -892,7 +965,8 @@ def _gnn_plan(arch: ArchDef, shape: ShapeSpec, policy, *,
         cell = gnn_train_cell(arch, shape, policy,
                               _blocks(params_abs, param_specs, policy,
                                       device), cfg=cfg, device=device)
-        g = _even_shard(g_abs, g_specs, policy, device, sizes["N"])
+        g = _even_shard(g_abs, g_specs, policy, device, sizes["N"],
+                        _channel_axes(arch.name, cfg, policy))
         return cell.step, (cell.params, cell.opt_state, g)
 
     # The reference counts GCN's Python-loop layers fully and one scanned

@@ -71,7 +71,17 @@ def chunked_causal_attention(
     queries at global positions ``q_offset + i`` among the keys (a context
     parallel rank's sequence shard).  The shapes are this rank's own, so the
     budget needs no divisor for sharding (the reference's ``shard_divisor``
-    corrects GSPMD's global shapes)."""
+    corrects GSPMD's global shapes).
+
+    As in the reference, K and V are repeated over the query heads in
+    their own (compute) dtype outside the chunks and cast to fp32 inside
+    each.  The chunk's checkpoint takes its tensors as inputs, never by
+    closure (not even ``q``, for its device): a non-reentrant checkpoint
+    keeps its function, closure and all, until the backward, while its
+    inputs are saved through the enclosing saved-tensor hooks.  So under a
+    rematerialised decoder group the chunks keep nothing of Q, K and V but
+    the positions of the keys, and without one they keep the repeated
+    compute-dtype K and V, never an fp32 copy."""
     b, s, h, d = q.shape
     s_kv = k.shape[1]
     n_rep = h // k.shape[2]
@@ -86,15 +96,18 @@ def chunked_causal_attention(
         q_chunk = s  # irregular sizes take the single-block path
     n_chunks = s // q_chunk
 
-    kt = repeat_kv(k, n_rep).permute(0, 2, 3, 1).float()  # (B, H, D, Skv)
-    vt = repeat_kv(v, n_rep).permute(0, 2, 1, 3).float()  # (B, H, Skv, D)
+    kt = repeat_kv(k, n_rep).permute(0, 2, 3, 1)  # (B, H, D, Skv)
+    vt = repeat_kv(v, n_rep).permute(0, 2, 1, 3)  # (B, H, Skv, D)
     qs = q.permute(0, 2, 1, 3).reshape(b, h, n_chunks, q_chunk, d)
-    kv_pos = torch.arange(s_kv, device=q.device)
+    dev = q.device
+    kv_pos = torch.arange(s_kv, device=dev)
 
-    def one_chunk(ci: int, qc: torch.Tensor) -> torch.Tensor:
+    def one_chunk(ci: int, qc: torch.Tensor, kt: torch.Tensor,
+                  vt: torch.Tensor) -> torch.Tensor:
         q_pos = (q_offset + ci * q_chunk
-                 + torch.arange(q_chunk, device=q.device))
-        scores = torch.einsum("bhqd,bhdk->bhqk", qc.float() * scale, kt)
+                 + torch.arange(q_chunk, device=dev))
+        scores = torch.einsum("bhqd,bhdk->bhqk", qc.float() * scale,
+                              kt.float())
         if attn_softcap is not None:
             scores = softcap(scores, attn_softcap)
         causal = kv_pos[None, :] <= q_pos[:, None]
@@ -103,9 +116,9 @@ def chunked_causal_attention(
         scores = torch.where(causal, scores,
                              _mask_value(scores.dtype, scores.device))
         probs = torch.softmax(scores, dim=-1)
-        return torch.einsum("bhqk,bhkd->bhqd", probs, vt)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, vt.float())
 
-    out = torch.stack([checkpoint(one_chunk, ci, qs[:, :, ci],
+    out = torch.stack([checkpoint(one_chunk, ci, qs[:, :, ci], kt, vt,
                                   use_reentrant=False)
                        for ci in range(n_chunks)], dim=2)
     # (B, H, n_chunks, qc, D) -> (B, S, H, D)

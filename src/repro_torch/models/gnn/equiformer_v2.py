@@ -21,15 +21,26 @@ each layer keeps only its input unless ``remat=False``, and when the edges
 come in chunks each chunk's convolution and scatter keep only theirs, so
 the chunk loop does not hold every chunk's messages for the backward.
 
-On a :class:`.graph.GraphShard` (2-D: nodes and edges over the dp axes)
-the node gather comes once a layer, as the reference's ``_GATHER_ONCE``
-path: the normed rows (``L2 x C`` wide) all-gathered over the node ranks,
-outside the chunk loop, and again in the layer's recompute
-(``"gnn_gather_remat"`` in the ledger).
-The readout sums the invariant rows over every node rank before
-``out_mlp``.  The channels stay whole: the ``model`` ranks of a node block
-compute alike (the norm, the attention MLP, the SO(2) maps, the gate and
-the FFN each mix channels, so a split would gather them back for each).
+On a :class:`.graph.GraphShard` the nodes and edges lie over the dp
+axes and, when the ``model`` ranks divide them, the channels over
+``model`` (2-D GNN partitioning, the reference's
+``P(dp, None, model)`` node state): each rank holds its node block's
+``(N_block, L2, C / tp)`` slice and the slice of every weight it reads.
+The senders' table is all-gathered once a layer, outside the chunk loop,
+``L2 * C / tp`` wide (the paper's one feature all-gather a layer; the
+reference lets GSPMD place it), and again in the layer's recompute
+(``"gnn_gather_remat"``).  Every sum over the channel ranks is taken over
+node rows, never per edge (``"gnn_tp"``): each degree's sum of squares in
+the norm; the attention MLP's first product, split into per-node senders'
+and receivers' halves (the senders' half gathered like the table); the
+SO(2) maps, row-parallel over the rank's input channels, whose
+full-width partial messages stay partial through the un-rotation, the
+attention weights and the receivers' sum (all linear) and are
+reduce-scattered once a layer; and the invariant rows that drive the
+gate and the FFN on l = 0, all-gathered whole, from which each rank
+takes the gates and FFN outputs of its own channels.  The readout gathers
+the pooled invariant rows whole before ``out_mlp``.  With whole channels
+(one channel rank, or one device) every one of these is an identity.
 """
 
 from __future__ import annotations
@@ -41,8 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...backend import resolve_device
-from ..common import (MLP, checkpoint_layer, gather_rows, segment_softmax,
-                      segment_sum)
+from ..common import (MLP, checkpoint_layer, gather_rows, mlp_apply,
+                      segment_softmax, segment_sum)
 from .graph import GraphBatch
 
 __all__ = ["EquiformerV2Config", "EquiformerV2", "EquiformerV2Layer",
@@ -105,26 +116,47 @@ class EquiformerV2Layer(nn.Module):
 
 
 def equivariant_rms_norm(cfg: EquiformerV2Config, x: torch.Tensor,
-                         scale: torch.Tensor) -> torch.Tensor:
-    """Normalize each degree block by its RMS norm over (m, C)."""
+                         scale: torch.Tensor,
+                         channel_sum=None) -> torch.Tensor:
+    """Normalize each degree block by its RMS norm over (m, C).  ``x`` may
+    hold a slice of the channels, and ``scale`` its slice: ``channel_sum``
+    (a shard's :meth:`~.graph.GraphBatch.channel_sum`) then totals each
+    degree's sum of squares over the ranks that hold the others, (N,
+    l_max + 1) a rank, and the mean is over all ``cfg.d_hidden``."""
+    slices = _l_slices(cfg.l_max)
+    sq = torch.stack([x[:, s:s + n, :].square().sum(dim=(1, 2))
+                      for s, n in slices], dim=1)
+    if channel_sum is not None:
+        sq = channel_sum(sq)
     parts = []
-    for l, (s, n) in enumerate(_l_slices(cfg.l_max)):
-        blk = x[:, s:s + n, :]
-        rms = torch.sqrt(blk.square().mean(dim=(1, 2), keepdim=True) + 1e-6)
-        parts.append(blk / rms * scale[l][None, None, :])
+    for l, (s, n) in enumerate(slices):
+        rms = torch.sqrt(sq[:, l, None, None] / (n * cfg.d_hidden) + 1e-6)
+        parts.append(x[:, s:s + n, :] / rms * scale[l][None, None, :])
     return torch.cat(parts, dim=1)
 
 
+def _rows(w: torch.Tensor, blocks: int, lo: int, hi: int) -> torch.Tensor:
+    """The rows of ``w`` ((blocks x C), out) that read channels ``lo`` to
+    ``hi`` of each block: a view of all of ``w`` when they are all."""
+    return w.reshape(blocks, -1, w.shape[1])[:, lo:hi].reshape(
+        blocks * (hi - lo), w.shape[1])
+
+
 def _so2_conv(cfg: EquiformerV2Config, lp: EquiformerV2Layer, rot: dict,
-              x_edge: torch.Tensor) -> torch.Tensor:
-    """Rotate -> SO(2) linear (m-restricted) -> un-rotate.  x_edge (E, L2, C);
-    ``rot`` maps l to the (E, m_dim, 2l+1) Wigner blocks.
+              x_edge: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """Rotate -> SO(2) linear (m-restricted) -> un-rotate.  x_edge (E, L2,
+    Cl) holds channels ``lo`` to ``lo + Cl``; ``rot`` maps l to the (E,
+    m_dim, 2l+1) Wigner blocks.  Returns the (E, L2, C) messages over all
+    ``cfg.d_hidden`` output channels: the whole product when Cl is all of
+    them, else this slice's share (the maps row-parallel over it).
 
     Each degree's rotated rows are padded to the widest block's 2 m_max + 1
-    and stacked, (E, l_max + 1, 2 m_max + 1, C), so that one (m, part) row
+    and stacked, (E, l_max + 1, 2 m_max + 1, Cl), so that one (m, part) row
     over the degrees is one strided slice: the reference's row-by-row
     selections and concatenations, in fewer operations."""
-    E, _, C = x_edge.shape
+    E, _, Cl = x_edge.shape
+    C = cfg.d_hidden
+    hi = lo + Cl
     L, W = cfg.l_max + 1, 2 * cfg.m_max + 1
 
     # Rotate into the edge-aligned frame, keeping only |m| <= m_max rows.
@@ -135,14 +167,16 @@ def _so2_conv(cfg: EquiformerV2Config, lp: EquiformerV2Layer, rot: dict,
         for l, (s, n) in enumerate(_l_slices(cfg.l_max))], dim=1)
 
     # m = 0: plain linear over stacked (l, C).
-    outs = [(rot_feats[:, :, 0, :].reshape(E, L * C) @ lp.w_m0).view(E, L, C)]
+    outs = [(rot_feats[:, :, 0, :].reshape(E, L * Cl)
+             @ _rows(lp.w_m0, L, lo, hi)).view(E, L, C)]
 
     # m >= 1: complex linear (commutes with the residual z-rotation gauge),
     # over the degrees l >= m, zero rows in front for l < m.
     for m in range(1, cfg.m_max + 1):
-        xc = rot_feats[:, m:, 2 * m - 1, :].reshape(E, (L - m) * C)
-        xs = rot_feats[:, m:, 2 * m, :].reshape(E, (L - m) * C)
-        wr, wi = getattr(lp, f"w_m{m}_r"), getattr(lp, f"w_m{m}_i")
+        xc = rot_feats[:, m:, 2 * m - 1, :].reshape(E, (L - m) * Cl)
+        xs = rot_feats[:, m:, 2 * m, :].reshape(E, (L - m) * Cl)
+        wr, wi = (_rows(getattr(lp, f"w_m{m}_{part}"), L - m, lo, hi)
+                  for part in ("r", "i"))
         for y in (xc @ wr - xs @ wi, xs @ wr + xc @ wi):
             outs.append(F.pad(y.view(E, L - m, C), (0, 0, m, 0)))
     y = torch.stack(outs, dim=2)                     # (E, L, W, C)
@@ -195,57 +229,79 @@ class EquiformerV2(nn.Module):
     def _weighted_scatter(self, lp: EquiformerV2Layer, wig: dict,
                           snd: torch.Tensor, rcv: torch.Tensor,
                           alpha: torch.Tensor, src: torch.Tensor,
-                          N: int) -> torch.Tensor:
-        """One chunk's messages from the senders' table ``src``, weighed
-        by ``alpha`` per head and summed into the ``N`` receivers."""
+                          N: int, lo: int) -> torch.Tensor:
+        """One chunk's messages from the senders' table ``src`` (channels
+        ``lo`` on), weighed by ``alpha`` per head and summed into the
+        ``N`` receivers, over all the output channels (a partial sum when
+        ``src`` holds a slice)."""
         cfg = self.cfg
         C = cfg.d_hidden
-        msg = _so2_conv(cfg, lp, wig, gather_rows(src, snd))
+        msg = _so2_conv(cfg, lp, wig, gather_rows(src, snd), lo)
         mh = msg.reshape(msg.shape[0], cfg.L2, cfg.n_heads, C // cfg.n_heads)
         mh = mh * alpha[:, None, :, None]
         return segment_sum(mh.reshape(msg.shape[0], cfg.L2, C), rcv, N)
+
+    def _attention(self, lp: EquiformerV2Layer, h0: torch.Tensor,
+                   g: GraphBatch, emask: torch.Tensor) -> torch.Tensor:
+        """The (E, heads) attention weights from the normed invariant rows
+        ``h0`` (this rank's channels): the reference's MLP over [h_s0,
+        h_r0] with its first product taken per node, ``h_s0 @ W_a`` and
+        ``h_r0 @ W_b`` over the rank's channels summed over the channel
+        ranks, the senders' half gathered as the table is."""
+        C = self.cfg.d_hidden
+        lo, hi = g.channels(C)
+        w, b = list(lp.attn_mlp.w), list(lp.attn_mlp.b)
+        p = g.channel_sum(h0 @ torch.cat([w[0][lo:hi], w[0][C + lo:C + hi]],
+                                         dim=1))
+        z = torch.relu(gather_rows(g.senders_table(p[:, :C]), g.senders)
+                       + p[:, C:][g.receivers] + b[0])
+        scores = mlp_apply({"w": w[1:], "b": b[1:]}, z)
+        scores = torch.where(emask[:, None] > 0, scores,
+                             scores.new_tensor(-1e30))
+        return segment_softmax(scores, g.receivers, g.n_nodes) * \
+            emask[:, None]
 
     def _layer(self, lp: EquiformerV2Layer, x: torch.Tensor,
                g: GraphBatch, emask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         N, C = g.n_nodes, cfg.d_hidden
-        snd, rcv = g.senders, g.receivers
-        h = equivariant_rms_norm(cfg, x, lp.norm_scale)
+        lo, hi = g.channels(C)
+        h = equivariant_rms_norm(cfg, x, lp.norm_scale[:, lo:hi],
+                                 g.channel_sum)
         # The node gather, once a layer (over the node ranks).
         src = g.senders_table(h)
         # Attention from the invariant channels, over the full edge set.
-        scores = lp.attn_mlp(torch.cat([gather_rows(src[:, 0, :], snd),
-                                        h[:, 0, :][rcv]], dim=-1))
-        scores = torch.where(emask[:, None] > 0, scores,
-                             scores.new_tensor(-1e30))
-        alpha = segment_softmax(scores, rcv, N) * emask[:, None]
+        alpha = self._attention(lp, h[:, 0, :], g, emask)
         chunks = self._chunks(g, alpha)
         agg = None
         for wig_c, snd_c, rcv_c, alpha_c in chunks:
             part = checkpoint_layer(lp, wig_c, snd_c, rcv_c, alpha_c, src, N,
-                                    fn=self._weighted_scatter,
+                                    lo, fn=self._weighted_scatter,
                                     enabled=len(chunks) > 1)
             agg = part if agg is None else agg + part
-        x = x + agg
-        # Gated nonlinearity: l=0 drives sigmoid gates for l > 0.
-        s0 = x[:, 0, :]
-        gates = torch.sigmoid(s0 @ lp.gate).reshape(N, cfg.l_max, C)
-        parts = [F.silu(s0)[:, None, :]]
+        x = x + g.channel_scatter(agg, 2)
+        # Gated nonlinearity: l=0 drives sigmoid gates for l > 0.  The
+        # invariant rows, whole: each rank computes its channels' gates.
+        s0 = g.channel_gather(x[:, 0, :], 1)
+        gate = lp.gate.reshape(C, cfg.l_max, C)[:, :, lo:hi]
+        gates = torch.sigmoid(s0 @ gate.reshape(C, -1)).reshape(
+            N, cfg.l_max, hi - lo)
+        x0 = F.silu(s0)
+        # Invariant FFN on l=0, on whole rows, kept at this rank's channels.
+        parts = [(x0[:, lo:hi] + lp.ffn(x0)[:, lo:hi])[:, None, :]]
         for l, (s, n) in enumerate(_l_slices(cfg.l_max)[1:], start=1):
             parts.append(x[:, s:s + n, :] * gates[:, l - 1][:, None, :])
-        x = torch.cat(parts, dim=1)
-        # Invariant FFN on l=0.
-        x0 = x[:, 0, :]
-        return torch.cat([(x0 + lp.ffn(x0))[:, None, :], x[:, 1:, :]], dim=1)
+        return torch.cat(parts, dim=1)
 
     def forward(self, g: GraphBatch, *, remat: bool = True) -> torch.Tensor:
         """Invariant per-graph predictions (n_graphs, d_out).  With
         ``remat`` each layer keeps only its input for the backward pass."""
         cfg = self.cfg
         N = g.n_nodes
-        s0 = g.node_feat @ self.embed
+        lo, hi = g.channels(cfg.d_hidden)
+        s0 = g.node_feat @ self.embed[:, lo:hi]
         x = torch.cat([s0[:, None, :],
-                       s0.new_zeros((N, cfg.L2 - 1, cfg.d_hidden))], dim=1)
+                       s0.new_zeros((N, cfg.L2 - 1, hi - lo))], dim=1)
         emask = g.emask()
         for lp in self.layers:
             x = checkpoint_layer(lp, x, g, emask, fn=self._layer,
@@ -253,7 +309,8 @@ class EquiformerV2(nn.Module):
         inv = x[:, 0, :] * g.nmask()[:, None]
         gid = (g.graph_ids if g.graph_ids is not None
                else torch.zeros(N, dtype=torch.long, device=inv.device))
-        return self.out_mlp(g.node_total(segment_sum(inv, gid, g.n_graphs)))
+        pooled = g.node_total(segment_sum(inv, gid, g.n_graphs))
+        return self.out_mlp(g.channel_gather(pooled, 1))
 
 
 def loss_fn(model: EquiformerV2, g: GraphBatch

@@ -15,12 +15,17 @@ Under a sharding policy each rank trains on a :class:`GraphShard`, its view
 of the global batch (:func:`shard_graph`): a contiguous block of the padded
 nodes, and every edge whose receiver it owns (the receiver-owned layout of
 ``distributed.ring.partition_edges_gather``), senders kept as global ids.
-Every sum over a receiver's edges is then local.  The models reach the
-other ranks only through the batch's methods, which are identities on a
-``GraphBatch``: :meth:`GraphBatch.senders_table` (the node rows the edges
-read at their senders), :meth:`~GraphBatch.node_total` (a readout
-summed over the node ranks) and :meth:`~GraphBatch.objective` (this
-rank's share of a loss every rank computes alike).
+Every sum over a receiver's edges is then local.  A shard may also hold a
+slice of a model's channels (2-D GNN partitioning: the ranks that share a
+node block split the channels).  The models reach the other ranks only
+through the batch's methods, which are identities on a ``GraphBatch``:
+:meth:`GraphBatch.senders_table` (the node rows the edges read at their
+senders), :meth:`~GraphBatch.node_total` (a readout summed over the node
+ranks), :meth:`~GraphBatch.objective` (this rank's share of a loss every
+rank computes alike), and over the channel ranks
+:meth:`~GraphBatch.channels` (this rank's slice),
+:meth:`~GraphBatch.channel_sum`, :meth:`~GraphBatch.channel_scatter` and
+:meth:`~GraphBatch.channel_gather`.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ from ...backend import resolve_device
 from ...distributed import comm
 from ..common import segment_sum
 
-__all__ = ["GraphBatch", "GraphShard", "degrees", "sym_norm_coeffs",
-           "shard_graph"]
+__all__ = ["GraphBatch", "GraphShard", "channel_split", "degrees",
+           "sym_norm_coeffs", "shard_graph"]
 
 #: Fields that index nodes or graphs: int64 after :meth:`GraphBatch.to`.
 _INDEX_FIELDS = ("senders", "receivers", "graph_ids")
@@ -123,6 +128,25 @@ class GraphBatch:
         alike: what its backward starts from."""
         return loss
 
+    def channels(self, width: int) -> tuple[int, int]:
+        """``(lo, hi)``: the slice of ``width`` channels (or hidden units)
+        this rank holds, all of them here."""
+        return 0, width
+
+    def channel_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, a per-node partial over this rank's channels, summed
+        over the channel ranks."""
+        return x
+
+    def channel_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x``, a per-node partial over this rank's channels, summed
+        over the channel ranks: this rank's slice of ``dim``."""
+        return x
+
+    def channel_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The channel ranks' slices of ``dim`` put together, whole."""
+        return x
+
 
 @dataclass
 class GraphShard(GraphBatch):
@@ -146,6 +170,17 @@ class GraphShard(GraphBatch):
     single-device gradient.  Ranks outside ``node_group`` that hold the
     same node block (the ``model`` ranks of a 2-D model) compute alike,
     and the ``1 / n_ranks`` counts each of them once.
+
+    With ``channel_ranks`` > 1 those ranks split the model's channels
+    instead: this rank holds slice ``channel_rank`` of every channel axis
+    (:meth:`channels`), and the per-node partials over its slice meet over
+    ``channel_group`` (tagged ``"gnn_tp"``): :meth:`channel_sum` a
+    :func:`~repro_torch.distributed.comm.psum`, :meth:`channel_scatter` a
+    reduce-scatter (its backward an all-gather) and :meth:`channel_gather`
+    an all-gather (its backward a reduce-scatter).  Each backward is its
+    forward's adjoint, so a product a channel rank computes on its own
+    slice and one every channel rank repeats alike both come out summed
+    right over the ranks.
     """
 
     edge_ids: Any = None            # (E_loc,) global edge id, -1 on padding
@@ -153,8 +188,12 @@ class GraphShard(GraphBatch):
     n_total: int = 0                # padded global node count
     node_group: Any = None
     n_ranks: int = 1
+    channel_group: Any = None
+    channel_ranks: int = 1
+    channel_rank: int = 0
 
-    _SCALARS = ("n_graphs", "n_total", "node_group", "n_ranks")
+    _SCALARS = ("n_graphs", "n_total", "node_group", "n_ranks",
+                "channel_group", "channel_ranks", "channel_rank")
 
     def senders_table(self, x):
         return comm.all_gather(x, self.node_group, 0, tag="gnn_gather")
@@ -164,6 +203,35 @@ class GraphShard(GraphBatch):
 
     def objective(self, loss):
         return loss / self.n_ranks
+
+    def channels(self, width):
+        n = width // self.channel_ranks
+        return self.channel_rank * n, (self.channel_rank + 1) * n
+
+    def channel_sum(self, x):
+        if self.channel_ranks == 1:
+            return x
+        return comm.psum(x, self.channel_group, tag="gnn_tp")
+
+    def channel_scatter(self, x, dim):
+        if self.channel_ranks == 1:
+            return x
+        return comm.reduce_scatter(x, self.channel_group, dim, tag="gnn_tp")
+
+    def channel_gather(self, x, dim):
+        if self.channel_ranks == 1:
+            return x
+        return comm.all_gather(x, self.channel_group, dim, tag="gnn_tp")
+
+
+def channel_split(policy, axes) -> dict:
+    """The :class:`GraphShard` fields of a channel split over ``axes`` of
+    ``policy`` (none: whole channels)."""
+    if axes is None or policy.size(axes) == 1:
+        return {}
+    return {"channel_group": policy.group(axes),
+            "channel_ranks": policy.size(axes),
+            "channel_rank": policy.coord(axes)}
 
 
 def degrees(g: GraphBatch, *, direction: str = "in") -> torch.Tensor:
@@ -193,7 +261,8 @@ def _rows(x: torch.Tensor, lo: int, n: int) -> torch.Tensor:
 
 
 def shard_graph(g: GraphBatch, specs: GraphBatch, policy, *,
-                n_total: int, edge_chunks: int = 1) -> GraphShard:
+                n_total: int, edge_chunks: int = 1,
+                channel_axes=None) -> GraphShard:
     """This rank's :class:`GraphShard` of ``g``, a global batch of tensors
     that every rank passes alike, laid out by ``specs`` (the reference's
     ``_gnn_graph_specs``: a field whose spec names axes on its first dim
@@ -212,8 +281,10 @@ def shard_graph(g: GraphBatch, specs: GraphBatch, policy, *,
     (E, m_dim, 2l+1), and the blocks' own for pre-chunked ones, (n_chunks,
     Ec, m_dim, 2l+1) with their spec on the edge dim: those are flattened
     in the global edge order, cut as every other edge field, and chunked
-    again over the rank's edges.  Raises when ``n_total`` does not split
-    over the node ranks."""
+    again over the rank's edges.  With ``channel_axes`` the ranks along
+    them (which share the node block) split the model's channels
+    (:func:`channel_split`).  Raises when ``n_total`` does not split over
+    the node ranks."""
     axes = specs.node_feat[0]
     n, r = policy.size(axes), policy.coord(axes)
     if n_total < g.n_nodes or n_total % n:
@@ -268,4 +339,5 @@ def shard_graph(g: GraphBatch, specs: GraphBatch, policy, *,
         **kw, n_graphs=g.n_graphs,
         edge_ids=torch.cat([ids, ids.new_full((pad,), -1)]),
         sym_norm=edges(sym_norm_coeffs(g)), n_total=n_total,
-        node_group=policy.group(axes), n_ranks=policy.n_devices)
+        node_group=policy.group(axes), n_ranks=policy.n_devices,
+        **channel_split(policy, channel_axes))

@@ -252,3 +252,19 @@ def test_moe_balance_count_is_bincounts():
         _, _, fake_aux = moe.router_topk(torch.empty(512, 64),
                                          torch.empty(64, 128), cfg)
         assert fake_aux.shape == ()
+
+
+def test_step_counter_splits_its_peak_by_op():
+    from repro_torch.launch.counters import StepCounter
+
+    counter = StepCounter()
+    n = 256 * 256 * 4
+    with FakeTensorMode():
+        x = torch.zeros(256, 256)
+        assert counter.hold([x]) == n
+        with counter:
+            y = x @ x
+            z = y.exp()
+    assert counter.peak == 3 * n
+    assert counter.peak_by_op == {"held": n, "aten::mm": n, "aten::exp": n}
+    del y, z

@@ -25,10 +25,12 @@ traffic model to the byte (``launch.steps.gnn_policy_traffic``): the
 ``gnn_gather`` all-gathers, and their backward's reduce-scatters, are
 ``spmm_feature_allgather(N_pad, width, node ranks)`` summed over the
 gathered tensors (GCN ``d_hidden`` then ``n_classes`` wide, GatedGCN and
-MeshGraphNet ``d_hidden`` a layer, EquiformerV2 ``L2 * C`` a layer, the
-last two over the dp ranks); the three models that recompute their layers
-in the backward pass gather each layer's table again, the same bytes
-under ``gnn_gather_remat``; and ``grad_dp`` is
+MeshGraphNet ``d_hidden`` a layer, EquiformerV2 ``L2 * C / tp`` and
+``C`` a layer, its channels over the ``model`` ranks, the last two over
+the dp ranks); the three models that recompute their layers in the
+backward pass gather each layer's table again, the same bytes under
+``gnn_gather_remat``; EquiformerV2's sums over ``model`` are ``gnn_tp``
+and ``gnn_tp_remat``; and ``grad_dp`` is
 ``dp_gradient_sync(param_bytes, n_devices)``.  No other collective but
 the readout's scalar psums (``gnn_readout``) runs.
 
@@ -67,7 +69,6 @@ from repro_torch.distributed.ring import partition_edges_gather
 from repro_torch.distributed.sharding import make_policy
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import AbstractMesh
-from repro_torch.models.gnn import equiformer_v2 as eqv2
 from repro_torch.models.gnn.graph import GraphBatch, shard_graph
 from repro_torch.tree import tree_paths
 from test_torch_policy_train import PORT, _finish, _run_both, _start
@@ -470,11 +471,15 @@ def test_sharded_layer_equals_single_device(name, ranks):
             model = P.load_equiformer_v2(tree, cfg, device="cpu")
             lp = model.layers[0]
             x = torch.randn(full.n_nodes, cfg.L2, d)
+            # The layer gathers two tables (the normed rows and the
+            # attention's senders' half): each rank gets the whole graph's.
+            tables = []
+            full.senders_table = lambda x_: tables.append(x_) or x_
             want = model._layer(lp, x, full, full.emask())
-            table = eqv2.equivariant_rms_norm(cfg, x, lp.norm_scale)
+            assert len(tables) == 2
             outs = []
             for r, v in enumerate(views):
-                v.senders_table = lambda x_: table
+                v.senders_table = lambda x_, t=iter(tables): next(t)
                 n_loc = v.n_nodes
                 outs.append(model._layer(lp, x[r * n_loc:(r + 1) * n_loc],
                                          v, v.emask()))

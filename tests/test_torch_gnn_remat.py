@@ -346,11 +346,15 @@ def test_pre_chunked_sharded_layer_equals_single_device(ranks):
     torch.manual_seed(0)
     x = torch.randn(full.n_nodes, cfg.L2, cfg.d_hidden)
     with torch.no_grad():
+        # The layer gathers two tables (the normed rows and the attention's
+        # senders' half): each rank gets the whole graph's.
+        tables = []
+        full.senders_table = lambda x_: tables.append(x_) or x_
         want = model._layer(lp, x, full, full.emask())
-        table = eqv2.equivariant_rms_norm(cfg, x, lp.norm_scale)
+        assert len(tables) == 2
         outs = []
         for r, v in enumerate(views):
-            v.senders_table = lambda x_: table
+            v.senders_table = lambda x_, t=iter(tables): next(t)
             n_loc = v.n_nodes
             outs.append(model._layer(lp, x[r * n_loc:(r + 1) * n_loc], v,
                                      v.emask()))
