@@ -8,7 +8,7 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` compiles the kernels under ``src/repro_torch/csrc``; the
    registers and spills of each instance of the tensor-core kernels, by
-   name: bf16 K5 and K1 / K2, and of K3 and K4 (none may spill);
+   name: bf16 and f32 K5 and K1 / K2, and of K3 and K4 (none may spill);
 3. kernels vs plain versions: K1 (fused), K2 (aggregate) and K3 (combine)
    on the card, f32 and bf16, at the reference's four kernel-test shapes,
    at two shapes of the cluster schedules (one feature chunk split over 4
@@ -64,15 +64,19 @@ result.  Phases, any failure of which ends the run with a non-zero exit:
    context) and 128 greedy decode steps run through ``make_prefill_step``
    and ``make_serve_step``; the counters are read right after, and K5 must
    have launched exactly 30 times.  In f32 at B = 2, S = 256 the prefill on
-   the card matches the same prefill on the CPU (plain versions, the same
-   weights moved over by ``.cpu()``) and 256 decode steps from an empty
-   cache, and 4 further decode steps from each cache agree, all to 1e-4;
+   the card (f32 K5 counted: exactly 30 launches) matches the same prefill
+   on the CPU (plain versions, the same weights moved over by ``.cpu()``)
+   and 256 decode steps from an empty cache, and 4 further decode steps
+   from each cache agree, all to 1e-4;
 11. K5's time at the serving shape (CUDA events, median of 20), its
    TFLOP/s and share of its bound, beside the bound, its plain version,
    ``scaled_dot_product_attention`` (timed here only; the port never calls
-   it) and the f32 CUDA-core K5 on the same inputs widened to f32, and its
-   share of one prefill; K5 at gemma2-2b's attention shape (B 2, S 4096,
-   H 8, Hk 4, D 256, softcap 50), beside its bound and plain version; the
+   it) and its share of one prefill; f32 K5 (3xTF32) on the same inputs
+   widened to f32, beside its bounds (3xTF32 tensor-core and fp32
+   CUDA-core), its plain version and SDPA in f32 (TF32 off); both dtypes
+   at gemma2-2b's attention shape (B 2, S 4096, H 8, Hk 4, D 256, softcap
+   50), beside their bounds and plain versions, and f32 K5 at a qwen3-moe
+   head (B 1, S 4096, H 32, Hk 4, D 128) beside its bounds and SDPA; the
    device time of one prefill and of 8 decode steps by kind (K5, cuBLAS
    products, other kernels) under ``torch.profiler``, against the
    unprofiled host time, which gives the device's idle share;
@@ -426,10 +430,22 @@ KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/csrc/flash_attention_hopper.cuh",
         "replaces": "src/repro/kernels/flash_attention.py:30"},
+    "flash_attention.f32": {
+        "source": "src/repro_torch/csrc/flash_attention_tf32.cuh",
+        "replaces": "src/repro/kernels/flash_attention.py:30"},
     "embedding_bag": {
         "source": "src/repro_torch/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag.py:22"},
 }
+#: The f32 K5 kernel's entry in the kernels line (its launches: f32 K5 on
+#: the f32 serving paths of phases 10 and 20).
+K5_F32 = "flash_attention.f32"
+#: K5's two kernels as the profiler names them: bf16 and f32 (3xTF32).
+K5_KERNEL_NAMES = ("flash_wgmma_kernel", "flash_tf32_kernel")
+#: A qwen3-moe-30b-a3b attention head (src/repro/configs: 32 heads, 4 kv
+#: heads, head dim 128) over a 4096-token causal prefill at B = 1: (b, s, h,
+#: hk, d), timed in f32.
+QWEN3_ATTENTION = (1, 4096, 32, 4, 128)
 #: K5 against its plain version: the reference's tolerances
 #: (tests/test_kernels.py), relative to the largest output.
 ATTN_TOLERANCE = {"f32": 2e-5, "bf16": 3e-2}
@@ -735,7 +751,8 @@ def k5_work(b: int, s: int, h: int, hk: int, d: int,
             window=None) -> tuple[int, int]:
     """Bytes and operations of one causal bf16 K5 call: q, k, v read once
     and o written once; q·k and p·v over the key positions the causal mask
-    and the window admit (row i sees min(i + 1, window) keys)."""
+    and the window admit (row i sees min(i + 1, window) keys).  An f32
+    call moves twice the bytes."""
     from repro_torch.kernels.ops import attention_pairs
 
     pairs = attention_pairs(s, window=window)
@@ -761,11 +778,14 @@ def ptxas_rows(log: str, pattern: str, name) -> list[str]:
 
 
 def k5_ptxas(log: str) -> list[str]:
-    """The bf16 K5 kernel's instances (``flash_wgmma_kernel<DP, KT>``); the
-    registers are the count at launch, before ``setmaxnreg`` moves the
-    producer's to the consumers."""
-    return ptxas_rows(log, r"flash_wgmma_kernelILi(\d+)ELi(\d+)E",
-                      lambda m: f"flash_wgmma_kernel<{m[1]}, {m[2]}>")
+    """The bf16 K5 kernel's instances (``flash_wgmma_kernel<DP, KT>``) and
+    the f32 one's (``flash_tf32_kernel<DP>``); the registers are the count
+    at launch, before ``setmaxnreg`` moves the producer's to the
+    consumers."""
+    return (ptxas_rows(log, r"flash_wgmma_kernelILi(\d+)ELi(\d+)E",
+                       lambda m: f"flash_wgmma_kernel<{m[1]}, {m[2]}>")
+            + ptxas_rows(log, r"flash_tf32_kernelILi(\d+)E",
+                         lambda m: f"flash_tf32_kernel<{m[1]}>"))
 
 
 def aggregate_ptxas(log: str) -> list[str]:
@@ -1631,8 +1651,8 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
             raise AssertionError(f"K5 disagrees with its plain version at "
                                  f"{label}: {err}, {outside} elements "
                                  "beyond one bf16 step")
-        if (b, s, h, hk, d) == main_shape[:5] and key == "bf16":
-            max_abs[k5] = abs_err(got, expect)
+        if (b, s, h, hk, d) == main_shape[:5]:
+            max_abs[k5 if key == "bf16" else K5_F32] = abs_err(got, expect)
         del q, k, v, got, expect
 
     # 10. The serving path at full width and depth, bf16.
@@ -1707,7 +1727,7 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
     # Where the device time goes: one more prefill and 8 decode steps under
     # torch.profiler, outside the counted run.
     pre_kinds = device_time_by_kind(lambda: prefill(model, prompts), "K5",
-                                    "flash_wgmma_kernel")
+                                    K5_KERNEL_NAMES)
     _, cache = prefill(model, prompts)
     token = generated[0]
 
@@ -1717,7 +1737,7 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
             lg, cache = serve(model, cache, token, SERVE_PROMPT + step)
             token = lg.argmax(-1, keepdim=True)
 
-    dec_kinds = device_time_by_kind(decode_steps, "K5", "flash_wgmma_kernel")
+    dec_kinds = device_time_by_kind(decode_steps, "K5", K5_KERNEL_NAMES)
     step_ms = 1e3 * percentile(step_s, 50)
     for label, kinds, host_ms, n in (
             ("prefill", pre_kinds, prefill_ms, 1),
@@ -1739,7 +1759,15 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
     prefill32 = tr.make_prefill_step(cfg32, max_seq=max_seq)
     serve32 = tr.make_serve_step(cfg32, max_seq)
     gpu_tokens = tokens.to(dev)
+    f32_before = ops.K5_LAUNCHES["f32"]
     lg_p, cache_p = prefill32(model32, gpu_tokens[:, :CHECK_PROMPT])
+    torch.cuda.synchronize()
+    launches[K5_F32] = ops.K5_LAUNCHES["f32"] - f32_before
+    print(f"# serving f32 prefill launches: "
+          f"{json.dumps({K5_F32: launches[K5_F32]})}")
+    if launches[K5_F32] != cfg32.n_layers:
+        raise AssertionError(f"f32 K5 launched {launches[K5_F32]} times in "
+                             f"the f32 prefill; expected {cfg32.n_layers}")
     cache_d = tr.init_cache(cfg32, CHECK_BATCH, max_seq, device=dev)
     for i in range(CHECK_PROMPT):
         lg_d, cache_d = serve32(model32, cache_d, gpu_tokens[:, i:i + 1], i)
@@ -1760,8 +1788,46 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
             raise AssertionError(f"serving f32 {name}: {err}")
     del model32
 
-    # 11. K5's time at the serving shape, beside the f32 CUDA-core kernel on
-    # the same inputs widened to f32, and at gemma2-2b's attention shape.
+    # 11. K5's time at the serving shape, bf16 and f32 (the same inputs
+    # widened), and at gemma2-2b's attention shape; f32 K5 at a qwen3-moe
+    # head.  f32 K5's bound is three TF32 products at the TF32 tensor-core
+    # rate (3xTF32, as K1 and K2); the fp32 CUDA-core bound is printed
+    # beside it.  SDPA in f32 runs with TF32 off (backend.full_fp32).
+    from tools.k5_compare import sdpa
+
+    def f32_row(q32, k32, v32, nbytes, nops, cap=None):
+        """f32 K5's times and bounds at one shape (``nbytes`` the bf16
+        call's), with SDPA where the shape has no softcap."""
+        row32 = {"ms": time_ms(torch, lambda: fa.flash_attention(
+                     q32, k32, v32, softcap=cap)),
+                 "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                     q32, k32, v32, softcap=cap)),
+                 "library_ms": None, "backend": None,
+                 "bytes_ms": 2e3 * nbytes / PEAK_BYTES_PER_S,
+                 "ops_ms": 3e3 * nops / PEAK_TF32_OPS_PER_S,
+                 "fp32_ms": 1e3 * nops / PEAK_F32_OPS_PER_S}
+        row32["bound_ms"] = max(row32["bytes_ms"], row32["ops_ms"])
+        if cap is None:
+            fn, row32["backend"] = sdpa(torch, q32, k32, v32)
+            row32["library_ms"] = time_ms(torch, fn)
+        return row32
+
+    def f32_line(label, row32, nops) -> str:
+        lib = ("no library time (scaled_dot_product_attention takes no "
+               "softcap)" if row32["library_ms"] is None else
+               f"library (scaled_dot_product_attention f32, "
+               f"{row32['backend']}) {row32['library_ms']:.4f} ms (kernel / "
+               f"library {row32['ms'] / row32['library_ms']:.2f}x)")
+        share = 100 * row32["bound_ms"] / row32["ms"]
+        return (f"# time {k5} {label} f32 (3xTF32): kernel "
+                f"{row32['ms']:.4f} ms ({nops / row32['ms'] / 1e9:.1f} "
+                f"TFLOP/s of f32 work, {share:.1f}% of the bound), bound "
+                f"{row32['bound_ms']:.4f} ms (3 x {nops} op at the TF32 "
+                f"tensor-core rate; at the fp32 CUDA-core rate "
+                f"{row32['fp32_ms']:.4f} ms; its f32 bytes "
+                f"{row32['bytes_ms']:.4f} ms), plain "
+                f"{row32['plain_ms']:.4f} ms, {lib} | {card}")
+
     b, s, h, hk, d = main_shape[:5]
     q, k, v = (torch.randn(b, s, n, d, generator=gen).to(dev, torch.bfloat16)
                for n in (h, hk, hk))
@@ -1777,8 +1843,8 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
                is_causal=True, enable_gqa=True)),
            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
            "ops_ms": ops_ms}
-    f32_ms = time_ms(torch, lambda: fa.flash_attention(q32, k32, v32))
     totals[k5] = row
+    totals[K5_F32] = f32_row(q32, k32, v32, nbytes, nops)
     print(f"# time {k5} B={b} S={s} H={h} Hk={hk} D={d} bf16: kernel "
           f"{row['ms']:.4f} ms ({nops / row['ms'] / 1e9:.1f} TFLOP/s, "
           f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound), plain "
@@ -1786,12 +1852,12 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
           f"{row['library_ms']:.4f} ms (kernel / library "
           f"{row['ms'] / row['library_ms']:.2f}x), bound {row['bound_ms']:.4f}"
           f" ms ({nops} op at the bf16 tensor-core rate; {nbytes} B take "
-          f"{bytes_ms:.4f} ms); the f32 CUDA-core kernel on the same inputs "
-          f"in f32 {f32_ms:.4f} ms ({f32_ms / row['ms']:.1f}x the kernel; "
-          f"{1e3 * nops / PEAK_F32_OPS_PER_S:.4f} ms at the fp32 rate); "
+          f"{bytes_ms:.4f} ms); the f32 kernel on the same inputs widened "
+          f"takes {totals[K5_F32]['ms'] / row['ms']:.1f}x as long; "
           f"{cfg.n_layers} layers of K5 are "
           f"{100 * cfg.n_layers * row['ms'] / prefill_ms:.1f}% of one prefill"
           f" ({prefill_ms:.3f} ms) | {card}")
+    print(f32_line(f"B={b} S={s} H={h} Hk={hk} D={d}", totals[K5_F32], nops))
     del q, k, v, q32, k32, v32
     b, s, h, hk, d, cap = GEMMA2_ATTENTION
     q, k, v = (torch.randn(b, s, n, d, generator=gen).to(dev, torch.bfloat16)
@@ -1808,6 +1874,18 @@ def serving_phases(dev, card: str, launches: dict, max_abs: dict,
           f"(scaled_dot_product_attention takes no softcap), bound "
           f"{bound:.4f} ms ({nops} op at the bf16 tensor-core rate; {nbytes}"
           f" B) | {card}")
+    q, k, v = (t.float() for t in (q, k, v))
+    print(f32_line(f"gemma2-2b attention B={b} S={s} H={h} Hk={hk} D={d} "
+                   f"softcap {cap} causal",
+                   f32_row(q, k, v, nbytes, nops, cap), nops))
+    del q, k, v
+    b, s, h, hk, d = QWEN3_ATTENTION
+    q, k, v = (torch.randn(b, s, n, d, generator=gen).to(dev)
+               for n in (h, hk, hk))
+    nbytes, nops = k5_work(b, s, h, hk, d)
+    print(f32_line(f"qwen3-moe head B={b} S={s} H={h} Hk={hk} D={d} causal",
+                   f32_row(q, k, v, nbytes, nops), nops))
+    del q, k, v
 
 
 def bag_checks(dev, max_abs: dict) -> None:
@@ -2734,7 +2812,7 @@ def gemma2_phases(dev, card: str, launches: dict) -> None:
     # Where the device time goes: one more prefill and 8 decode steps under
     # torch.profiler, outside the counted run.
     pre_kinds = device_time_by_kind(lambda: prefill(model, prompts), "K5",
-                                    "flash_wgmma_kernel")
+                                    K5_KERNEL_NAMES)
     # One more prefill keeps what its first local and first global layer
     # hand K5 (the cell's own q, k, v), and its caches are held to them:
     # slot p % window of the ring holds position p for the last window
@@ -2777,7 +2855,7 @@ def gemma2_phases(dev, card: str, launches: dict) -> None:
             lg, cache = serve(model, cache, token, s + step)
             token = lg.argmax(-1, keepdim=True)
 
-    dec_kinds = device_time_by_kind(decode_steps, "K5", "flash_wgmma_kernel")
+    dec_kinds = device_time_by_kind(decode_steps, "K5", K5_KERNEL_NAMES)
     del cache
     torch.cuda.empty_cache()
     step_ms = 1e3 * percentile(step_s, 50)
@@ -2823,7 +2901,9 @@ def gemma2_phases(dev, card: str, launches: dict) -> None:
     del model, prompts, again, got, served_logits, exact
     torch.cuda.empty_cache()
 
-    # The f32 checks at full width and vocab, depth cut to 4 layers.
+    # The f32 checks at full width and vocab, depth cut to 4 layers; f32 K5
+    # is counted over the three prefill passes on the card.
+    f32_before = ops.K5_LAUNCHES["f32"]
     cfg32 = replace(cfg, n_layers=GEMMA2_CHECK_LAYERS, dtype="float32")
     model32 = params.draw_transformer(cfg32, seed=0, device=dev)
     n_ring = GEMMA2_RING_PROMPT + GEMMA2_RING_STEPS
@@ -2846,6 +2926,14 @@ def gemma2_phases(dev, card: str, launches: dict) -> None:
          f"{cfg.window_pattern[0]}-slot ring vs forward over {n_ring} "
          f"(worst at pos {worst[1]})"] = worst[0]
     del full, cache, lg
+    torch.cuda.synchronize()
+    n32 = ops.K5_LAUNCHES["f32"] - f32_before
+    launches[K5_F32] += n32
+    print(f"# gemma2 f32 launches: {json.dumps({K5_F32: n32})} (3 prefill "
+          "passes: two prefills and the forward)")
+    if n32 != 3 * cfg32.n_layers:
+        raise AssertionError(f"f32 K5 launched {n32} times in gemma2's f32 "
+                             f"checks; expected {3 * cfg32.n_layers}")
     model32.cpu()
     lg_cpu, _ = tr.make_prefill_step(cfg32)(
         model32, tokens[:, :GEMMA2_CHECK_PROMPT])
@@ -3725,7 +3813,7 @@ def moe_serving(dev, card: str, cfg, b: int, steps: int, label: str,
     split = {"routing and dispatch": ("index", "gather", "scatter", "scan",
                                       "topk", "sort")}
     pre_kinds = device_time_by_kind(lambda: prefill(model, prompts), "K5",
-                                    "flash_wgmma_kernel", extra=split)
+                                    K5_KERNEL_NAMES, extra=split)
     # One more prefill keeps what it hands K5 at layer 0, each layer's
     # dropped assignments, and at the checked layers the MoE input, output
     # and packing.
@@ -3766,7 +3854,7 @@ def moe_serving(dev, card: str, cfg, b: int, steps: int, label: str,
             lg, cache = serve(model, cache, token, s + step)
             token = lg.argmax(-1, keepdim=True)
 
-    dec_kinds = device_time_by_kind(decode_steps, "K5", "flash_wgmma_kernel",
+    dec_kinds = device_time_by_kind(decode_steps, "K5", K5_KERNEL_NAMES,
                                     extra=split)
     del cache
     torch.cuda.empty_cache()
@@ -4955,7 +5043,7 @@ def distributed_rank(rank: int, world: int, job: dict) -> dict:
         raise AssertionError(f"sharded prefill logits differ: {err}")
     nccl = {"NCCL": ("nccl",)}
     kinds = [device_time_by_kind(lambda: fn(m_, prompts), "K5",
-                                 "flash_wgmma_kernel", extra=nccl)
+                                 K5_KERNEL_NAMES, extra=nccl)
              for fn, m_ in ((pre_s, sharded), (pre_1, full))]
     say("smollm prefill device ms by kind (torch.profiler), sharded vs "
         "single-device: " + "; ".join(
@@ -7231,7 +7319,7 @@ def main() -> int:
     typed_phases(dev, card, launches)
     tuned = tune_phase(dev, card)
     served = serve_phase(dev, card, tuned["oracle"])
-    for kname in launches:
+    for kname in tuned["launches"]:
         launches[kname] += tuned["launches"][kname] + served[kname]
     gemma2_phases(dev, card, launches)
     ogb_edges = bridge_phase(dev, card, launches)
@@ -7269,11 +7357,17 @@ def main() -> int:
           "one layer of the SmolLM-135M prefill, bf16 (its launches: the "
           "SmolLM prefill's, the gemma2-2b prefill's, the qwen3-moe "
           "prefill's, the arctic prefill's, phase 31's sharded SmolLM "
-          "prefill's and phase 33's granite-3-2b prefills'); K6's the 26 "
+          "prefill's and phase 33's granite-3-2b prefills'); f32 K5's "
+          "(flash_attention.f32) the same layer widened to f32 (its "
+          "launches: phase 10's f32 prefill's and phase 20's three f32 "
+          "gemma2-2b passes'); K6's the 26 "
           "tables of one serve_bulk forward of DLRM-MLPerf, f32 (its "
           "launches: the DLRM serving path's, phase 30's training steps', "
           "phase 31's sharded forwards', phase 32's policy training steps' "
           "and phase 33's held serve_bulk forwards')")
+    print(f"# K5 launches in this process by dtype, every call through "
+          f"ops (the checks' included; phase 31-32's ranks not): "
+          f"{json.dumps(ops.K5_LAUNCHES)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -214,12 +214,6 @@ struct Params {
   int log2_residues;  // X's map takes R = 1 << log2_residues source rows as one
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(kConsumerBarrier), "n"(128 * kConsumers) : "memory");
 }

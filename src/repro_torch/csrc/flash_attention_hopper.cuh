@@ -1,8 +1,8 @@
 // K5 for bf16 inputs on Hopper: causal online-softmax (flash) attention with
 // both products on the tensor cores (wgmma) and the K and V tiles brought in
 // by the Tensor Memory Accelerator (TMA).  Included by flash_attention.cu,
-// whose C entry point sends bf16 calls here; f32 calls keep its CUDA-core
-// kernel.
+// whose C entry point sends bf16 calls here; f32 calls go to
+// flash_attention_tf32.cuh.
 //
 // Replaces, like that kernel: src/repro/kernels/flash_attention.py::_kernel.
 //

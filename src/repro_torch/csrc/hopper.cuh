@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the hand-written kernels: mbarriers,
 // TMA loads, wgmma shared-memory descriptors and fences, and the lookup of
-// cuTensorMapEncodeTiled.  Included by flash_attention_hopper.cuh (K5, bf16)
+// cuTensorMapEncodeTiled, and TF32 rounding.  Included by
+// flash_attention_hopper.cuh and flash_attention_tf32.cuh (K5, bf16 and f32)
 // and aggregate_hopper.cuh (K1 and K2).
 #pragma once
 
@@ -114,6 +115,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// v rounded to TF32 (10 stored significand bits), to nearest with ties
+// away from zero, as the bits of an f32.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

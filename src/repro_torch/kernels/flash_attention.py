@@ -9,10 +9,12 @@ the diagonal or outside the window are skipped.  bf16 inputs (the serving
 path's) take ``csrc/flash_attention_hopper.cuh``: 192 query rows per CTA
 at D = 64 and 128 above, both products on the tensor cores (``wgmma``, p
 split into two bf16 terms for p·v), K and V tiles by TMA into a two-stage
-ring.  f32 inputs take the
-fp32 CUDA-core kernel of ``csrc/flash_attention.cu``, 64 rows per CTA.  The
-CUDA sources alone decide that geometry (grid, kv tile, tiles walked,
-shared memory); this module passes them only the shapes.
+ring.  f32 inputs take ``csrc/flash_attention_tf32.cuh``: both products on
+the tensor cores as 3xTF32 ``wgmma`` (each operand split into TF32 hi and
+lo terms), q and K by TMA, V transposed K-major in shared memory by the
+producer warps; 192 query rows per CTA up to D = 64, 128 at D = 128 and 64
+above.  The CUDA sources alone decide that geometry (grid, kv tile, tiles
+walked, shared memory); this module passes them only the shapes.
 
 The TPU kernel's ``block_q`` and ``block_k`` are sized for VMEM.  A CTA's
 tile here is bounded by registers and 227 KB of shared memory instead, so the
@@ -48,10 +50,10 @@ DEFAULT_BLOCK_K = 128
 
 
 def check_head_dim(d: int) -> None:
-    """The CUDA kernels' limit on the head dim: the f32 kernel gives each of
-    16 threads D / 16 output columns and the bf16 kernel takes 16 columns of
-    q·k per ``wgmma`` step, so D is a multiple of 16, up to 256 (gemma2's
-    head)."""
+    """The CUDA kernels' limit on the head dim: the bf16 kernel takes 16
+    columns of q·k per ``wgmma`` step and the f32 kernel's V transpose
+    moves 16 columns at a time, so D is a multiple of 16, up to 256
+    (gemma2's head)."""
     if d % 16 or not 16 <= d <= 256:
         raise ValueError(f"head dim {d}: the CUDA kernel takes multiples of "
                          "16 in [16, 256]")
@@ -100,7 +102,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
     """K5 on the card: attention of ``q`` over ``k``, ``v`` with fp32 sums,
     output in ``q.dtype``, shape ``(B, S, H, D)``.  Operands are made
-    contiguous and 16-byte aligned (the bf16 kernel's tensor maps need it).
+    contiguous and 16-byte aligned (the kernels' tensor maps and the f32
+    kernel's 16-byte V loads need it).
 
     Launches on the current stream and does not synchronise.
     """

@@ -21,7 +21,11 @@ wrapper (for K5 and K6, each op's CUDA implementation) adds one right after
 its kernel launched, and nowhere else, so a run can show that its main path
 went through the kernels; a fake call launches nothing and counts nothing.  The counts are exact
 when several threads launch (the serve engine's dispatcher beside its
-callers): every addition holds a lock.
+callers): every addition holds a lock.  ``K5_LAUNCHES`` counts K5's
+launches by dtype, the two kernels it has (``f32``:
+``csrc/flash_attention_tf32.cuh``, ``bf16``: ``csrc/flash_attention_hopper.cuh``),
+since the module was imported: :func:`reset_launches` leaves it, so a run
+can total them and take a path's share as a difference.
 
 The aggregate and combine passes stay two launches, never joined under a
 CUDA graph or ``torch.compile``: the pair is the HyGCN inter-phase analogue,
@@ -42,7 +46,7 @@ from . import embedding_bag as eb
 from . import flash_attention as fa
 from . import segment_reduce as sr
 
-__all__ = ["LAUNCHES", "reset_launches", "gnn_aggregate_combine",
+__all__ = ["LAUNCHES", "K5_LAUNCHES", "reset_launches", "gnn_aggregate_combine",
            "gnn_aggregate", "gnn_combine", "schedule_counts",
            "attention_pairs", "flash_attention", "embedding_bag",
            "EmbeddingBagFunction", "embedding_bag_autograd"]
@@ -51,6 +55,8 @@ LAUNCHES = {"edge_aggregate": 0, "edge_aggregate_unfused.aggregate": 0,
             "edge_aggregate_unfused.combine": 0,
             "segment_reduce.schedule_counts": 0, "flash_attention": 0,
             "embedding_bag": 0}
+K5_LAUNCHES = {"f32": 0, "bf16": 0}
+_K5_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -62,10 +68,13 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def _launched(name: str) -> None:
-    """Add one launch of kernel ``name`` (a read-modify-write: locked)."""
+def _launched(name: str, dtype: Optional[torch.dtype] = None) -> None:
+    """Add one launch of kernel ``name`` (of K5's kernel for ``dtype``);
+    a read-modify-write: locked."""
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+        if dtype is not None:
+            K5_LAUNCHES[_K5_DTYPES[dtype]] += 1
 
 
 def gnn_aggregate_combine(adjacency: torch.Tensor, x: torch.Tensor,
@@ -146,7 +155,7 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = fa.flash_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, block_q=block_q,
                              block_k=block_k)
-    _launched("flash_attention")
+    _launched("flash_attention", q.dtype)
     return out
 
 

@@ -16,7 +16,9 @@ another order) and 3e-2 for bf16 (one bf16 rounding of the output).
 The bf16 CUDA kernel's arithmetic (tensor-core products, the online softmax
 in the log2 domain, p split into two bf16 terms for p·v) is emulated here on
 the CPU and held to the plain version at the element gate, so the numerics
-of its design are tested where its code cannot run.
+of its design are tested where its code cannot run.  So is the f32 kernel's
+(3xTF32: every operand split into TF32 hi and lo terms, three products a
+product), held to the f32 tolerance, and one TF32 term shown to miss it.
 """
 
 import jax
@@ -142,9 +144,97 @@ def _kernel_arithmetic(q, k, v, *, causal=True, window=None, softcap=None,
     return (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2).bfloat16()
 
 
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 stored significand bits, to
+    nearest with ties away from zero, by bit arithmetic on the int32 view
+    (adding half of the dropped 13 bits' unit to the magnitude, then
+    clearing them)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_terms(x, split):
+    """x as TF32 terms: hi = tf32(x) and lo = tf32(x - hi), or tf32(x)."""
+    hi = _tf32(x)
+    return (hi, _tf32(x - hi)) if split else (hi,)
+
+
+def _tf32_product(a, b, split):
+    """a @ b as the kernel's wgmma sums it: hi.hi + lo.hi + hi.lo (or one
+    TF32 term), each product exact, summed in fp64 and rounded to fp32."""
+    if not split:
+        return (_tf32(a).double() @ _tf32(b).double()).float()
+    (ah, al), (bh, bl) = _tf32_terms(a, True), _tf32_terms(b, True)
+    return (ah.double() @ bh.double() + al.double() @ bh.double()
+            + ah.double() @ bl.double()).float()
+
+
+#: A tile's kv order in the f32 kernel's V^T: within each group of 8, kv
+#: 2t at slot t and 2t + 1 at slot t + 4.
+def _kv_slots(n):
+    r = torch.arange(n)
+    return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2)
+
+
+def _tf32_kernel_arithmetic(q, k, v, *, causal=True, window=None,
+                            softcap=None, split=True):
+    """The f32 CUDA kernel's arithmetic in plain PyTorch, tile by tile.
+
+    q is scaled by D^-1/2 in fp32, then q, k, the fp32 weights p and v are
+    each split into TF32 hi and lo terms (``split=False``: rounded once to
+    TF32); each product is summed as :func:`_tf32_product` does, per kv
+    tile of the kernel's size (64 rows up to D = 64, 32 above).  p and v
+    take the kernel's kv order within the tile (:func:`_kv_slots`).  The
+    softcap, the mask to -inf, the online softmax in the log2 domain from
+    -1e30 and the fp32 row sums are the bf16 emulation's."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    kv_tile = 64 if d <= 64 else 32
+    qs = (q * d ** -0.5).transpose(1, 2)
+    kd = k.repeat_interleave(rep, 2).transpose(1, 2)
+    vd = v.repeat_interleave(rep, 2).transpose(1, 2)
+    log2e = 1.4426950408889634
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, h, s), -1e30)
+    l = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, d))
+    for c0 in range(0, s, kv_tile):
+        n = min(kv_tile, s - c0)
+        cols = torch.arange(c0, c0 + n)[None, :]
+        sc = _tf32_product(qs, kd[:, :, c0:c0 + n].transpose(-1, -2), split)
+        mul = log2e
+        if softcap is not None:
+            sc = (softcap * log2e) * torch.tanh(sc * (1.0 / softcap))
+            mul = 1.0
+        keep = torch.ones((s, n), dtype=torch.bool)
+        if causal:
+            keep &= cols <= rows
+        if window is not None:
+            keep &= rows - cols < window
+        sc = sc.masked_fill(~keep, float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1) * mul)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(sc * mul - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        order = torch.argsort(_kv_slots(n))  # the kv row at each slot
+        acc = (acc * corr[..., None]
+               + _tf32_product(p[..., order], vd[:, :, c0 + order], split))
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
+
+
 def _bf16_qkv(b, s, h, hk, d, seed):
     return [torch.as_tensor(np.asarray(a, np.float32)).bfloat16()
             for a in _qkv(b, s, h, hk, d, seed)]
+
+
+@pytest.fixture
+def one_thread():
+    """The emulations' products are small: one intra-op thread keeps them
+    from contending with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -242,7 +332,7 @@ def test_rows_are_convex_combinations(seed):
                          ids=["causal", "softcap50", "window100"])
 @pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("s", [128, 512])
-def test_split_p_arithmetic_holds_the_element_gate(s, d, case):
+def test_split_p_arithmetic_holds_the_element_gate(s, d, case, one_thread):
     """hi + lo bf16 terms of p: within 3e-2 of the plain version and every
     element within one bf16 step of it, GQA at rep 2."""
     q, k, v = _bf16_qkv(2, s, 4, 2, d, s + d)
@@ -253,7 +343,7 @@ def test_split_p_arithmetic_holds_the_element_gate(s, d, case):
     assert _beyond_bf16_step(got, expect) == 0
 
 
-def test_one_term_bf16_p_breaks_the_element_gate():
+def test_one_term_bf16_p_breaks_the_element_gate(one_thread):
     """Why the kernel splits p: rounded once to bf16 for p·v, as
     FlashAttention-2 and -3 do, it moves thousands of elements farther than
     one bf16 step from the plain version at S = 512, D = 64."""
@@ -262,6 +352,64 @@ def test_one_term_bf16_p_breaks_the_element_gate():
     assert _beyond_bf16_step(_kernel_arithmetic(q, k, v), expect) == 0
     assert _beyond_bf16_step(_kernel_arithmetic(q, k, v, split=False),
                              expect) > 1000
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernel's numerics (3xTF32), emulated on the CPU.
+# ---------------------------------------------------------------------------
+def _f32_qkv(b, s, h, hk, d, seed):
+    return [torch.as_tensor(np.asarray(a, np.float32))
+            for a in _qkv(b, s, h, hk, d, seed)]
+
+
+@pytest.mark.parametrize("case", [{}, {"softcap": 50.0},
+                                  {"window": 100}],
+                         ids=["causal", "softcap50", "window100"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s", [128, 200, 512])
+def test_tf32_split_arithmetic_holds_the_f32_tolerance(s, d, case,
+                                                       one_thread):
+    """hi + lo TF32 terms of q, k, p and v, three products a product:
+    within 2e-5 of the plain version, GQA at rep 2, S = 200 ragged for
+    either kv tile."""
+    q, k, v = _f32_qkv(1, s, 2, 1, d, s + d)
+    expect = fa.flash_attention_plain(q, k, v, **case)
+    got = _tf32_kernel_arithmetic(q, k, v, **case)
+    assert got.shape == expect.shape and got.dtype == torch.float32
+    assert _rel(_np(got), _np(expect)) < DTYPES["f32"][2]
+
+
+def test_kv_slots_put_accumulator_columns_in_fragment_slots():
+    """The k8 A fragment wants k slots t and t + 4 where the accumulator
+    holds kv columns 2t and 2t + 1: the slot of kv 2t is t, of 2t + 1 t + 4,
+    in every group of 8."""
+    slots = _kv_slots(64)
+    for t in range(4):
+        assert (slots[2 * t::8] == torch.arange(t, 64, 8)).all()
+        assert (slots[2 * t + 1::8] == torch.arange(t + 4, 64, 8)).all()
+    assert sorted(slots.tolist()) == list(range(64))
+
+
+def test_one_tf32_term_misses_the_f32_tolerance(one_thread):
+    """Why the kernel splits: each operand rounded once to TF32 (10 stored
+    significand bits) moves the output by far more than 2e-5 at S = 512,
+    D = 64, where the split stays inside it."""
+    q, k, v = _f32_qkv(1, 512, 2, 1, 64, 576)
+    expect = fa.flash_attention_plain(q, k, v)
+    assert _rel(_np(_tf32_kernel_arithmetic(q, k, v)), _np(expect)) < 2e-5
+    one = _rel(_np(_tf32_kernel_arithmetic(q, k, v, split=False)),
+               _np(expect))
+    assert one > 10 * DTYPES["f32"][2]
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """``_tf32`` against exact cases: 1 + 2^-11 (a tie) rounds up to
+    1 + 2^-10, and -(1 + 2^-11) to -(1 + 2^-10); 1 + 2^-12 rounds down;
+    every result keeps 10 significand bits."""
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12, 3.0])
+    assert _tf32(x).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 3.0]
+    r = _tf32(torch.randn(1000))
+    assert not bool((r.view(torch.int32) & 0x1FFF).any())
 
 
 # ---------------------------------------------------------------------------
@@ -337,15 +485,17 @@ def test_cpu_path_counts_no_launches():
     (1, 128, 2, 2, 32, True, None, 50.0), (1, 96, 4, 1, 256, True, 40, 50.0),
     (2, 48, 3, 1, 16, True, None, None), (2, 128, 4, 2, 32, False, 40, None),
     (8, 1920, 9, 3, 64, True, None, None), (1, 300, 8, 4, 256, True, 128, 50.0),
-    (2, 200, 9, 3, 64, True, None, None),
+    (2, 200, 9, 3, 64, True, None, None), (1, 256, 32, 4, 128, True, None, None),
+    (1, 200, 8, 4, 256, True, None, 50.0),
 ])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_cuda_kernel_matches_plain_version(b, s, h, hk, d, causal, window,
                                            cap, dtype, cuda_device):
     """The reference grid's edges, the serving shape (8, 1920, 9, 3, 64),
-    gemma2's head dim with softcap 50 and a window, and S = 200, 300 that
-    are not multiples of either kernel's q block (64 rows f32; 192 rows
-    bf16 at D = 64, 128 at D = 256)."""
+    gemma2's head dim with softcap 50 and a window, qwen3-moe's head (H 32,
+    Hk 4, D 128), and S = 200, 300 that are not multiples of either
+    kernel's q block (f32: 192 rows up to D = 64, 128 at D = 128, 64 at
+    D = 256; bf16: 192 rows at D = 64, 128 above)."""
     _, (q, k, v), tol = _both(_qkv(b, s, h, hk, d, s + d), dtype)
     q, k, v = (t.to(cuda_device) for t in (q, k, v))
     block = 64 if s % 64 == 0 else s  # blocks must divide s

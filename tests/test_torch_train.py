@@ -1,7 +1,9 @@
 """The port's training path held to the reference's on the CPU: chunked
 attention, the losses and their gradients, DLRM through K6's autograd
 ``Function``, five train steps from the reference's weights, the carry of
-weights back into the reference's layout, and ``launch.train``'s runs.
+weights back into the reference's layout, and ``launch.train``'s runs (its
+rollback runs are ``tests/test_torch_train_rollback.py``, a file of their
+own so that they run on a worker of their own).
 
 Weights come from the reference's ``init_params`` (``np.asarray`` leaf by
 leaf) and enter the port as a tree of tensors in the same layout, so both
@@ -364,22 +366,6 @@ def _run(tmp_path, name, *argv):
     args = train.build_parser().parse_args(
         list(argv) + ["--device", "cpu", "--ckpt-dir", str(tmp_path / name)])
     return train.train(args)
-
-
-@pytest.mark.parametrize("arch", ["smollm-135m", "gcn-cora", "dlrm-mlperf"])
-def test_run_loss_falls_and_rollback_replays_exactly(tmp_path, arch):
-    argv = ("--arch", arch, "--steps", "12", "--checkpoint-every", "4",
-            "--lr", "1e-2")
-    _, clean = _run(tmp_path, "clean", *argv)
-    state, failed = _run(tmp_path, "failed", *argv, "--fail-at", "6")
-    assert clean[-1]["loss"] < clean[0]["loss"]
-    # Steps 4 and 5 run twice: before the failure and after the rollback.
-    assert [h["step"] for h in failed] == list(range(6)) + list(range(4, 12))
-    strip = lambda hist: [{k: v for k, v in h.items() if k != "dt"}
-                          for h in hist]
-    assert strip(failed[6:]) == strip(clean[4:])
-    assert strip(failed[:6]) == strip(clean[:6])
-    assert int(state[1].step) == 12
 
 
 def test_compressed_run_converges_like_uncompressed(tmp_path):
