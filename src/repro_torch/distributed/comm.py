@@ -40,6 +40,10 @@ its use in the models needs:
 The ring SpMM overlaps its hops with compute through :func:`start_hop`
 (no autograd; its own ``Function`` gives the gradient).
 
+Each collective's transport runs in the span ``comm.<kind>.<tag>``
+(:data:`SPANS`; ``comm.<kind>`` for an untagged call or a tag outside
+:data:`TAGS`), which a profiler of the program records.
+
 Nothing here falls back: a group whose backend fails raises.
 """
 
@@ -52,8 +56,10 @@ from typing import Iterator, Optional
 import torch
 import torch.distributed as dist
 
+from ..obs import span
+
 __all__ = ["CollectiveOp", "CollectiveLedger", "recording", "retagged",
-           "group_size",
+           "KINDS", "TAGS", "SPANS", "group_size",
            "group_rank", "all_gather", "reduce_scatter", "split", "all_reduce",
            "psum", "all_to_all", "ring_hop", "start_hop", "all_reduce_grads"]
 
@@ -166,6 +172,21 @@ def retagged(suffix: str) -> Iterator[None]:
         _SUFFIXES.pop()
 
 
+#: The ledger's kinds of collective (the HLO names).
+KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all",
+         "collective-permute")
+#: The tags the program's callers give.
+TAGS = ("ce", "embedding", "fsdp", "gnn_gather", "gnn_readout", "gnn_tp",
+        "grad_dp", "grad_norm", "grad_tp", "metrics", "retrieval")
+#: The span of each (kind, tag), and of each kind untagged (tag ``""``).
+SPANS = {**{(k, ""): f"comm.{k}" for k in KINDS},
+         **{(k, t): f"comm.{k}.{t}" for k in KINDS for t in TAGS}}
+
+
+def _span(kind: str, tag: str = ""):
+    return span(SPANS.get((kind, tag)) or SPANS[kind, ""])
+
+
 def _record(kind: str, result: torch.Tensor, group, tag: str = "") -> None:
     if not _ACTIVE:
         return
@@ -197,7 +218,8 @@ _scatter_single = getattr(dist, "reduce_scatter_single", None) or \
 def _gather(x: torch.Tensor, group, dim: int, tag: str = ""):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((group_size(group) * xt.shape[0], *xt.shape[1:]))
-    _gather_single(out, xt, group=group)
+    with _span("all-gather", tag):
+        _gather_single(out, xt, group=group)
     out = out.movedim(0, dim).contiguous()
     _record("all-gather", out, group, tag)
     return out
@@ -210,7 +232,8 @@ def _scatter(x: torch.Tensor, group, dim: int, tag: str = ""):
         raise ValueError(f"reduce-scatter of {xt.shape[0]} rows over {g} "
                          "ranks")
     out = xt.new_empty((xt.shape[0] // g, *xt.shape[1:]))
-    _scatter_single(out, xt, op=dist.ReduceOp.SUM, group=group)
+    with _span("reduce-scatter", tag):
+        _scatter_single(out, xt, op=dist.ReduceOp.SUM, group=group)
     out = out.movedim(0, dim).contiguous()
     _record("reduce-scatter", out, group, tag)
     return out
@@ -241,7 +264,8 @@ class _ReduceScatter(torch.autograd.Function):
 def _reduce(x: torch.Tensor, group, tag: str,
             op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op, group=group)
+    with _span("all-reduce", tag):
+        dist.all_reduce(out, op=op, group=group)
     _record("all-reduce", out, group, tag)
     return out
 
@@ -295,7 +319,8 @@ def _exchange(x: torch.Tensor, group) -> torch.Tensor:
         raise ValueError(f"all-to-all of {x.shape[0]} splits over {g} ranks")
     xc = x.contiguous()
     out = torch.empty_like(xc)
-    dist.all_to_all_single(out, xc, group=group)
+    with _span("all-to-all"):
+        dist.all_to_all_single(out, xc, group=group)
     _record("all-to-all", out, group)
     return out
 
@@ -337,7 +362,8 @@ def start_hop(x: torch.Tensor, group, shift: int = 1) -> Hop:
                       group),
            dist.P2POp(dist.irecv, recv, _global_rank(group, (r - shift) % g),
                       group)]
-    works = dist.batch_isend_irecv(ops)
+    with _span("collective-permute"):
+        works = dist.batch_isend_irecv(ops)
     _record("collective-permute", recv, group)
     return Hop(recv, works)
 
@@ -410,7 +436,8 @@ def all_reduce_grads(tensors, group, *, mean: bool = False,
     group in place, one all-reduce per tensor."""
     g = group_size(group)
     for t in tensors:
-        dist.all_reduce(t, group=group)
+        with _span("all-reduce", tag):
+            dist.all_reduce(t, group=group)
         _record("all-reduce", t, group, tag)
         if mean:
             t.div_(g)

@@ -47,6 +47,7 @@ gathered a layer at a time; the retrieval cell's top-k merges each rank's
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field, fields, replace
 from functools import partial
 from typing import Any, Callable, Optional
@@ -54,6 +55,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..backend import resolve_device
 from ..configs import get_arch
 from ..configs.base import ArchDef, ShapeSpec
@@ -500,7 +502,12 @@ def subgraph_batch(arch_name: str, cfg, sub: SampledSubgraph,
     ``node_mask`` is the seed mask.  EquiformerV2 reads out the real nodes
     (``node_mask`` the node mask) against the graph-level ``labels`` (1,
     d_out), with ``positions`` (V, 3) gathered and each real edge's Wigner
-    blocks from its sender-to-receiver vector (the identity on padding)."""
+    blocks from its sender-to-receiver vector (the identity on padding).
+
+    Counts the batch, its padded and real node and edge rows, and the host
+    nanoseconds of the call into :mod:`repro_torch.obs`' ``layout.*``
+    counters."""
+    t0 = time.perf_counter_ns()
     nmask, emask = sub.node_mask, sub.edge_mask
     kw: dict[str, Any] = dict(
         node_feat=np.asarray(node_feat)[sub.node_ids] * nmask[:, None],
@@ -528,7 +535,15 @@ def subgraph_batch(arch_name: str, cfg, sub: SampledSubgraph,
         kw["node_mask"] = nmask
     elif arch_name not in ("gcn-cora", "gatedgcn"):
         raise ValueError(f"no sampled batch for {arch_name!r}")
-    return GraphBatch(**kw)
+    batch = GraphBatch(**kw)
+    for name, n in (("layout.batches", 1),
+                    ("layout.node_rows", len(sub.node_ids)),
+                    ("layout.real_node_rows", sub.n_real_nodes),
+                    ("layout.edge_rows", len(sub.senders)),
+                    ("layout.real_edge_rows", sub.n_real_edges),
+                    ("layout.host_ns", time.perf_counter_ns() - t0)):
+        obs.count(name, int(n))
+    return batch
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed import comm
+from ..obs import (GATHER_ROWS, RECOMPUTE, SEGMENT_SOFTMAX, SEGMENT_SUM,
+                   span)
 from ..tree import tree_leaves
 
 __all__ = ["Initializer", "dense_init", "he_init", "embed_init", "rms_norm", "layer_norm",
@@ -179,13 +181,15 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     the rows arrive; the reference's ``segment_sum`` accumulates in the
     values' dtype, so the two differ only where that rounding shows.
     """
-    acc = torch.zeros((num_segments, *values.shape[1:]), dtype=torch.float64,
-                      device=values.device)
-    step = max(1, SEGMENT_SUM_CHUNK // max(1, math.prod(values.shape[1:])))
-    for lo in range(0, values.shape[0], step):
-        acc.index_add_(0, segment_ids[lo:lo + step],
-                       values[lo:lo + step].double())
-    return acc.to(values.dtype)
+    with span(SEGMENT_SUM):
+        acc = torch.zeros((num_segments, *values.shape[1:]),
+                          dtype=torch.float64, device=values.device)
+        step = max(1, SEGMENT_SUM_CHUNK // max(1, math.prod(
+            values.shape[1:])))
+        for lo in range(0, values.shape[0], step):
+            acc.index_add_(0, segment_ids[lo:lo + step],
+                           values[lo:lo + step].double())
+        return acc.to(values.dtype)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -207,7 +211,8 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     of ``x[idx]`` sorts the ids and sums each run of equal ids in one warp:
     on the card that took 28.3 s of a GCN step at ogb_products, whose hub
     sends 2.7e7 edges."""
-    return _GatherRows.apply(x, idx)
+    with span(GATHER_ROWS):
+        return _GatherRows.apply(x, idx)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
@@ -217,16 +222,18 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     takes no other).  A segment with no member has no maximum: it starts
     at ``-inf``, which is then mapped to 0, as the reference maps
     ``segment_max``'s empty segments."""
-    idx = segment_ids.view(-1, *([1] * (logits.dim() - 1))).expand_as(logits)
-    seg_max = logits.new_full((num_segments, *logits.shape[1:]),
-                              float("-inf"))
-    seg_max = seg_max.scatter_reduce(0, idx, logits, "amax",
-                                     include_self=True)
-    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
-                          torch.zeros_like(seg_max))
-    expd = torch.exp(logits - seg_max[segment_ids])
-    seg_sum = segment_sum(expd, segment_ids, num_segments)
-    return expd / (seg_sum[segment_ids] + 1e-9)
+    with span(SEGMENT_SOFTMAX):
+        idx = segment_ids.view(-1, *([1] * (logits.dim() - 1))).expand_as(
+            logits)
+        seg_max = logits.new_full((num_segments, *logits.shape[1:]),
+                                  float("-inf"))
+        seg_max = seg_max.scatter_reduce(0, idx, logits, "amax",
+                                         include_self=True)
+        seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                              torch.zeros_like(seg_max))
+        expd = torch.exp(logits - seg_max[segment_ids])
+        seg_sum = segment_sum(expd, segment_ids, num_segments)
+        return expd / (seg_sum[segment_ids] + 1e-9)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -272,8 +279,14 @@ def _rebound(bound: _Bound, weights: dict, *args):
         bound, {f"module.{k}": v for k, v in weights.items()}, args)
 
 
+@contextlib.contextmanager
+def _recomputing():
+    with span(RECOMPUTE), comm.retagged(REMAT_TAG):
+        yield
+
+
 def _remat_contexts():
-    return contextlib.nullcontext(), comm.retagged(REMAT_TAG)
+    return contextlib.nullcontext(), _recomputing()
 
 
 def checkpoint_layer(module: nn.Module, *args, fn: Optional[Callable] = None,
@@ -290,7 +303,8 @@ def checkpoint_layer(module: nn.Module, *args, fn: Optional[Callable] = None,
     weights and give wrong gradients with no error.  So the tensors that
     stand for ``module``'s parameters are taken here, in the forward, and
     the recompute binds the same tensors again.  The collectives the
-    recompute issues are recorded under their tag and :data:`REMAT_TAG`.
+    recompute issues are recorded under their tag and :data:`REMAT_TAG`,
+    and the recompute runs in the span ``remat.recompute``.
     The layers draw no random numbers, so no generator state is kept."""
     call = fn or nn.Module.__call__
     if not (enabled and torch.is_grad_enabled()):

@@ -52,6 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...backend import resolve_device
+from ...obs import (EQV2_ATTENTION, EQV2_GATE_FFN, EQV2_NORM, EQV2_SO2_CONV,
+                    span)
 from ..common import (MLP, checkpoint_layer, gather_rows, mlp_apply,
                       segment_softmax, segment_sum)
 from .graph import GraphBatch
@@ -123,16 +125,18 @@ def equivariant_rms_norm(cfg: EquiformerV2Config, x: torch.Tensor,
     (a shard's :meth:`~.graph.GraphBatch.channel_sum`) then totals each
     degree's sum of squares over the ranks that hold the others, (N,
     l_max + 1) a rank, and the mean is over all ``cfg.d_hidden``."""
-    slices = _l_slices(cfg.l_max)
-    sq = torch.stack([x[:, s:s + n, :].square().sum(dim=(1, 2))
-                      for s, n in slices], dim=1)
-    if channel_sum is not None:
-        sq = channel_sum(sq)
-    parts = []
-    for l, (s, n) in enumerate(slices):
-        rms = torch.sqrt(sq[:, l, None, None] / (n * cfg.d_hidden) + 1e-6)
-        parts.append(x[:, s:s + n, :] / rms * scale[l][None, None, :])
-    return torch.cat(parts, dim=1)
+    with span(EQV2_NORM):
+        slices = _l_slices(cfg.l_max)
+        sq = torch.stack([x[:, s:s + n, :].square().sum(dim=(1, 2))
+                          for s, n in slices], dim=1)
+        if channel_sum is not None:
+            sq = channel_sum(sq)
+        parts = []
+        for l, (s, n) in enumerate(slices):
+            rms = torch.sqrt(sq[:, l, None, None] / (n * cfg.d_hidden)
+                             + 1e-6)
+            parts.append(x[:, s:s + n, :] / rms * scale[l][None, None, :])
+        return torch.cat(parts, dim=1)
 
 
 def _rows(w: torch.Tensor, blocks: int, lo: int, hi: int) -> torch.Tensor:
@@ -154,37 +158,39 @@ def _so2_conv(cfg: EquiformerV2Config, lp: EquiformerV2Layer, rot: dict,
     and stacked, (E, l_max + 1, 2 m_max + 1, Cl), so that one (m, part) row
     over the degrees is one strided slice: the reference's row-by-row
     selections and concatenations, in fewer operations."""
-    E, _, Cl = x_edge.shape
-    C = cfg.d_hidden
-    hi = lo + Cl
-    L, W = cfg.l_max + 1, 2 * cfg.m_max + 1
+    with span(EQV2_SO2_CONV):
+        E, _, Cl = x_edge.shape
+        C = cfg.d_hidden
+        hi = lo + Cl
+        L, W = cfg.l_max + 1, 2 * cfg.m_max + 1
 
-    # Rotate into the edge-aligned frame, keeping only |m| <= m_max rows.
-    # Row layout within each l block (wigner_stack): [m=0, 1c, 1s, 2c, ...]
-    rot_feats = torch.stack([
-        F.pad(torch.bmm(rot[l], x_edge[:, s:s + n, :]),
-              (0, 0, 0, W - cfg.m_dim(l)))
-        for l, (s, n) in enumerate(_l_slices(cfg.l_max))], dim=1)
+        # Rotate into the edge-aligned frame, keeping only |m| <= m_max
+        # rows.  Row layout within each l block (wigner_stack): [m=0, 1c,
+        # 1s, 2c, ...]
+        rot_feats = torch.stack([
+            F.pad(torch.bmm(rot[l], x_edge[:, s:s + n, :]),
+                  (0, 0, 0, W - cfg.m_dim(l)))
+            for l, (s, n) in enumerate(_l_slices(cfg.l_max))], dim=1)
 
-    # m = 0: plain linear over stacked (l, C).
-    outs = [(rot_feats[:, :, 0, :].reshape(E, L * Cl)
-             @ _rows(lp.w_m0, L, lo, hi)).view(E, L, C)]
+        # m = 0: plain linear over stacked (l, C).
+        outs = [(rot_feats[:, :, 0, :].reshape(E, L * Cl)
+                 @ _rows(lp.w_m0, L, lo, hi)).view(E, L, C)]
 
-    # m >= 1: complex linear (commutes with the residual z-rotation gauge),
-    # over the degrees l >= m, zero rows in front for l < m.
-    for m in range(1, cfg.m_max + 1):
-        xc = rot_feats[:, m:, 2 * m - 1, :].reshape(E, (L - m) * Cl)
-        xs = rot_feats[:, m:, 2 * m, :].reshape(E, (L - m) * Cl)
-        wr, wi = (_rows(getattr(lp, f"w_m{m}_{part}"), L - m, lo, hi)
-                  for part in ("r", "i"))
-        for y in (xc @ wr - xs @ wi, xs @ wr + xc @ wi):
-            outs.append(F.pad(y.view(E, L - m, C), (0, 0, m, 0)))
-    y = torch.stack(outs, dim=2)                     # (E, L, W, C)
+        # m >= 1: complex linear (commutes with the residual z-rotation
+        # gauge), over the degrees l >= m, zero rows in front for l < m.
+        for m in range(1, cfg.m_max + 1):
+            xc = rot_feats[:, m:, 2 * m - 1, :].reshape(E, (L - m) * Cl)
+            xs = rot_feats[:, m:, 2 * m, :].reshape(E, (L - m) * Cl)
+            wr, wi = (_rows(getattr(lp, f"w_m{m}_{part}"), L - m, lo, hi)
+                      for part in ("r", "i"))
+            for y in (xc @ wr - xs @ wi, xs @ wr + xc @ wi):
+                outs.append(F.pad(y.view(E, L - m, C), (0, 0, m, 0)))
+        y = torch.stack(outs, dim=2)                     # (E, L, W, C)
 
-    # Rotate back with D^T, each degree over its m-restricted rows.
-    return torch.cat([
-        torch.bmm(rot[l].transpose(1, 2), y[:, l, :cfg.m_dim(l), :])
-        for l in range(L)], dim=1)                   # (E, L2, C)
+        # Rotate back with D^T, each degree over its m-restricted rows.
+        return torch.cat([
+            torch.bmm(rot[l].transpose(1, 2), y[:, l, :cfg.m_dim(l), :])
+            for l in range(L)], dim=1)                   # (E, L2, C)
 
 
 class EquiformerV2(nn.Module):
@@ -251,15 +257,16 @@ class EquiformerV2(nn.Module):
         C = self.cfg.d_hidden
         lo, hi = g.channels(C)
         w, b = list(lp.attn_mlp.w), list(lp.attn_mlp.b)
-        p = g.channel_sum(h0 @ torch.cat([w[0][lo:hi], w[0][C + lo:C + hi]],
-                                         dim=1))
-        z = torch.relu(gather_rows(g.senders_table(p[:, :C]), g.senders)
-                       + p[:, C:][g.receivers] + b[0])
-        scores = mlp_apply({"w": w[1:], "b": b[1:]}, z)
-        scores = torch.where(emask[:, None] > 0, scores,
-                             scores.new_tensor(-1e30))
-        return segment_softmax(scores, g.receivers, g.n_nodes) * \
-            emask[:, None]
+        with span(EQV2_ATTENTION):
+            p = g.channel_sum(h0 @ torch.cat([w[0][lo:hi],
+                                              w[0][C + lo:C + hi]], dim=1))
+            z = torch.relu(gather_rows(g.senders_table(p[:, :C]), g.senders)
+                           + p[:, C:][g.receivers] + b[0])
+            scores = mlp_apply({"w": w[1:], "b": b[1:]}, z)
+            scores = torch.where(emask[:, None] > 0, scores,
+                                 scores.new_tensor(-1e30))
+            return segment_softmax(scores, g.receivers, g.n_nodes) * \
+                emask[:, None]
 
     def _layer(self, lp: EquiformerV2Layer, x: torch.Tensor,
                g: GraphBatch, emask: torch.Tensor) -> torch.Tensor:
@@ -280,18 +287,20 @@ class EquiformerV2(nn.Module):
                                     enabled=len(chunks) > 1)
             agg = part if agg is None else agg + part
         x = x + g.channel_scatter(agg, 2)
-        # Gated nonlinearity: l=0 drives sigmoid gates for l > 0.  The
-        # invariant rows, whole: each rank computes its channels' gates.
-        s0 = g.channel_gather(x[:, 0, :], 1)
-        gate = lp.gate.reshape(C, cfg.l_max, C)[:, :, lo:hi]
-        gates = torch.sigmoid(s0 @ gate.reshape(C, -1)).reshape(
-            N, cfg.l_max, hi - lo)
-        x0 = F.silu(s0)
-        # Invariant FFN on l=0, on whole rows, kept at this rank's channels.
-        parts = [(x0[:, lo:hi] + lp.ffn(x0)[:, lo:hi])[:, None, :]]
-        for l, (s, n) in enumerate(_l_slices(cfg.l_max)[1:], start=1):
-            parts.append(x[:, s:s + n, :] * gates[:, l - 1][:, None, :])
-        return torch.cat(parts, dim=1)
+        with span(EQV2_GATE_FFN):
+            # Gated nonlinearity: l=0 drives sigmoid gates for l > 0.  The
+            # invariant rows, whole: each rank computes its channels' gates.
+            s0 = g.channel_gather(x[:, 0, :], 1)
+            gate = lp.gate.reshape(C, cfg.l_max, C)[:, :, lo:hi]
+            gates = torch.sigmoid(s0 @ gate.reshape(C, -1)).reshape(
+                N, cfg.l_max, hi - lo)
+            x0 = F.silu(s0)
+            # Invariant FFN on l=0, on whole rows, kept at this rank's
+            # channels.
+            parts = [(x0[:, lo:hi] + lp.ffn(x0)[:, lo:hi])[:, None, :]]
+            for l, (s, n) in enumerate(_l_slices(cfg.l_max)[1:], start=1):
+                parts.append(x[:, s:s + n, :] * gates[:, l - 1][:, None, :])
+            return torch.cat(parts, dim=1)
 
     def forward(self, g: GraphBatch, *, remat: bool = True) -> torch.Tensor:
         """Invariant per-graph predictions (n_graphs, d_out).  With

@@ -38,6 +38,7 @@ import torch
 
 from ...backend import resolve_device
 from ...distributed import comm
+from ...obs import SYM_NORM, span
 from ..common import segment_sum
 
 __all__ = ["GraphBatch", "GraphShard", "channel_split", "degrees",
@@ -245,11 +246,12 @@ def sym_norm_coeffs(g: GraphBatch, *, eps: float = 1e-9) -> torch.Tensor:
     batch's degrees, as its cut took them."""
     if isinstance(g, GraphShard):
         return g.sym_norm
-    deg_in = degrees(g, direction="in")
-    deg_out = degrees(g, direction="out")
-    inv_i = torch.rsqrt(torch.clamp_min(deg_in, eps))[g.receivers]
-    inv_j = torch.rsqrt(torch.clamp_min(deg_out, eps))[g.senders]
-    return inv_i * inv_j * g.emask()
+    with span(SYM_NORM):
+        deg_in = degrees(g, direction="in")
+        deg_out = degrees(g, direction="out")
+        inv_i = torch.rsqrt(torch.clamp_min(deg_in, eps))[g.receivers]
+        inv_j = torch.rsqrt(torch.clamp_min(deg_out, eps))[g.senders]
+        return inv_i * inv_j * g.emask()
 
 
 def _rows(x: torch.Tensor, lo: int, n: int) -> torch.Tensor:

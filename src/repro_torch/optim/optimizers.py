@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..obs import STEP, SYNC, UPDATE, span
 from ..tree import (tree_flatten, tree_leaves, tree_map, tree_unflatten,
                     value_and_grad)
 
@@ -227,16 +228,24 @@ def make_step(loss: Callable, optimizer: Optimizer, *,
     one rank's gradients whole in place and returns their global norm,
     which the update's clipping reads.  Its halves stay reachable as
     ``step_fn.grad_fn`` and ``step_fn.optimizer`` (to time or check them
-    apart)."""
+    apart).  A step runs in the span ``step``, the sync in ``step.sync``
+    and the update in ``step.update`` (:mod:`repro_torch.obs`)."""
     grad_fn = value_and_grad(loss)
 
     def step_fn(state, batch):
-        params, opt_state = state
-        (_, metrics), grads = grad_fn(params, batch)
-        kw = {} if sync is None else {"norm": sync(grads)}
-        updates, opt_state = optimizer.update(grads, opt_state, params, **kw)
-        return ((apply_updates(params, updates, donate=optimizer.donate),
-                 opt_state), metrics)
+        with span(STEP):
+            params, opt_state = state
+            (_, metrics), grads = grad_fn(params, batch)
+            kw = {}
+            if sync is not None:
+                with span(SYNC):
+                    kw["norm"] = sync(grads)
+            with span(UPDATE):
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      params, **kw)
+                params = apply_updates(params, updates,
+                                       donate=optimizer.donate)
+        return (params, opt_state), metrics
 
     step_fn.grad_fn, step_fn.optimizer = grad_fn, optimizer
     return step_fn

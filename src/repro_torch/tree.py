@@ -17,6 +17,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from .obs import BACKWARD, FORWARD, span
+
 __all__ = ["TreeDef", "tree_flatten", "tree_unflatten", "tree_leaves",
            "tree_map", "tree_paths", "is_spec", "value_and_grad"]
 
@@ -148,13 +150,16 @@ def value_and_grad(fn: Callable) -> Callable:
     """``jax.value_and_grad(fn, has_aux=True)`` over a tree of tensors:
     ``fn(params, *args) -> (loss, aux)`` becomes ``(params, *args) ->
     ((loss, aux), grads)`` with ``grads`` a tree like ``params``.  A leaf
-    the loss does not reach gets a zero gradient, as in JAX."""
+    the loss does not reach gets a zero gradient, as in JAX.  The loss runs
+    in the span ``step.forward``, its gradients in ``step.backward``."""
 
     def wrapped(params, *args):
         leaves, treedef = tree_flatten(params)
         diff = [p.detach().requires_grad_() for p in leaves]
-        loss, aux = fn(tree_unflatten(treedef, diff), *args)
-        grads = torch.autograd.grad(loss, diff, allow_unused=True)
+        with span(FORWARD):
+            loss, aux = fn(tree_unflatten(treedef, diff), *args)
+        with span(BACKWARD):
+            grads = torch.autograd.grad(loss, diff, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(diff, grads)]
         detached = tree_map(
